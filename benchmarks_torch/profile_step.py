@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Where the time of one data-parallel train step of the port goes on a card.
+
+    python3 benchmarks_torch/profile_step.py
+
+Builds the configuration ``chip_smoke.py`` trains — ``qwen3-4b`` at full
+width with depth cut to 2 layers, 4 stacked data-parallel ranks,
+``grad_sync="rma_ring"``, global batch 8 × 512 — runs two warm-up steps, then
+traces one step with ``torch.profiler`` (CPU and CUDA activities, input
+shapes recorded) and prints:
+
+* the step's wall time, the card's busy time (the sum of its kernels'
+  times) and the idle share 1 − busy / wall;
+* the busy time by part: operators with a vocabulary-sized input (the LM
+  head's products and their gradients, the cross-entropy), the K5 gradient
+  ring, and the rest;
+* the operators with the most device time, with their input shapes, and the
+  kernels with the most time.
+
+Needs one CUDA card; exits non-zero without one.
+"""
+import os
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+N_LAYERS, N_RANKS, GLOBAL_BATCH, SEQ_LEN, WARMUP = 2, 4, 8, 512, 2
+
+
+def self_device_us(evt) -> float:
+    """Device time of an averaged profiler event, its children excluded."""
+    t = getattr(evt, "self_device_time_total", None)
+    if t is None:
+        t = getattr(evt, "self_cuda_time_total", 0.0)
+    return float(t)
+
+
+def is_kernel(evt) -> bool:
+    return str(getattr(evt, "device_type", "")).endswith("CUDA")
+
+
+def main() -> int:
+    sys.path.insert(0, os.path.join(HERE, "..", "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainstep import init_train_state, make_train_step
+
+    cfg = get_config("qwen3-4b").replace(n_layers=N_LAYERS)
+    model = build_model(cfg)
+    params, opt_state = init_train_state(model, 0, device="cuda")
+    step = make_train_step(
+        model, OptimizerConfig(peak_lr=1e-3, warmup_steps=0,
+                               total_steps=WARMUP + 1),
+        grad_sync="rma_ring", data_axis="data", data_axis_size=N_RANKS)
+    data = make_source(DataConfig(vocab=cfg.vocab, seq_len=SEQ_LEN,
+                                  global_batch=GLOBAL_BATCH, seed=0))
+
+    def batch(i):
+        return {k: torch.as_tensor(v, dtype=torch.int64).cuda()
+                for k, v in data.batch_at(i).items()}
+
+    for i in range(WARMUP):
+        params, opt_state, _ = step(params, opt_state, batch(i))
+    b = batch(WARMUP)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    loss = float(metrics["loss"])
+    if loss != loss:
+        raise AssertionError("loss is not finite")
+
+    events = prof.key_averages(group_by_input_shape=True)
+    kernels = [e for e in events if is_kernel(e)]
+    ops = [e for e in events if not is_kernel(e)]
+    busy_ms = sum(self_device_us(e) for e in kernels) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    vocab = {cfg.vocab, cfg.vocab_padded}
+    vocab_ms = sum(self_device_us(e) for e in ops
+                   if any(vocab & set(s) for s in e.input_shapes or []
+                          if all(isinstance(d, int) for d in s))) / 1e3
+    ring_ms = sum(self_device_us(e) for e in kernels      # K5's kernel
+                  if e.key.startswith("ring_ar_kernel")) / 1e3
+    print(f"[profile] qwen3-4b d{cfg.d_model} x{N_LAYERS} layers, {N_RANKS} "
+          f"ranks, batch {GLOBAL_BATCH}x{SEQ_LEN}, one step after {WARMUP}: "
+          f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f} %")
+    print(f"[profile] busy by part: vocabulary-sized operators "
+          f"{vocab_ms:.1f} ms ({100 * vocab_ms / busy_ms:.1f} %), K5 ring "
+          f"{ring_ms:.1f} ms ({100 * ring_ms / busy_ms:.1f} %), rest "
+          f"{busy_ms - vocab_ms - ring_ms:.1f} ms "
+          f"({100 * (busy_ms - vocab_ms - ring_ms) / busy_ms:.1f} %)")
+    print("[profile] operators by device time (self, ms; calls; input shapes):")
+    for e in sorted(ops, key=self_device_us, reverse=True)[:16]:
+        shapes = [s for s in (e.input_shapes or []) if s][:3]
+        print(f"  {self_device_us(e) / 1e3:9.2f}  {e.count:4d}  "
+              f"{e.key[:40]:40s} {shapes}")
+    print("[profile] kernels by device time (ms; calls):")
+    for e in sorted(kernels, key=self_device_us, reverse=True)[:10]:
+        print(f"  {self_device_us(e) / 1e3:9.2f}  {e.count:4d}  {e.key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

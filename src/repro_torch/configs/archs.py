@@ -1,0 +1,66 @@
+"""The dense architectures the port builds, exactly as the JAX package
+registers them (``repro/configs/archs.py``).  The MoE, SSM, hybrid, enc-dec
+and VLM families arrive with their model code (ROADMAP queue 1)."""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig, register
+
+
+@register("qwen3-4b")
+def qwen3_4b() -> ModelConfig:
+    """[dense] qk_norm + GQA [hf:Qwen/Qwen3-8B; hf].
+
+    36L, d=2560, 32H (GQA kv=8), ff=9728, vocab=151936, head_dim=128.
+    """
+    return ModelConfig(
+        name="qwen3-4b", family="dense",
+        n_layers=36, d_model=2560, n_heads=32, n_kv_heads=8, head_dim=128,
+        d_ff=9728, vocab=151936,
+        rope_theta=1e6, qk_norm=True, max_seq=524288,
+    )
+
+
+@register("phi3-mini-3.8b")
+def phi3_mini() -> ModelConfig:
+    """[dense] RoPE + SwiGLU + GQA (kv=32 → MHA) [arXiv:2404.14219; unverified].
+
+    32L, d=3072, 32H (kv=32), ff=8192, vocab=32064.
+    """
+    return ModelConfig(
+        name="phi3-mini-3.8b", family="dense",
+        n_layers=32, d_model=3072, n_heads=32, n_kv_heads=32,
+        d_ff=8192, vocab=32064,
+        rope_theta=1e4, max_seq=524288,
+    )
+
+
+@register("starcoder2-3b")
+def starcoder2_3b() -> ModelConfig:
+    """[dense] GQA + RoPE [arXiv:2402.19173; hf].
+
+    30L, d=3072, 24H (GQA kv=2), ff=12288, vocab=49152.
+    """
+    return ModelConfig(
+        name="starcoder2-3b", family="dense",
+        n_layers=30, d_model=3072, n_heads=24, n_kv_heads=2,
+        d_ff=12288, vocab=49152,
+        rope_theta=1e5, norm="layernorm", act="gelu", attn_bias=True,
+        norm_eps=1e-5, max_seq=524288,
+    )
+
+
+@register("llama3-405b")
+def llama3_405b() -> ModelConfig:
+    """[dense] GQA, 128k vocab [arXiv:2407.21783; unverified].
+
+    126L, d=16384, 128H (GQA kv=8), ff=53248, vocab=128256.
+    """
+    return ModelConfig(
+        name="llama3-405b", family="dense",
+        n_layers=126, d_model=16384, n_heads=128, n_kv_heads=8,
+        d_ff=53248, vocab=128256,
+        rope_theta=5e5, max_seq=524288,
+    )
+
+
+__all__ = []  # populated via @register side effects

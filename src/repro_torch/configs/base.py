@@ -1,0 +1,86 @@
+"""Model configuration and the architecture registry: the JAX package's
+``ModelConfig`` fields that the dense family reads, with torch dtypes.  The
+MoE, MLA, SSM, hybrid, enc-dec and VLM sub-configs arrive with their model
+code (ROADMAP queue 1, items 10–11)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.kernels.common import as_dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense (the only family the port builds so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0          # 0 -> d_model // n_heads
+    rope_theta: float = 10000.0
+    qk_norm: bool = False
+    attn_bias: bool = False
+    norm: str = "rmsnorm"      # rmsnorm | layernorm
+    act: str = "swiglu"        # swiglu | gelu
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+    max_seq: int = 8192
+    #: S_q*S_k above which online-softmax blockwise attention replaces
+    #: materialized scores
+    blockwise_threshold: int = 2048 * 2048
+    attn_impl: str = "auto"    # auto | full | blockwise
+    attn_block_kv: int = 1024
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def vocab_padded(self) -> int:
+        """Embedding/LM-head rows: vocab padded to a multiple of 256; logit
+        pad lanes are masked, never sliced."""
+        return -(-self.vocab // 256) * 256
+
+    @property
+    def activation_dtype(self) -> torch.dtype:
+        return as_dtype(self.dtype)
+
+    @property
+    def parameter_dtype(self) -> torch.dtype:
+        return as_dtype(self.param_dtype)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
+
+
+def register(name: str):
+    def deco(fn: Callable[[], ModelConfig]):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def get_config(name: str) -> ModelConfig:
+    import repro_torch.configs.archs  # noqa: F401  (populates the registry)
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]()
+
+
+def list_archs() -> list[str]:
+    import repro_torch.configs.archs  # noqa: F401
+    return sorted(_REGISTRY)
+
+
+__all__ = ["ModelConfig", "register", "get_config", "list_archs"]

@@ -1,0 +1,45 @@
+"""repro_torch.core.rma — one-sided communication windows on one card.
+
+The PyTorch port of ``repro.core.rma`` (same public names; ranks are the
+rows of stacked ``(n, ...)`` tensors):
+
+* :class:`Substrate`, :class:`FlushQueues`, :class:`PhaseLedger` — the
+  substrate every window is a view over, with the scope-aware flush engine
+  and the phase ledger that holds it to the reference cost model;
+* :class:`Window`, :class:`WindowConfig` — allocated windows and info keys
+  (P1 scope, P2 order, P3 accumulate declarations, P4 ``dup_with_info``);
+* :func:`win_op_intrinsic` and the accumulate engine (:func:`route_accumulate`,
+  :func:`routed_accumulate`, :func:`crossover_elems`, :func:`accumulate_signal`);
+* :class:`Topology` and :func:`default_topology`;
+* :class:`RmaPlan` / :class:`CompiledPlan` — declarative plans;
+* :func:`all_reduce_plan` / :func:`plan_all_reduce` — the planned ring.
+"""
+from repro_torch.core.rma.substrate import (SCOPE_PROCESS, SCOPE_THREAD,
+                                            FlushQueues, PhaseLedger,
+                                            Substrate)
+from repro_torch.core.rma.window import KNOWN_ACC_OPS, Window, WindowConfig
+from repro_torch.core.rma.intrinsic import (INTRINSIC_DTYPES,
+                                            INTRINSIC_MAX_COUNT,
+                                            INTRINSIC_OPS, op_is_intrinsic,
+                                            win_op_intrinsic)
+from repro_torch.core.rma.accumulate import (PATH_INTRINSIC, PATH_SOFTWARE,
+                                             PATH_TILED, accumulate_signal,
+                                             apply_op, crossover_elems,
+                                             route_accumulate,
+                                             routed_accumulate)
+from repro_torch.core.rma.topology import (Topology, default_topology,
+                                           topology_fingerprint)
+from repro_torch.core.rma.plan import (CompiledPlan, OpRef, PlanEnv,
+                                       PlanError, PlanResult, RmaPlan)
+from repro_torch.core.rma.collectives import all_reduce_plan, plan_all_reduce
+
+__all__ = [
+    "Substrate", "FlushQueues", "PhaseLedger", "Window", "WindowConfig",
+    "SCOPE_PROCESS", "SCOPE_THREAD", "KNOWN_ACC_OPS", "win_op_intrinsic",
+    "op_is_intrinsic", "INTRINSIC_OPS", "INTRINSIC_DTYPES",
+    "INTRINSIC_MAX_COUNT", "PATH_INTRINSIC", "PATH_TILED", "PATH_SOFTWARE",
+    "apply_op", "route_accumulate", "routed_accumulate", "accumulate_signal",
+    "crossover_elems", "Topology", "default_topology", "topology_fingerprint",
+    "RmaPlan", "CompiledPlan", "PlanEnv", "PlanResult", "PlanError", "OpRef",
+    "all_reduce_plan", "plan_all_reduce",
+]

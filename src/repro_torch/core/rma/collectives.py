@@ -1,0 +1,332 @@
+"""One-sided collectives on the RMA substrate: the planned ring all-reduce.
+
+The ring is recorded as a declarative plan (:mod:`repro_torch.core.rma.
+plan`) on a thread-scope window: reduce-scatter hops are accumulates routed
+through the engine (a window declaring ``same_op="sum"`` stays at one data
+phase per hop; an undeclared one pays a completion ack per hop), all-gather
+hops are channel sends, and under ``order=True`` (P2) consecutive hops chain
+without flushes — 2(n−1) phases.  A declared ``g×l`` topology rewrites the
+ring hierarchically: intra-host reduce-scatter, a ring over the host
+leaders, intra-host all-gather — 2(g−1) inter-host phases.
+
+Everything is stacked: ``x`` is ``(n, ...)``, row r = rank r's
+contribution, and every row of the result holds the reduction.  The
+declared flat ring executes as one launch of kernel K5
+(``kernels.ring_allreduce``), which sums in this recorder's order.
+
+``put_signal``/``put_signal_pipelined`` wait for kernel K4 (ROADMAP).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.rma.plan import OpRef, RmaPlan, register_plan_cache
+from repro_torch.core.rma.substrate import SCOPE_THREAD
+from repro_torch.core.rma.topology import (Topology, default_topology,
+                                           topology_fingerprint)
+from repro_torch.core.rma.window import Window, WindowConfig
+from repro_torch.kernels.common import as_dtype
+
+
+def _ring_perm(n: int, shift: int = 1):
+    return tuple((i, (i + shift) % n) for i in range(n))
+
+
+def _refs(*xs):
+    """The OpRefs among ``xs`` (binding names carry no ordering edge)."""
+    return tuple(r for r in xs if isinstance(r, OpRef))
+
+
+def _index(x: torch.Tensor, starts: torch.Tensor, size: int):
+    n = x.shape[0]
+    rows = torch.arange(n, device=x.device)[:, None]
+    return rows, starts[:, None] + torch.arange(size, device=x.device)
+
+
+def _take(x: torch.Tensor, starts: torch.Tensor, size: int) -> torch.Tensor:
+    """Per-rank slice along dim 1: ``out[r] = x[r, starts[r]:+size]``."""
+    rows, idx = _index(x, starts, size)
+    return x[rows, idx]
+
+
+def _place(x: torch.Tensor, upd: torch.Tensor, starts: torch.Tensor
+           ) -> torch.Tensor:
+    """Functional per-rank update: a copy of ``x`` with ``upd[r]`` written
+    at ``starts[r]`` of row r."""
+    out = x.clone()
+    rows, idx = _index(x, starts, upd.shape[1])
+    out[rows, idx] = upd.to(x.dtype)
+    return out
+
+
+def _zeros(env, shape, dtype):
+    return torch.zeros((env.n,) + tuple(shape), dtype=dtype,
+                       device=env.ranks.device)
+
+
+def _record_ring_direction(plan, axis: str, n: int, xref, dshape, dtype, *,
+                           shift: int, stream: int, window: str = "ring",
+                           op: str = "sum"):
+    """Record one ring direction (reduce-scatter then all-gather) on plan
+    window ``window``; returns the OpRef of the gathered output.  At hop k
+    rank r adds the incoming partial of chunk (r − s(k+1)) to its own."""
+    del axis
+    chunk = dshape[0] // n
+    pshape, s = (chunk,) + tuple(dshape[1:]), (1 if shift == 1 else -1)
+    perm = _ring_perm(n, shift)
+    state = xref
+    prev_hop = None
+    for k in range(n - 1):
+        piece = plan.compute(
+            lambda env, st=state, k=k: _take(
+                env[st], ((env.ranks - s * k) % n) * chunk, chunk),
+            reads=_refs(state), shape=pshape, dtype=dtype,
+            label=f"rs{shift:+d}:piece{k}")
+        cur = plan.compute(
+            lambda env, st=state, k=k: _take(
+                env[st], ((env.ranks - s * (k + 1)) % n) * chunk, chunk),
+            reads=_refs(state), shape=pshape, dtype=dtype,
+            label=f"rs{shift:+d}:cur{k}")
+        prev_hop = plan.hop(
+            window, piece, cur, perm, op=op, stream=stream,
+            after=_refs(prev_hop), shape=pshape, dtype=dtype,
+            label=f"rs{shift:+d}:hop{k}")
+        state = plan.compute(
+            lambda env, st=state, h=prev_hop, k=k: _place(
+                env[st], env[h], ((env.ranks - s * (k + 1)) % n) * chunk),
+            reads=_refs(state, prev_hop), shape=dshape, dtype=dtype,
+            label=f"rs{shift:+d}:state{k}")
+    mine = plan.compute(
+        lambda env, st=state: _take(env[st], ((env.ranks + s) % n) * chunk,
+                                    chunk),
+        reads=_refs(state), shape=pshape, dtype=dtype,
+        label=f"rs{shift:+d}:mine")
+    # all-gather with owner shift s (rank r owns chunk (r+s) % n after RS)
+    out = plan.compute(
+        lambda env, mn=mine: _place(_zeros(env, dshape, dtype), env[mn],
+                                    ((env.ranks + s) % n) * chunk),
+        reads=_refs(mine), shape=dshape, dtype=dtype,
+        label=f"ag{shift:+d}:out0")
+    piece, prev = mine, prev_hop
+    for k in range(n - 1):
+        sd = plan.send(window, piece, perm, stream=stream, after=_refs(prev),
+                       shape=pshape, dtype=dtype,
+                       label=f"ag{shift:+d}:send{k}")
+        out = plan.compute(
+            lambda env, o=out, sd=sd, k=k: _place(
+                env[o], env[sd], ((env.ranks - s * (k + 1) + s) % n) * chunk),
+            reads=_refs(out, sd), shape=dshape, dtype=dtype,
+            label=f"ag{shift:+d}:out{k + 1}")
+        piece = prev = sd
+    return out
+
+
+def _record_tier_rs(plan, window: str, xref, dshape, dtype, *, size: int,
+                    perm, idx, op: str, stream: int, tag: str, after=None):
+    """Record a reduce-scatter over one tier's ring (shift +1): ``size``
+    ranks per ring, ``perm`` the tier's permutation, ``idx(env)`` each
+    rank's position in its ring.  Returns ``(mine, last_hop)``."""
+    chunk = dshape[0] // size
+    pshape = (chunk,) + tuple(dshape[1:])
+    state, prev_hop = xref, None
+    for k in range(size - 1):
+        piece = plan.compute(
+            lambda env, st=state, k=k: _take(
+                env[st], ((idx(env) - k) % size) * chunk, chunk),
+            reads=_refs(state), shape=pshape, dtype=dtype,
+            label=f"{tag}:rs:piece{k}")
+        cur = plan.compute(
+            lambda env, st=state, k=k: _take(
+                env[st], ((idx(env) - (k + 1)) % size) * chunk, chunk),
+            reads=_refs(state), shape=pshape, dtype=dtype,
+            label=f"{tag}:rs:cur{k}")
+        prev_hop = plan.hop(
+            window, piece, cur, perm, op=op, stream=stream,
+            after=_refs(prev_hop, *(after or ())), shape=pshape, dtype=dtype,
+            label=f"{tag}:rs:hop{k}")
+        state = plan.compute(
+            lambda env, st=state, h=prev_hop, k=k: _place(
+                env[st], env[h], ((idx(env) - (k + 1)) % size) * chunk),
+            reads=_refs(state, prev_hop), shape=dshape, dtype=dtype,
+            label=f"{tag}:rs:state{k}")
+    mine = plan.compute(
+        lambda env, st=state: _take(env[st], ((idx(env) + 1) % size) * chunk,
+                                    chunk),
+        reads=_refs(state), shape=pshape, dtype=dtype,
+        label=f"{tag}:rs:mine")
+    return mine, prev_hop
+
+
+def _record_tier_ag(plan, window: str, xref, pshape, dtype, *, size: int,
+                    perm, idx, stream: int, tag: str, entry=None):
+    """Record an all-gather (owner shift +1) over one tier's ring; ``entry``
+    is the previous stage's last op.  Returns ``(out, last_send)``."""
+    chunk = pshape[0]
+    oshape = (chunk * size,) + tuple(pshape[1:])
+    out = plan.compute(
+        lambda env, mn=xref: _place(_zeros(env, oshape, dtype), env[mn],
+                                    ((idx(env) + 1) % size) * chunk),
+        reads=_refs(xref), shape=oshape, dtype=dtype, label=f"{tag}:ag:out0")
+    piece, prev = xref, entry
+    for k in range(size - 1):
+        sd = plan.send(window, piece, perm, stream=stream, after=_refs(prev),
+                       shape=pshape, dtype=dtype, label=f"{tag}:ag:send{k}")
+        out = plan.compute(
+            lambda env, o=out, sd=sd, k=k: _place(
+                env[o], env[sd], ((idx(env) - (k + 1) + 1) % size) * chunk),
+            reads=_refs(out, sd), shape=oshape, dtype=dtype,
+            label=f"{tag}:ag:out{k + 1}")
+        piece = prev = sd
+    return out, prev
+
+
+def _record_hier_ring(plan, window: str, source, topo: Topology, dshape,
+                      dtype, *, op: str, stream: int):
+    """The hierarchical rewrite: intra-host reduce-scatter → ring over the
+    g host leaders per local index (j-plane lanes) → intra-host all-gather.
+    The intra stages ride same-host perms (the shared-memory tier), so the
+    inter-host phase count is exactly 2(g−1)."""
+    g, l = topo.hosts, topo.local
+
+    def local(env):
+        return env.ranks % l
+
+    def host(env):
+        return env.ranks // l
+
+    perm_i = topo.intra_ring_perm(1)
+    perm_x = topo.inter_ring_perm(1)
+    chunk_a = dshape[0] // l
+    ashape = (chunk_a,) + tuple(dshape[1:])
+    bshape = (chunk_a // g,) + tuple(dshape[1:])
+    mine_a, last_a = _record_tier_rs(
+        plan, window, source, dshape, dtype, size=l, perm=perm_i, idx=local,
+        op=op, stream=stream, tag="hA")
+    mine_b, last_rs = _record_tier_rs(
+        plan, window, mine_a, ashape, dtype, size=g, perm=perm_x, idx=host,
+        op=op, stream=stream, tag="hB", after=_refs(last_a))
+    full_a, last_b = _record_tier_ag(
+        plan, window, mine_b, bshape, dtype, size=g, perm=perm_x, idx=host,
+        stream=stream, tag="hB", entry=last_rs)
+    out, _ = _record_tier_ag(
+        plan, window, full_a, ashape, dtype, size=l, perm=perm_i, idx=local,
+        stream=stream, tag="hC", entry=last_b)
+    return out
+
+
+def lower_ring_all_reduce(plan, window: str, source, axis: str, n: int, *,
+                          shape, dtype, op: str = "sum", stream: int = 0):
+    """Lower ``RmaPlan.ring_all_reduce``: the hierarchical pass under a
+    non-degenerate ``g×l`` topology matching the axis, else the flat ring.
+    Returns ``(out, hierarchical)``."""
+    dshape, dt = tuple(shape), as_dtype(dtype)
+    topo = plan.topology
+    if (topo is not None and topo.axis_size == n
+            and topo.hosts > 1 and topo.local > 1):
+        return _record_hier_ring(plan, window, source, topo, dshape, dt,
+                                 op=op, stream=stream), True
+    return _record_ring_direction(plan, axis, n, source, dshape, dt,
+                                  shift=1, stream=stream, window=window,
+                                  op=op), False
+
+
+_RING_PLANS: dict[tuple, object] = register_plan_cache("ring_collectives", {})
+
+
+def all_reduce_plan(axis: str, n: int, shape, dtype, *, order: bool = True,
+                    bidirectional: bool = False, declare_op: bool = True,
+                    lent: bool = False, naive_flush: bool = False,
+                    topology: Topology | None = None, backend: str = "rma"):
+    """Build (or fetch from the build-once cache) the compiled ring
+    all-reduce plan for one static configuration; ``shape`` is one rank's
+    padded input shape.  ``topology`` with ``g > 1 and l > 1`` selects the
+    hierarchical rewrite (the bidirectional split keeps flat directions);
+    its fingerprint is part of the cache key."""
+    dt = as_dtype(dtype)
+    key = (axis, n, tuple(shape), str(dt), order, bidirectional, declare_op,
+           lent, naive_flush, topology_fingerprint(topology), backend)
+    if key in _RING_PLANS:
+        return _RING_PLANS[key]
+    plan = RmaPlan(f"rma_all_reduce[n={n}]", topology=topology)
+    streams = (0, 1) if bidirectional else (0,)
+    plan.window("ring", scope=SCOPE_THREAD, order=order,
+                max_streams=len(streams),
+                same_op="sum" if declare_op else None,
+                accumulate_ops=("sum",), dtype=dt,
+                entry_epoch=lent, exit_epoch=lent)
+    plan.bind("x", tuple(shape), dt)
+    if bidirectional:
+        h = shape[0] // 2
+        hshape = (h,) + tuple(shape[1:])
+        lo = plan.compute(lambda env: env["x"][:, :h], shape=hshape, dtype=dt,
+                          label="split:lo")
+        hi = plan.compute(lambda env: env["x"][:, h:], shape=hshape, dtype=dt,
+                          label="split:hi")
+        lo_full = _record_ring_direction(plan, axis, n, lo, hshape, dt,
+                                         shift=1, stream=0)
+        hi_full = _record_ring_direction(plan, axis, n, hi, hshape, dt,
+                                         shift=-1, stream=1)
+        out = plan.compute(
+            lambda env: torch.cat([env[lo_full], env[hi_full]], dim=1),
+            reads=(lo_full, hi_full), shape=tuple(shape), dtype=dt,
+            label="concat")
+    else:
+        out = plan.ring_all_reduce("ring", "x", axis, n, shape=tuple(shape),
+                                   dtype=dt, op="sum", stream=0)
+    plan.output("out", out)
+    compiled = plan.compile(naive_flush=naive_flush, backend=backend)
+    _RING_PLANS[key] = compiled
+    return compiled
+
+
+def plan_all_reduce(x: torch.Tensor, axis: str, axis_size: int, *,
+                    order: bool = True, bidirectional: bool = False,
+                    win: Window | None = None, declare_op: bool = True,
+                    topology: Topology | None = None, backend: str = "rma",
+                    donate: bool = False) -> torch.Tensor:
+    """Plan-native one-sided ring all-reduce of the stacked ``x`` (``(n,
+    ...)``): fetch the compiled schedule from the build-once cache and
+    replay it.  ``win``: run on this lent window (its streams are flushed
+    on entry and exit, as an MPI blocking collective would).  ``topology``
+    ``None`` consults ``RMA_TOPOLOGY``.  ``donate=True`` lets the K5 ring
+    reduce ``x`` in place.  Returns the stacked result."""
+    n = axis_size
+    if x.shape[0] != n:
+        raise ValueError(f"plan_all_reduce expects stacked input with "
+                         f"leading dim {n}, got {tuple(x.shape)}")
+    if n == 1:
+        return x
+    if topology is None:
+        topology = default_topology(n)
+    orig = x.shape[1]
+    pad = (-orig) % (2 * n if bidirectional else n)
+    if pad:
+        x = torch.cat([x, x.new_zeros((n, pad) + tuple(x.shape[2:]))], dim=1)
+        donate = True       # the padded copy is ours to overwrite
+    compiled = all_reduce_plan(axis, n, x.shape[1:], x.dtype, order=order,
+                               bidirectional=bidirectional,
+                               declare_op=declare_op, lent=win is not None,
+                               topology=topology, backend=backend)
+    streams = (0, 1) if bidirectional else (0,)
+    if win is None:
+        same_op = "sum" if declare_op else None
+        acc_info = ({"same_op": same_op, "accumulate_ops": (same_op,)}
+                    if same_op is not None else {})
+        ring = Window.allocate(
+            x.contiguous(), axis, n,
+            WindowConfig(scope=SCOPE_THREAD, order=order,
+                         max_streams=len(streams), **acc_info))
+    else:
+        if max(streams) >= win.config.max_streams:
+            raise ValueError(
+                f"ring needs streams {tuple(streams)} but the lent window "
+                f"has max_streams={win.config.max_streams} (dup-immutable); "
+                "allocate it with enough issue streams")
+        ring = win
+    res = compiled.execute({"ring": ring}, {"x": x},
+                           donate=("x",) if donate else ())
+    out = res.outputs["out"]
+    return out[:, :orig] if pad else out
+
+
+__all__ = ["all_reduce_plan", "plan_all_reduce", "lower_ring_all_reduce"]

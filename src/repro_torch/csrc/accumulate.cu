@@ -1,0 +1,116 @@
+// K1 — tiled accumulate, the P3 bandwidth path: buffer op= update.
+//
+// Replaces the TPU kernel repro/kernels/accumulate.py::accumulate
+// (pallas_call at accumulate.py:84, body _acc_kernel).  The TPU version tiles
+// both operands through VMEM in `block`-sized tiles and pads a ragged tail
+// with the op's identity element; here each thread of a grid-stride loop
+// combines its own elements and the tail is simply masked by the loop bound,
+// so no identity padding and no extra copy is needed.  The update lands in
+// place on the buffer (the TPU kernel aliases its output onto the buffer).
+//
+// Bound on an H100: bytes.  Each element is read twice (buffer, update) and
+// written once, one operation per element: at 3.35 TB/s a float32 element
+// costs ~3.6 ps of memory time against ~0.015 ps of float32 ALU time.
+//
+// Layout: `rows` rows of `m` elements; row r of the buffer starts at
+// buf + r * buf_stride, row r of the update at upd + r * upd_stride.  A 1-D
+// accumulate is rows == 1; the substrate's tiled ring path folds all target
+// rows of a window in one launch.  Rows ride gridDim.y.
+#include "rt_common.cuh"
+
+template <typename T>
+struct Combine {
+  __device__ __forceinline__ static T apply(T a, T b, int op) {
+    switch (op) {
+      case OP_SUM: return a + b;
+      case OP_MIN: return rt_fmin(a, b);
+      case OP_MAX: return rt_fmax(a, b);
+      case OP_PROD: return a * b;
+      default: return b;  // OP_REPLACE (bitwise ops are refused for floats)
+    }
+  }
+};
+
+// integers: wrap-around sum/product in unsigned arithmetic (two's complement,
+// as torch and jnp give), min/max/bitwise as is
+template <typename I, typename U>
+struct IntCombine {
+  __device__ __forceinline__ static I apply(I a, I b, int op) {
+    switch (op) {
+      case OP_SUM: return (I)((U)a + (U)b);
+      case OP_MIN: return b < a ? b : a;
+      case OP_MAX: return b > a ? b : a;
+      case OP_PROD: return (I)((U)a * (U)b);
+      case OP_BAND: return a & b;
+      case OP_BOR: return a | b;
+      case OP_BXOR: return a ^ b;
+      default: return b;  // OP_REPLACE
+    }
+  }
+};
+
+template <>
+struct Combine<int32_t> : IntCombine<int32_t, uint32_t> {};
+template <>
+struct Combine<int64_t> : IntCombine<int64_t, uint64_t> {};
+
+// half types combine in float and round once, as torch does on the CPU
+template <>
+struct Combine<__half> {
+  __device__ __forceinline__ static __half apply(__half a, __half b, int op) {
+    if (op == OP_REPLACE) return b;
+    return __float2half(Combine<float>::apply(__half2float(a), __half2float(b), op));
+  }
+};
+template <>
+struct Combine<__nv_bfloat16> {
+  __device__ __forceinline__ static __nv_bfloat16 apply(__nv_bfloat16 a, __nv_bfloat16 b, int op) {
+    if (op == OP_REPLACE) return b;
+    return __float2bfloat16(
+        Combine<float>::apply(__bfloat162float(a), __bfloat162float(b), op));
+  }
+};
+
+template <typename T>
+__global__ void acc_kernel(T* __restrict__ buf, int64_t buf_stride,
+                           const T* __restrict__ upd, int64_t upd_stride,
+                           int64_t m, int op) {
+  T* brow = buf + (int64_t)blockIdx.y * buf_stride;
+  const T* urow = upd + (int64_t)blockIdx.y * upd_stride;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < m; i += step) {
+    brow[i] = Combine<T>::apply(brow[i], urow[i], op);
+  }
+}
+
+template <typename T>
+static int launch(void* buf, int64_t buf_stride, const void* upd, int64_t upd_stride,
+                  int64_t rows, int64_t m, int op, int blocks, cudaStream_t stream) {
+  dim3 grid((unsigned)blocks, (unsigned)rows);
+  acc_kernel<T><<<grid, 256, 0, stream>>>((T*)buf, buf_stride, (const T*)upd, upd_stride, m, op);
+  return (int)cudaGetLastError();
+}
+
+RT_EXPORT int rt_accumulate(void* buf, int64_t buf_stride, const void* upd, int64_t upd_stride,
+                            int64_t rows, int64_t m, int dtype, int op, int blocks,
+                            void* stream) {
+  if (rows < 1 || rows > 65535 || m < 1 || blocks < 1 || op < OP_SUM || op > OP_BXOR)
+    return RT_BAD_ARGUMENT;
+  const bool bitwise = op >= OP_BAND;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case DT_F32: if (bitwise) return RT_BAD_ARGUMENT;
+      return launch<float>(buf, buf_stride, upd, upd_stride, rows, m, op, blocks, s);
+    case DT_F64: if (bitwise) return RT_BAD_ARGUMENT;
+      return launch<double>(buf, buf_stride, upd, upd_stride, rows, m, op, blocks, s);
+    case DT_F16: if (bitwise) return RT_BAD_ARGUMENT;
+      return launch<__half>(buf, buf_stride, upd, upd_stride, rows, m, op, blocks, s);
+    case DT_BF16: if (bitwise) return RT_BAD_ARGUMENT;
+      return launch<__nv_bfloat16>(buf, buf_stride, upd, upd_stride, rows, m, op, blocks, s);
+    case DT_I32:
+      return launch<int32_t>(buf, buf_stride, upd, upd_stride, rows, m, op, blocks, s);
+    case DT_I64:
+      return launch<int64_t>(buf, buf_stride, upd, upd_stride, rows, m, op, blocks, s);
+    default: return RT_BAD_ARGUMENT;
+  }
+}

@@ -1,0 +1,4 @@
+"""repro_torch.data — deterministic token pipelines (numpy, shared contract)."""
+from repro_torch.data.pipeline import DataConfig, FileTokens, SyntheticLM, make_source
+
+__all__ = ["DataConfig", "SyntheticLM", "FileTokens", "make_source"]

@@ -1,0 +1,51 @@
+"""repro_torch.kernels — hand-written Hopper kernels (CUDA C++, sm_90a) with
+their plain PyTorch versions and oracles (``ref``).
+
+Each wrapper takes the stacked ``(n, ...)`` layout (row r = rank r), computes
+its plain version on CPU tensors, and on CUDA tensors launches its kernel or
+raises.  Kernels build at first use (``repro_torch._build``) from
+``repro_torch/csrc/``.
+
+Every TPU kernel of the JAX package, by its ``pallas_call``:
+
+== ===================================== ====================== ===================================== =============
+#  file:line (``pallas_call``)           function               computes / shapes / dtypes            port
+== ===================================== ====================== ===================================== =============
+K1 ``kernels/accumulate.py:84``          ``accumulate``         1-D buffer op= update, any float/int  ``accumulate.py`` (CUDA)
+K2 ``kernels/intrinsic.py:90``           ``ring_accumulate``    per-rank update into neighbour row    ``intrinsic.py`` (CUDA)
+K3 ``kernels/rma_put.py:47``             ``ring_put``           per-rank shard to the neighbour       ``rma_put.py`` (CUDA)
+K4 ``kernels/ordered_put_signal.py:72``  ``put_signal``         payload + flag word, (un)ordered      not yet ported
+K5 ``kernels/ring_allreduce.py:108``     ``ring_all_reduce``    (n·chunk, …) f32 sum all-reduce       ``ring_allreduce.py`` (CUDA)
+K6 ``kernels/ordered_put_signal.py:144`` ``accumulate_signal``  K2's fold + K4's flag fused           not yet ported
+K7 ``kernels/flash_attention.py:84``     ``flash_attention``    (B,H,S,D) causal forward              not yet ported
+K8 ``kernels/ssd_scan.py:62``            ``ssd_intra_chunk``    per (batch, chunk) SSD intra-chunk    not yet ported
+== ===================================== ====================== ===================================== =============
+"""
+from repro_torch.kernels import ref
+from repro_torch.kernels.accumulate import COUNTER as _K1
+from repro_torch.kernels.accumulate import accumulate, op_identity
+from repro_torch.kernels.intrinsic import COUNTER as _K2
+from repro_torch.kernels.intrinsic import ring_accumulate
+from repro_torch.kernels.rma_put import COUNTER as _K3
+from repro_torch.kernels.rma_put import WAIT_COUNTER as _K3_WAIT
+from repro_torch.kernels.rma_put import ring_put
+from repro_torch.kernels.ring_allreduce import COUNTER as _K5
+from repro_torch.kernels.ring_allreduce import ring_all_reduce
+
+#: the launch counter of every ported kernel, by kernel name
+COUNTERS = {c.name: c for c in (_K1, _K2, _K3, _K3_WAIT, _K5)}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: c.count for name, c in COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for c in COUNTERS.values():
+        c.reset()
+
+
+__all__ = [
+    "ref", "accumulate", "op_identity", "ring_accumulate", "ring_put",
+    "ring_all_reduce", "COUNTERS", "launch_counts", "reset_launch_counts",
+]

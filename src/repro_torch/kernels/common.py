@@ -1,0 +1,144 @@
+"""Shared kernel vocabulary: the accumulate op table, tiling helpers, the
+dtype/op codes the CUDA libraries take, launch counters and the device
+dispatch rule every wrapper follows.
+
+The TPU shims of the JAX package (``remote_device_id``, ``sync_copy``,
+``interpret_mode``) have no counterpart: on one card a "remote" write is a
+store into another rank's row, and a kernel runs only on the card.
+
+Dispatch rule: a wrapper given CPU tensors computes its plain PyTorch
+version; given CUDA tensors it launches its kernel or raises — never the
+plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+#: Ops the atomic (intrinsic-path) kernels implement — the accumulate subset
+#: of the hardware envelope (``core.rma.intrinsic.INTRINSIC_OPS`` minus the
+#: non-accumulate ``cas``/``no_op`` entries).
+ATOMIC_KERNEL_OPS = ("sum", "min", "max", "replace", "band", "bor", "bxor")
+
+#: Every op the tiled kernel implements, in the order of the CUDA op codes.
+ACC_OPS = ("sum", "min", "max", "replace", "prod", "band", "bor", "bxor")
+BITWISE_OPS = ("band", "bor", "bxor")
+OP_CODES = {op: i for i, op in enumerate(ACC_OPS)}
+
+#: torch dtype → the CUDA libraries' dtype code (rt_common.cuh)
+DTYPE_CODES = {
+    torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3,
+    torch.int32: 4, torch.int64: 5,
+}
+
+_DTYPE_NAMES = {
+    "float32": torch.float32, "float64": torch.float64,
+    "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "int8": torch.int8, "int16": torch.int16, "int32": torch.int32,
+    "int64": torch.int64, "uint8": torch.uint8, "bool": torch.bool,
+}
+_DTYPE_NAMES.update({n: getattr(torch, n) for n in ("uint16", "uint32", "uint64")
+                     if hasattr(torch, n)})
+
+
+def as_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype, a dtype name, or anything numpy
+    understands as a dtype (so callers may pass numpy or JAX dtypes)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if isinstance(dtype, str):
+        name = dtype
+    else:
+        import numpy as np
+
+        name = np.dtype(dtype).name
+    if name not in _DTYPE_NAMES:
+        raise TypeError(f"unsupported dtype {dtype!r}")
+    return _DTYPE_NAMES[name]
+
+
+def is_integer(dtype) -> bool:
+    dt = as_dtype(dtype)
+    return not dt.is_floating_point and not dt.is_complex and dt != torch.bool
+
+
+def combine_op(cur: torch.Tensor, upd: torch.Tensor, op: str) -> torch.Tensor:
+    """Element-wise combine — THE accumulate op table, shared by every plain
+    version and by ``core.rma.accumulate.apply_op``, so the kernels' twins
+    and the transport cannot drift.  ``prod`` is tiled-only (NICs don't
+    multiply): ``ATOMIC_KERNEL_OPS`` is the whitelist the atomic kernel
+    enforces before reaching here."""
+    if op == "sum":
+        return cur + upd
+    if op == "min":
+        return torch.minimum(cur, upd)
+    if op == "max":
+        return torch.maximum(cur, upd)
+    if op == "prod":
+        return cur * upd
+    if op == "band":
+        return cur & upd
+    if op == "bor":
+        return cur | upd
+    if op == "bxor":
+        return cur ^ upd
+    if op == "replace":
+        return upd.clone()
+    raise ValueError(f"unsupported accumulate op {op!r}")
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(a: int, b: int) -> int:
+    return cdiv(a, b) * b
+
+
+class LaunchCounter:
+    """Number of times one kernel was launched on the card.  Each wrapper
+    adds one where it launches its kernel and nowhere else, so a run can
+    show that its main path went through the kernel."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+
+    def bump(self) -> None:
+        self.count += 1
+
+    def reset(self) -> None:
+        self.count = 0
+
+
+def on_device(*tensors: torch.Tensor) -> bool:
+    """True when the tensors lie on a CUDA device (the wrapper must launch
+    its kernel), False when they lie on the CPU (the wrapper computes its
+    plain version).  Mixed placements raise."""
+    kinds = {t.device.type for t in tensors}
+    if len(kinds) != 1:
+        raise ValueError(f"tensors on mixed devices: {sorted(kinds)}")
+    kind = kinds.pop()
+    if kind == "cuda":
+        return True
+    if kind == "cpu":
+        return False
+    raise ValueError(f"unsupported device type {kind!r}")
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise on a refused launch (the C entry point's return code)."""
+    if rc == -1:
+        raise ValueError(f"{name}: the kernel refused its arguments")
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with code {rc}")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+__all__ = [
+    "ATOMIC_KERNEL_OPS", "ACC_OPS", "BITWISE_OPS", "OP_CODES", "DTYPE_CODES",
+    "as_dtype", "is_integer", "combine_op", "cdiv", "round_up",
+    "LaunchCounter", "on_device", "check_launch", "stream_ptr",
+]

@@ -1,0 +1,57 @@
+"""Plain-PyTorch oracles for the RMA kernels, in the stacked ``(n, ...)``
+layout (row r = rank r's shard).  Each mirrors one kernel's contract; the
+flash-attention and SSD oracles arrive with their kernels."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.common import is_integer
+
+
+def accumulate_ref(buffer: torch.Tensor, update: torch.Tensor, *,
+                   op: str = "sum") -> torch.Tensor:
+    u = update.to(buffer.dtype)
+    if op == "sum":
+        return buffer + u
+    if op == "min":
+        return torch.minimum(buffer, u)
+    if op == "max":
+        return torch.maximum(buffer, u)
+    if op == "prod":
+        return buffer * u
+    if op == "replace":
+        return u.clone()
+    if op in ("band", "bor", "bxor"):
+        if not is_integer(buffer.dtype):
+            return u.clone()
+        return {"band": buffer & u, "bor": buffer | u, "bxor": buffer ^ u}[op]
+    raise KeyError(op)
+
+
+def ring_accumulate_ref(buffer_global, update_global, *, axis_size, shift=1,
+                        op="sum", offset=0):
+    """buffer/update (n, ...) stacked → what each rank's window holds after
+    every rank accumulates its update into rank (r+shift) % n at
+    ``offset``."""
+    landed = torch.roll(update_global, shift, 0)
+    m = landed.shape[1]
+    out = buffer_global.clone()
+    out[:, offset:offset + m] = accumulate_ref(
+        buffer_global[:, offset:offset + m], landed, op=op)
+    return out
+
+
+def ring_put_ref(x_global, *, axis_size, shift=1):
+    """x_global (n, ...) stacked → what each rank holds after every rank
+    puts its shard to (r+shift) % n."""
+    return torch.roll(x_global, shift, 0)
+
+
+def ring_all_reduce_ref(x_global):
+    """x_global (n, m, ...) → every rank holds the sum over ranks."""
+    s = x_global.sum(0, keepdim=True)
+    return s.expand_as(x_global).clone()
+
+
+__all__ = ["accumulate_ref", "ring_accumulate_ref", "ring_put_ref",
+           "ring_all_reduce_ref"]

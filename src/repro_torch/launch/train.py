@@ -1,0 +1,112 @@
+"""Training launcher: synthetic data → train step → per-step record.
+
+Runs on the card unless ``device="cpu"``.  ``dp_ranks > 1`` with
+``grad_sync="rma_ring"`` trains data-parallel over stacked ranks with the
+one-sided ring gradient sync.  ``n_layers`` cuts depth (never width) to fit
+a configuration on one card.  Checkpointing and the straggler monitor of
+the JAX launcher are not ported yet.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --tiny \
+      --steps 20 --dp-ranks 4 --grad-sync rma_ring --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import get_config, tiny_config
+from repro_torch.data.pipeline import DataConfig, make_source
+from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.train.optimizer import OptimizerConfig
+from repro_torch.train.trainstep import init_train_state, make_train_step
+from repro_torch.tree import leaves
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """What a run did: per-step losses, wall times (ms, each step ending in
+    a device synchronization) and, on the card, each step's parts (ms by
+    part: gradients, gradient ring, AdamW — CUDA events)."""
+
+    steps_run: int
+    losses: list
+    step_ms: list
+    part_ms: list
+    phases: int | None
+    n_params: int
+
+
+def train(arch: str, *, tiny: bool = True, steps: int = 100,
+          global_batch: int = 8, seq_len: int = 64, peak_lr: float = 3e-3,
+          warmup_steps: int | None = None, log_every: int = 10,
+          data_seed: int = 0, seed: int = 0, grad_sync: str = "gspmd",
+          dp_ranks: int = 1, n_layers: int | None = None,
+          device="cuda") -> TrainRun:
+    dev = resolve_device(device)
+    cfg = tiny_config(arch) if tiny else get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    model = build_model(cfg)
+    warm = min(20, steps // 5) if warmup_steps is None else warmup_steps
+    opt_cfg = OptimizerConfig(peak_lr=peak_lr, warmup_steps=warm,
+                              total_steps=steps)
+    data = make_source(DataConfig(vocab=cfg.vocab, seq_len=seq_len,
+                                  global_batch=global_batch, seed=data_seed))
+    params, opt_state = init_train_state(model, seed, device=dev)
+    n_params = sum(p.numel() for p in leaves(params))
+    step_fn = make_train_step(model, opt_cfg, grad_sync=grad_sync,
+                              data_axis="data", data_axis_size=dp_ranks)
+    losses, step_ms, part_ms, phases = [], [], [], None
+    for step in range(steps):
+        batch = {k: torch.as_tensor(v, dtype=torch.int64).to(dev)
+                 for k, v in data.batch_at(step).items()}
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        loss = float(metrics["loss"])   # waits for the step's device work
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if "events" in metrics:
+            part_ms.append({k: a.elapsed_time(b)
+                            for k, (a, b) in metrics["events"].items()})
+        phases = metrics.get("phases", phases)
+        if step % log_every == 0 or step == steps - 1:
+            print(f"[train] step={step} loss={loss:.4f} "
+                  f"lr={float(metrics['lr']):.2e} "
+                  f"gnorm={float(metrics['grad_norm']):.3f} "
+                  f"ms={step_ms[-1]:.1f}", flush=True)
+    return TrainRun(steps_run=steps, losses=losses, step_ms=step_ms,
+                    part_ms=part_ms, phases=phases, n_params=n_params)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--tiny", action="store_true", default=True)
+    ap.add_argument("--full", dest="tiny", action="store_false")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--peak-lr", type=float, default=3e-3)
+    ap.add_argument("--grad-sync", choices=("gspmd", "rma_ring"),
+                    default="gspmd")
+    ap.add_argument("--dp-ranks", type=int, default=1)
+    ap.add_argument("--n-layers", type=int, default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    run = train(args.arch, tiny=args.tiny, steps=args.steps,
+                global_batch=args.global_batch, seq_len=args.seq_len,
+                peak_lr=args.peak_lr, grad_sync=args.grad_sync,
+                dp_ranks=args.dp_ranks, n_layers=args.n_layers,
+                device=args.device)
+    print(f"[train] done: loss {run.losses[0]:.4f} -> {run.losses[-1]:.4f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,4 @@
+"""repro_torch.models — the dense transformer family (training path)."""
+from repro_torch.models.model import Model, build_model
+
+__all__ = ["Model", "build_model"]

@@ -1,0 +1,91 @@
+"""Top-level model API: ``build_model(cfg)`` → ``init`` / ``forward`` /
+``loss`` for the dense family, training path.
+
+Batch convention: ``{"tokens": (B, S) int64, "labels": (B, S) int64}``.
+Parameters are a plain dict tree with the JAX package's names and layouts
+(``repro_torch.convert.params_from_jax`` carries reference weights over).
+"""
+from __future__ import annotations
+
+import dataclasses
+from functools import cached_property
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers, transformer
+from repro_torch.models.transformer import LayerSpec
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+
+    @cached_property
+    def plan(self) -> list[LayerSpec]:
+        return transformer.layer_plan(self.cfg)
+
+    def init(self, seed: int = 0, *, device="cuda") -> dict:
+        """Random parameters from ``seed`` (a ``torch.Generator`` on the
+        target device), on the card unless ``device="cpu"``."""
+        dev = resolve_device(device)
+        cfg = self.cfg
+        gen = None
+        if dev.type != "meta":   # shape-only builds draw no numbers
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+        pd = cfg.parameter_dtype
+        params = {
+            "embed": layers.init_embed(gen, cfg.vocab_padded, cfg.d_model,
+                                       pd, dev),
+            "stack": transformer.init_stack(gen, cfg, dev, self.plan),
+            "final_norm": transformer._norm_init(cfg, dev),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = layers.init_lm_head(gen, cfg.d_model,
+                                                    cfg.vocab_padded, pd, dev)
+        return params
+
+    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = transformer._norm(x, params["final_norm"], cfg)
+        if cfg.tie_embeddings:
+            logits = layers.unembed(x, params["embed"])
+        else:
+            logits = layers.lm_head(x, params["lm_head"])
+        if cfg.vocab_padded != cfg.vocab:
+            lane = torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab
+            logits = torch.where(lane, logits, logits.new_full((), -1e30))
+        return logits
+
+    def forward(self, params, batch) -> torch.Tensor:
+        """Full-sequence forward; returns float32 logits."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = layers.embed(tokens, params["embed"], cfg.activation_dtype)
+        positions = torch.arange(x.shape[1], device=x.device).expand(
+            x.shape[:2])
+        x = transformer.apply_stack(params["stack"], x, cfg,
+                                    positions=positions, causal=True,
+                                    plan=self.plan)
+        return self._logits(params, x)
+
+    def loss(self, params, batch) -> tuple[torch.Tensor, dict]:
+        """Mean next-token cross-entropy over labels >= 0."""
+        logits = self.forward(params, batch)
+        labels = batch["labels"]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        xent = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        aux = xent.new_zeros(())
+        return xent, {"xent": xent, "aux": aux}
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    transformer.layer_plan(cfg)   # refuses families the port cannot build
+    return Model(cfg)
+
+
+__all__ = ["Model", "build_model"]

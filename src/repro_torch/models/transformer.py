@@ -1,0 +1,114 @@
+"""Transformer stack for the dense family: the layer plan and its
+[prefix] + [repeating period × count] decomposition, kept so the parameter
+tree matches the JAX package's (scanned leaves stacked on a leading layer
+axis).  The reference scans the periods (rematerializing each under
+``remat="block"``); here a Python loop walks them and keeps activations."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models import attention, layers
+from repro_torch.tree import tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    mixer: str = "gqa"
+    ffn: str = "dense"
+    cross: bool = False
+
+
+def layer_plan(cfg) -> list[LayerSpec]:
+    """The per-layer structure of the decoder stack (dense family)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported to repro_torch yet "
+            "(ROADMAP queue 1, items 10-11)")
+    return [LayerSpec() for _ in range(cfg.n_layers)]
+
+
+def stage_plan(plan: list[LayerSpec]) -> tuple[int, int]:
+    """Decompose ``plan`` into (prefix_len, period)."""
+    n = len(plan)
+    for prefix in (0, 1, 2):
+        rest = plan[prefix:]
+        if not rest:
+            continue
+        for period in (1, 2, 4, 8, 16):
+            if len(rest) % period == 0 and all(
+                    rest[i] == rest[i % period] for i in range(len(rest))):
+                return prefix, period
+    return n, 1
+
+
+def _norm_init(cfg, device):
+    if cfg.norm == "layernorm":
+        return layers.init_layernorm(cfg.d_model, cfg.parameter_dtype, device)
+    return layers.init_rmsnorm(cfg.d_model, cfg.parameter_dtype, device)
+
+
+def _norm(x, p, cfg):
+    if cfg.norm == "layernorm":
+        return layers.layer_norm(x, p, cfg.norm_eps)
+    return layers.rms_norm(x, p, cfg.norm_eps)
+
+
+def init_block(gen, spec: LayerSpec, cfg, device) -> dict:
+    pd = cfg.parameter_dtype
+    p: dict = {"norm_mixer": _norm_init(cfg, device),
+               "attn": attention.init_gqa(gen, cfg, device),
+               "norm_ffn": _norm_init(cfg, device)}
+    if cfg.act == "gelu":
+        p["mlp"] = layers.init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, pd, device,
+                                        bias=cfg.attn_bias)
+    else:
+        p["mlp"] = layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, pd, device)
+    return p
+
+
+def apply_block(params: dict, spec: LayerSpec, x: torch.Tensor, cfg, *,
+                positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """One decoder block (pre-norm attention + pre-norm MLP)."""
+    h = _norm(x, params["norm_mixer"], cfg)
+    x = x + attention.gqa_attention(params["attn"], h, cfg,
+                                    positions=positions, causal=causal,
+                                    block_kv=cfg.attn_block_kv)
+    h = _norm(x, params["norm_ffn"], cfg)
+    mlp = layers.gelu_mlp if cfg.act == "gelu" else layers.swiglu
+    return x + mlp(h, params["mlp"])
+
+
+def init_stack(gen, cfg, device, plan: list[LayerSpec] | None = None) -> dict:
+    plan = plan if plan is not None else layer_plan(cfg)
+    prefix, period = stage_plan(plan)
+    count = (len(plan) - prefix) // period
+    params: dict = {"prefix": [init_block(gen, plan[i], cfg, device)
+                               for i in range(prefix)]}
+    if count:
+        per_layer = [{f"l{j}": init_block(gen, plan[prefix + j], cfg, device)
+                      for j in range(period)} for _ in range(count)]
+        params["scan"] = tree_map(lambda *xs: torch.stack(xs), *per_layer)
+    return params
+
+
+def apply_stack(params: dict, x: torch.Tensor, cfg, *,
+                positions: torch.Tensor, causal: bool = True,
+                plan: list[LayerSpec] | None = None) -> torch.Tensor:
+    plan = plan if plan is not None else layer_plan(cfg)
+    prefix, period = stage_plan(plan)
+    count = (len(plan) - prefix) // period
+    for i in range(prefix):
+        x = apply_block(params["prefix"][i], plan[i], x, cfg,
+                        positions=positions, causal=causal)
+    for c in range(count):
+        block = tree_map(lambda p: p[c], params["scan"])
+        for j in range(period):
+            x = apply_block(block[f"l{j}"], plan[prefix + j], x, cfg,
+                            positions=positions, causal=causal)
+    return x
+
+
+__all__ = ["LayerSpec", "layer_plan", "stage_plan", "init_block",
+           "apply_block", "init_stack", "apply_stack"]

@@ -1,0 +1,169 @@
+"""Train-step factory: loss → grads → (optional RMA grad sync) → AdamW.
+
+Two gradient-synchronization modes, over a stacked data-parallel axis:
+
+* ``"gspmd"``: one program over the whole global batch, no sync — the
+  single-program reference the ring is held against.
+* ``"rma_ring"``: ``data_axis_size = n`` ranks.  Rank r takes the r-th
+  contiguous block of the global batch, computes its gradients (averaged
+  over ``accum_steps`` micro-batches in float32), and lays them out as row r
+  of an ``(n, P)`` float32 matrix in the reference's leaf order.  One
+  one-sided ring all-reduce on a **sum-specialized dup** of that gradient
+  window (``same_op="sum"``, paper §2.3 hints × P4) sums the rows — a
+  declarative-plan replay that the planner lowers to one launch of kernel
+  K5 — and the gradients are that sum over n.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
+                                         init_opt_state)
+from repro_torch.tree import leaves, unflatten
+
+
+def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
+                    grad_sync: str = "gspmd", data_axis: str | None = None,
+                    data_axis_size: int = 1, topology=None,
+                    backend: str = "rma"):
+    """Build ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``; ``batch`` is the global batch.  Parameters and optimizer
+    state are updated in place.  On the card, CUDA events bracket the
+    step's parts — gradients, the gradient ring, AdamW
+    (``metrics["events"]``, name → (start, end)).
+
+    ``topology``: the data axis's host×device factorization (``None``
+    consults ``RMA_TOPOLOGY``); a non-degenerate one makes the ring
+    hierarchical.  ``backend``: only ``"rma"`` is ported."""
+    if grad_sync not in ("gspmd", "rma_ring"):
+        raise ValueError(f"grad_sync={grad_sync!r}; expected 'gspmd' or "
+                         "'rma_ring'")
+    if backend != "rma":
+        raise NotImplementedError(
+            f"backend={backend!r} is not ported to repro_torch yet (ROADMAP "
+            "queue 1, item 12)")
+    n = data_axis_size if grad_sync == "rma_ring" else 1
+    axis = data_axis or "data"
+
+    def grads_into(params, batch, out: torch.Tensor | None):
+        """Loss and gradients of one batch, averaged over ``accum_steps``
+        micro-batches.  With ``out`` (a float32 vector), the gradients are
+        written there in leaf order instead of returned."""
+        # differentiable aliases of the parameters (no copy)
+        ps = [p.detach().requires_grad_(True) for p in leaves(params)]
+        params = unflatten(params, ps)
+        rows = batch["tokens"].shape[0]
+        if rows % accum_steps:
+            raise ValueError(f"batch of {rows} rows not divisible by "
+                             f"accum_steps={accum_steps}")
+        per = rows // accum_steps
+        acc = None if out is None else out
+        loss_sum = None
+        for a in range(accum_steps):
+            mb = {k: v[a * per:(a + 1) * per] for k, v in batch.items()}
+            with torch.enable_grad():
+                loss, _ = model.loss(params, mb)
+                gs = torch.autograd.grad(loss, ps)
+            loss = loss.detach()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            if out is None:
+                gs = [g.float() for g in gs]
+                acc = gs if acc is None else [x + g for x, g in zip(acc, gs)]
+            else:
+                off = 0
+                for g in gs:
+                    seg = out[off:off + g.numel()]
+                    if a == 0:
+                        seg.copy_(g.reshape(-1))
+                    else:
+                        seg.add_(g.reshape(-1).float())
+                    off += g.numel()
+        if accum_steps > 1:
+            if out is None:
+                acc = [g / accum_steps for g in acc]
+            else:
+                out.div_(accum_steps)
+            loss_sum = loss_sum / accum_steps
+        return loss_sum, acc
+
+    def sync_grads(params, batch, metrics, mark):
+        from repro_torch.core.rma.collectives import plan_all_reduce
+        from repro_torch.core.rma.topology import default_topology
+        from repro_torch.core.rma.window import Window, WindowConfig
+
+        ps = leaves(params)
+        size = sum(p.numel() for p in ps)
+        width = -(-size // (4 * n)) * (4 * n)   # whole, vector-aligned chunks
+        device = ps[0].device
+        mat = torch.empty((n, width), dtype=torch.float32, device=device)
+        mat[:, size:] = 0
+        rows = batch["tokens"].shape[0]
+        if rows % n:
+            raise ValueError(f"global batch of {rows} rows not divisible by "
+                             f"data_axis_size={n}")
+        per = rows // n
+        losses = []
+        for r in range(n):
+            shard = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
+            loss, _ = grads_into(params, shard, mat[r, :size])
+            losses.append(loss)
+        topo = topology if topology is not None else default_topology(n)
+        # one window, one ring, all leaves: the gradient matrix is exposed
+        # as a window and the ring runs on its sum-specialized dup
+        win = Window.allocate(
+            mat, axis, n, WindowConfig(scope="thread", order=True,
+                                       accumulate_ops=("sum",), topology=topo))
+        sumwin = win.dup_with_info(same_op="sum")
+        mark("grads", "sync")
+        red = plan_all_reduce(mat, axis, n, order=True, win=sumwin,
+                              topology=topo, donate=True)
+        metrics["phases"] = win.ledger.total
+        vec = red[0, :size] / n   # every row holds the sum
+        out, off = [], 0
+        for p in ps:
+            out.append(vec[off:off + p.numel()].view(p.shape))
+            off += p.numel()
+        return torch.stack(losses).mean(), unflatten(params, out)
+
+    def train_step(params, opt_state, batch):
+        metrics: dict = {}
+        events: dict = {}
+        on_card = leaves(params)[0].is_cuda
+
+        def mark(done, start):
+            """Close the part ``done`` and open ``start`` (CUDA events)."""
+            if not on_card:
+                return
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            if done:
+                events[done] = (events[done], ev)
+            if start:
+                events[start] = ev
+
+        mark(None, "grads")
+        if n > 1:
+            loss, grads = sync_grads(params, batch, metrics, mark)
+            mark("sync", "adamw")
+        else:
+            loss, gs = grads_into(params, batch, None)
+            grads = unflatten(params, gs)
+            mark("grads", "adamw")
+        params, opt_state, opt_metrics = adamw_update(grads, opt_state, params,
+                                                      opt_cfg)
+        mark("adamw", None)
+        if on_card:
+            metrics["events"] = events
+        metrics.update({"loss": loss, "xent": loss,
+                        "aux": loss.new_zeros(()), **opt_metrics})
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def init_train_state(model, seed: int = 0, *, device="cuda"):
+    params = model.init(seed, device=device)
+    return params, init_opt_state(params)
+
+
+__all__ = ["make_train_step", "init_train_state"]
