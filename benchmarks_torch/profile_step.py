@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time of one data-parallel train step of the port goes on a card.
+"""Where the time of one train step of the port goes on a card.
 
-    python3 benchmarks_torch/profile_step.py
+    python3 benchmarks_torch/profile_step.py [--moe]
 
-Builds the configuration ``chip_smoke.py`` trains — ``qwen3-4b`` at full
-width with depth cut to 2 layers, 4 stacked data-parallel ranks,
-``grad_sync="rma_ring"``, global batch 8 × 512 — runs two warm-up steps, then
+Builds a configuration ``chip_smoke.py`` trains — by default ``qwen3-4b``
+at full width with depth cut to 2 layers, 4 stacked data-parallel ranks,
+``grad_sync="rma_ring"``; with ``--moe``, ``llama4-maverick-400b-a17b`` at
+full width with 2 layers and 8 experts over 4 stacked expert-parallel ranks,
+``moe_ep="rma"`` — global batch 8 × 512, runs two warm-up steps, then
 traces one step with ``torch.profiler`` (CPU and CUDA activities, input
 shapes recorded) and prints:
 
@@ -13,12 +15,15 @@ shapes recorded) and prints:
   times) and the idle share 1 − busy / wall;
 * the busy time by part: operators with a vocabulary-sized input (the LM
   head's products and their gradients, the cross-entropy), the K5 gradient
-  ring, and the rest;
+  ring, the K4/K6 doorbell launches of the all-to-all exchanges, and the
+  rest;
 * the operators with the most device time, with their input shapes, and the
   kernels with the most time.
 
 Needs one CUDA card; exits non-zero without one.
 """
+import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -26,6 +31,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 N_LAYERS, N_RANKS, GLOBAL_BATCH, SEQ_LEN, WARMUP = 2, 4, 8, 512, 2
+MOE_EXPERTS = 8
 
 
 def self_device_us(evt) -> float:
@@ -40,7 +46,11 @@ def is_kernel(evt) -> bool:
     return str(getattr(evt, "device_type", "")).endswith("CUDA")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--moe", action="store_true",
+                    help="profile the expert-parallel llama4-maverick step")
+    args = ap.parse_args(argv)
     sys.path.insert(0, os.path.join(HERE, "..", "src"))
     import torch
 
@@ -55,13 +65,25 @@ def main() -> int:
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.trainstep import init_train_state, make_train_step
 
-    cfg = get_config("qwen3-4b").replace(n_layers=N_LAYERS)
-    model = build_model(cfg)
-    params, opt_state = init_train_state(model, 0, device="cuda")
-    step = make_train_step(
-        model, OptimizerConfig(peak_lr=1e-3, warmup_steps=0,
-                               total_steps=WARMUP + 1),
-        grad_sync="rma_ring", data_axis="data", data_axis_size=N_RANKS)
+    opt = OptimizerConfig(peak_lr=1e-3, warmup_steps=0,
+                          total_steps=WARMUP + 1)
+    if args.moe:
+        cfg = get_config("llama4-maverick-400b-a17b")
+        cfg = cfg.replace(n_layers=N_LAYERS, moe=dataclasses.replace(
+            cfg.moe, num_experts=MOE_EXPERTS))
+        model = build_model(cfg)
+        params, opt_state = init_train_state(model, 0, device="cuda")
+        step = make_train_step(model, opt, moe_ep="rma", ep_ranks=N_RANKS)
+        what = (f"{cfg.name} d{cfg.d_model} x{N_LAYERS} layers, "
+                f"{MOE_EXPERTS} experts over {N_RANKS} expert ranks")
+    else:
+        cfg = get_config("qwen3-4b").replace(n_layers=N_LAYERS)
+        model = build_model(cfg)
+        params, opt_state = init_train_state(model, 0, device="cuda")
+        step = make_train_step(model, opt, grad_sync="rma_ring",
+                               data_axis="data", data_axis_size=N_RANKS)
+        what = (f"{cfg.name} d{cfg.d_model} x{N_LAYERS} layers, {N_RANKS} "
+                "data-parallel ranks")
     data = make_source(DataConfig(vocab=cfg.vocab, seq_len=SEQ_LEN,
                                   global_batch=GLOBAL_BATCH, seed=0))
 
@@ -95,15 +117,22 @@ def main() -> int:
                           if all(isinstance(d, int) for d in s))) / 1e3
     ring_ms = sum(self_device_us(e) for e in kernels      # K5's kernel
                   if e.key.startswith("ring_ar_kernel")) / 1e3
-    print(f"[profile] qwen3-4b d{cfg.d_model} x{N_LAYERS} layers, {N_RANKS} "
-          f"ranks, batch {GLOBAL_BATCH}x{SEQ_LEN}, one step after {WARMUP}: "
-          f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle "
-          f"{100 * (1 - busy_ms / wall_ms):.1f} %")
+    signal = [e for e in kernels if e.key.startswith("void signal_kernel")
+              or e.key.startswith("signal_kernel")]       # K4 and K6
+    signal_ms = sum(self_device_us(e) for e in signal) / 1e3
+    rest_ms = busy_ms - vocab_ms - ring_ms - signal_ms
+    print(f"[profile] {what}, batch {GLOBAL_BATCH}x{SEQ_LEN}, one step after "
+          f"{WARMUP}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
+          f"idle {100 * (1 - busy_ms / wall_ms):.1f} %")
     print(f"[profile] busy by part: vocabulary-sized operators "
           f"{vocab_ms:.1f} ms ({100 * vocab_ms / busy_ms:.1f} %), K5 ring "
-          f"{ring_ms:.1f} ms ({100 * ring_ms / busy_ms:.1f} %), rest "
-          f"{busy_ms - vocab_ms - ring_ms:.1f} ms "
-          f"({100 * (busy_ms - vocab_ms - ring_ms) / busy_ms:.1f} %)")
+          f"{ring_ms:.1f} ms ({100 * ring_ms / busy_ms:.1f} %), K4/K6 "
+          f"{signal_ms:.3f} ms ({100 * signal_ms / busy_ms:.2f} %), rest "
+          f"{rest_ms:.1f} ms ({100 * rest_ms / busy_ms:.1f} %)")
+    for e in signal:
+        print(f"[profile] {e.key[:60]}: {e.count} launches, "
+              f"{self_device_us(e) / max(1, e.count) / 1e3:.4f} ms each "
+              "(device time)")
     print("[profile] operators by device time (self, ms; calls; input shapes):")
     for e in sorted(ops, key=self_device_us, reverse=True)[:16]:
         shapes = [s for s in (e.input_shapes or []) if s][:3]

@@ -3,25 +3,35 @@
 
     python3 chip_smoke.py
 
-1. Builds the four CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, all at once) and holds each against its plain PyTorch
-   version on the card: K1 tiled accumulate, K2 atomic accumulate, K3 put
-   and its flush wait, K5 ring all-reduce — every op and dtype the kernel
-   takes, a ragged tail,
-   and the main path's own shapes — timing kernel, plain version and the
-   nearest single PyTorch call.
-2. Drives the main path with every launch counter at 0: the window layer
-   (allocate → dup_with_info → ring put with a thread-scope flush →
-   declared accumulates below and above the crossover → an undeclared one),
-   each phase-ledger count held to the reference cost model; then a
-   data-parallel ``qwen3-4b`` train step at full width (depth cut to 2
-   layers) over 4 stacked ranks with the one-sided ring gradient sync.
+1. Builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, all at once) and holds each against its plain PyTorch version on
+   the card: K1 tiled accumulate, K2 atomic accumulate, K3 put and its
+   flush wait, K4 put+signal, K5 ring all-reduce, K6 accumulate+signal —
+   every op and dtype the kernel takes, a ragged tail, ordered and
+   unordered, and the paths' own shapes; K4's check mode counts the copy
+   units a consumer read behind a raised flag that differ from what was
+   sent (must be 0), in the launch the paths run.  Times kernel, plain
+   version and the nearest single PyTorch call (K4 and K6 by CUDA-graph
+   replay, so the times are the card's alone).
+2. Drives each path with every launch counter at 0 just before it and
+   reads the counters just after: the window layer (allocate →
+   dup_with_info → ring put with a thread-scope flush → declared
+   accumulates below and above the crossover → an undeclared one →
+   put_signal on an ordered and an unordered window), each phase-ledger
+   count held to the reference cost model; a data-parallel ``qwen3-4b``
+   train step at full width (depth cut to 2 layers) over 4 stacked ranks
+   with the one-sided ring gradient sync; the planned all-to-all at the MoE
+   exchange's shape, held bit for bit to the same plan run op by op; and an
+   expert-parallel ``llama4-maverick-400b-a17b`` train step at full width
+   (2 layers, 8 of 128 experts, 4 stacked expert ranks) whose dispatch and
+   combine exchanges run on K4 and K6, forward and backward.
 3. Prints the kernels' record as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result;
 so it does without a CUDA device, or without the repository around it.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -41,6 +51,12 @@ ATOMIC_COUNT = 8              # at the default crossover: the intrinsic path
 STEPS = 4
 GLOBAL_BATCH, SEQ_LEN = 8, 512
 N_LAYERS = 2                  # depth cut for one card; every width is full
+# llama4-maverick at full width: 2 of 48 layers (one dense + one MoE layer,
+# a whole interleave period) and 8 of 128 experts, 2 on each of 4 stacked
+# expert-parallel ranks — the share of 4 chips of a 64-chip expert layer
+MOE_ARCH = "llama4-maverick-400b-a17b"
+MOE_EXPERTS, EP_RANKS, MOE_STEPS = 8, 4, 4
+A2A_PHASES = 16               # the JAX planner's count at n = 4 (CPU tests)
 
 
 def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
@@ -63,6 +79,30 @@ def time_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(torch, fn, reps: int = 20, replays: int = 5) -> float:
+    """Card time of one ``fn()``: ``reps`` calls captured in one CUDA graph
+    and the graph replayed, so no host work falls between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                    # warm-up, off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (reps * replays)
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -83,12 +123,15 @@ def main() -> int:
 
     from repro_torch import _build
     from repro_torch import kernels as K
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ref as R
+    from repro_torch.models import moe as moe_lib
 
     k1 = sys.modules["repro_torch.kernels.accumulate"]
     k2 = sys.modules["repro_torch.kernels.intrinsic"]
     k3 = sys.modules["repro_torch.kernels.rma_put"]
     k5 = sys.modules["repro_torch.kernels.ring_allreduce"]
+    k46 = sys.modules["repro_torch.kernels.ordered_put_signal"]
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -98,8 +141,8 @@ def main() -> int:
           f"cuda {torch.version.cuda} card {smi}", flush=True)
     t0 = time.perf_counter()
     _build.build()
-    print(f"[build] 4 kernel libraries in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"[build] {len(_build.SOURCES)} kernel libraries in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     record: dict[str, dict] = {}
@@ -142,6 +185,73 @@ def main() -> int:
               f"K5 {n}x{length}")
     print("[kernels] K1/K2/K3/K5 equal their plain versions: every op, "
           "float32/int32, ragged tails", flush=True)
+
+    # K4 / K6: ordered and Listing-1, every dtype of the paths and every K6
+    # op, ragged tails and the all-to-all's own blocks (Cp x (d+1) bf16)
+    cfg_moe = get_config(MOE_ARCH)
+    d_model = cfg_moe.d_model
+    tokens_rank = GLOBAL_BATCH * SEQ_LEN // EP_RANKS
+    cp = moe_lib._pair_capacity(cfg_moe.moe, tokens_rank, EP_RANKS)
+    a2a_block = (N_RANKS, cp, d_model + 1)
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        for shape in ((N_RANKS, 13), (8, 1001, 3), (3, 1), a2a_block):
+            n_ = shape[0]
+            x = rand(shape, dtype)
+            for ordered in (True, False):
+                f = rand((n_, 2), dtype)
+                got = k46.put_signal(x, f, axis_size=n_, ordered=ordered)
+                want = k46.put_signal(x.cpu(), f.cpu(), axis_size=n_,
+                                      ordered=ordered)
+                check(torch.equal(got[0].cpu(), want[0])
+                      and torch.equal(got[1].cpu(), want[1]),
+                      f"K4 {dtype} {shape} ordered={ordered}")
+            if shape == a2a_block and dtype != torch.bfloat16:
+                continue
+            for op in k46.ATOMIC_KERNEL_OPS:
+                if op in k1.BITWISE_OPS and dtype.is_floating_point:
+                    continue
+                b = rand((n_, shape[1] + 5) + shape[2:], dtype)
+                f = rand((n_, 1), dtype)
+                for ordered in (True, False):
+                    got = k46.accumulate_signal(x, b, f, axis_size=n_, op=op,
+                                                offset=3, ordered=ordered)
+                    want = k46.accumulate_signal(
+                        x.cpu(), b.cpu(), f.cpu(), axis_size=n_, op=op,
+                        offset=3, ordered=ordered)
+                    check(torch.equal(got[0].cpu(), want[0])
+                          and torch.equal(got[1].cpu(), want[1]),
+                          f"K6 {op} {dtype} {shape} ordered={ordered}")
+    # the ordering check, in the copy unit and launch mode of the launch it
+    # checks: at the a2a block the dispatch's own 16-byte copy, ordered
+    # (plain launch) and Listing 1 (cooperative)
+    ring_t = [(r + 1) % N_RANKS for r in range(N_RANKS)]
+    mismatched, units = {}, {}
+    for shape, dtype in ((a2a_block, torch.bfloat16), ((N_RANKS, 4097),
+                                                       torch.int32)):
+        x = rand(shape, dtype)
+        for ordered in (True, False):
+            dst = torch.zeros_like(x)
+            fl = torch.zeros((N_RANKS, 4), dtype=torch.int32, device=dev)
+            bad = torch.zeros(1, dtype=torch.int32, device=dev)
+            k46.put_signal_rows(x, dst, ring_t,
+                                flag=torch.ones((N_RANKS, 1),
+                                                dtype=torch.int32),
+                                flag_dst=fl, flag_offset=2, ordered=ordered,
+                                check=bad)
+            mismatched[(shape, ordered)] = bad.item()
+            units[shape] = k46.copy_unit(x, dst)
+            check(torch.equal(dst, torch.roll(x, 1, 0)),
+                  f"K4 check mode {shape} landed wrong")
+    check(units[a2a_block] == 16, f"K4 copies the a2a block in "
+          f"{units[a2a_block]}-byte units, not 16")
+    check(not any(mismatched.values()),
+          f"K4 ordering check: units read behind a raised flag differ "
+          f"{mismatched}")
+    print(f"[kernels] K4/K6 equal their plain versions: ordered and "
+          f"unordered, float32/bfloat16/int32, every K6 op, ragged tails, "
+          f"the a2a block {list(a2a_block)}; ordering check mismatched units "
+          f"{sum(mismatched.values())} (copy units in bytes: "
+          f"{ {str(list(k)): v for k, v in units.items()} })", flush=True)
 
     # main-path shapes: the window tour's (K1, K2, K3) and the gradient
     # ring's (K5)
@@ -221,7 +331,63 @@ def main() -> int:
     check(stalls[0].item() == 2, "K3 wait stalled on met counts")
     del win_buf, upd, got, dst, landed, region
 
-    from repro_torch.configs import get_config
+    # K4 at the dispatch's per-peer block, K6 at the combine's: (n, Cp,
+    # d+1) and (n, Cp, d) bfloat16, the doorbell an int32 header word
+    tgt_ring = torch.tensor(ring_t, dtype=torch.int32, device=dev)
+    tgt_long = tgt_ring.long()
+    hdr = torch.zeros((n, 2 * n), dtype=torch.int32, device=dev)
+    bell = torch.ones((n, 1), dtype=torch.int32, device=dev)
+    sig = dict(flag=bell, flag_dst=hdr, flag_offset=n + 1)
+    # the arrival counters a window keeps (every launch leaves them at 0)
+    scr = torch.zeros(n + 2, dtype=torch.int32, device=dev)
+    blk = rand(a2a_block, torch.bfloat16)
+    landed_k, landed_p = torch.zeros_like(blk), torch.zeros_like(blk)
+    k46.put_signal_rows(blk, landed_k, tgt_ring, **sig)
+    k46.put_signal_rows_plain(blk, landed_p, tgt_ring, **sig)
+    check(torch.equal(landed_k, landed_p), "K4 at the dispatch block")
+    err = (landed_k.float() - landed_p.float()).abs().max().item()
+    rolled_flag = torch.zeros_like(hdr)
+    record["put_signal"] = dict(
+        ms=graph_ms(torch, lambda: k46.put_signal_rows(
+            blk, landed_k, tgt_ring, scratch=scr, **sig)),
+        plain_ms=graph_ms(torch, lambda: k46.put_signal_rows_plain(
+            blk, landed_p, ring_t, **sig)),
+        library_ms=graph_ms(torch, lambda: (
+            torch.roll(blk, 1, 0),
+            rolled_flag[:, n + 1:n + 2].copy_(torch.roll(bell, 1, 0)))),
+        max_abs_err=err, shape=list(a2a_block), dtype="bfloat16")
+    nbytes = blk.numel() * 2
+    record["put_signal"]["bound_ms"], record["put_signal"]["bound_by"] = \
+        bound_ms(2 * nbytes + 8 * n)
+    # the same put+signal in the Listing-1 shape: every flag waits for
+    # every payload of the launch (the cost P2 removes)
+    unordered_ms = graph_ms(torch, lambda: k46.put_signal_rows(
+        blk, landed_k, tgt_ring, ordered=False, scratch=scr, **sig))
+    print(f"[kernel] put_signal {list(a2a_block)} unordered (Listing 1): "
+          f"{unordered_ms:.4f} ms against {record['put_signal']['ms']:.4f} "
+          f"ordered", flush=True)
+    comb = (n, cp, d_model)
+    yb = rand(comb, torch.bfloat16)
+    cur = rand(comb, torch.bfloat16)
+    out_k, out_p = cur.clone(), cur.clone()
+    k46.accumulate_signal_rows(yb, out_k, tgt_ring, op="sum", **sig)
+    k46.accumulate_signal_rows_plain(yb, out_p, tgt_ring, op="sum", **sig)
+    check(torch.equal(out_k, out_p), "K6 at the combine block")
+    err = (out_k.float() - out_p.float()).abs().max().item()
+    record["accumulate_signal"] = dict(
+        ms=graph_ms(torch, lambda: k46.accumulate_signal_rows(
+            yb, out_k, tgt_ring, op="sum", scratch=scr, **sig)),
+        plain_ms=graph_ms(torch, lambda: k46.accumulate_signal_rows_plain(
+            yb, out_p, ring_t, op="sum", **sig)),
+        library_ms=graph_ms(torch, lambda: out_p.index_add_(0, tgt_long,
+                                                            yb)),
+        max_abs_err=err, shape=list(comb), dtype="bfloat16")
+    record["accumulate_signal"]["bound_ms"], \
+        record["accumulate_signal"]["bound_by"] = bound_ms(
+            3 * yb.numel() * 2 + 8 * n, yb.numel())
+    check(not scr.any(), "K4/K6 left their arrival counters set")
+    del blk, landed_k, landed_p, yb, cur, out_k, out_p
+
     from repro_torch.models import build_model
     from repro_torch.tree import leaves
 
@@ -263,8 +429,23 @@ def main() -> int:
               f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}, bound "
               f"{r['bound_ms']:.4f} by {r['bound_by']})", flush=True)
 
-    # ---- 2. the main path, every launch counter from 0 ----------------------
-    from repro_torch.core.rma import Window, WindowConfig
+    # ---- 2. the paths, every launch counter from 0 just before each -------
+    from repro_torch.core.rma import (Window, WindowConfig, all_to_all_plan,
+                                      put_signal)
+    from repro_torch.launch.train import train
+
+    launches = {name: 0 for name in K.COUNTERS}
+
+    def path_counts(what: str, must) -> dict:
+        """Read the counters after a path: each of its kernels launched,
+        and every launch added to the record."""
+        got = K.launch_counts()
+        for name in must:
+            check(got[name] > 0, f"{what}: kernel {name} never launched")
+        for name, c in got.items():
+            launches[name] += c
+        print(f"[launches] {what}: {got}", flush=True)
+        return got
 
     K.reset_launch_counts()
     buf = torch.zeros((n, M), device=dev)
@@ -303,26 +484,46 @@ def main() -> int:
     print(f"[window] ledger {dict(win.ledger.by_kind)}: put 1, thread flush "
           "2, intrinsic 1, tiled 1, software 2 — the reference cost model",
           flush=True)
-    del buf, win, sumwin, data, expect
+    # the quickstart's put_signal (paper Listings 2 and 1): payload then
+    # doorbell, one K4 launch, on an ordered and on an unordered window
+    signal_phases = {}
+    for order, want_phases in ((True, 2), (False, 4)):
+        sw = Window.allocate(torch.zeros((n, M), device=dev), "x", n,
+                             WindowConfig(scope="thread", order=order,
+                                          same_op="sum",
+                                          accumulate_ops=("sum",)))
+        payload = rand((n, M - 8), torch.float32)
+        put_signal(sw, payload, ring, data_offset=0, flag_offset=M - 1)
+        signal_phases[order] = sw.ledger.total
+        check(sw.ledger.total == want_phases,
+              f"put_signal order={order}: {sw.ledger.total} phases, the "
+              f"reference cost model bills {want_phases}")
+        sw.flush(stream=0)
+        check(torch.equal(sw.buffer[:, :M - 8], torch.roll(payload, 1, 0))
+              and bool((sw.buffer[:, M - 1] == 1).all()),
+              f"put_signal order={order} landed wrong")
+        check(sw.substrate.completion_ok(),
+              f"put_signal order={order} completion counters")
+    print(f"[window] put_signal phases ordered {signal_phases[True]}, "
+          f"unordered {signal_phases[False]} (reference: 2 and 4)",
+          flush=True)
+    path_counts("window tour", ("accumulate", "ring_accumulate", "ring_put",
+                                "put_wait", "put_signal"))
+    del buf, win, sumwin, data, expect, sw, payload
     torch.cuda.empty_cache()
 
-    from repro_torch.launch.train import train
-
+    K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    k5_before = K.COUNTERS["ring_all_reduce"].count
     run = train("qwen3-4b", tiny=False, n_layers=N_LAYERS, steps=STEPS,
                 global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN, peak_lr=1e-3,
                 warmup_steps=0, grad_sync="rma_ring", dp_ranks=n,
                 device="cuda", log_every=1)
-    counts = K.launch_counts()
+    counts = path_counts("qwen3-4b step", ("ring_all_reduce", "put_wait"))
     check(run.n_params == n_params, "parameter count")
     check(all(v == v and abs(v) < 1e6 for v in run.losses), "loss not finite")
     check(run.losses[-1] < run.losses[0], f"loss did not fall: {run.losses}")
-    check(counts["ring_all_reduce"] - k5_before == STEPS,
-          "K5 did not run once per step")
+    check(counts["ring_all_reduce"] == STEPS, "K5 did not run once per step")
     check(run.phases == 2 * n, "ring + exit epoch != 2n phases")
-    for name, c in counts.items():
-        check(c > 0, f"kernel {name} never launched on the main path")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(len(run.part_ms) == STEPS, "the step's parts were not timed")
     parts = {k: [round(p[k], 2) for p in run.part_ms]
@@ -332,6 +533,99 @@ def main() -> int:
           f"{[round(v, 4) for v in run.losses]}; step ms "
           f"{[round(v, 1) for v in run.step_ms]}; parts ms (CUDA events) "
           f"{parts}; peak memory {peak_gib:.1f} GiB", flush=True)
+    del run
+    torch.cuda.empty_cache()
+
+    # the planned all-to-all at the MoE exchange's shape: the kernels' run
+    # is held bit for bit to the same plan run op by op (K3 transfers, K2
+    # doorbells), and its ledger to the JAX planner's count
+    a2a_shape = (n * cp, d_model + 1)
+    send_counts = torch.randint(0, cp + 1, (n, n), generator=gen, device=dev,
+                                dtype=torch.int32)
+
+    def a2a_windows(x, op):
+        hdr_w = Window.allocate(
+            torch.zeros((n, 2 * n), dtype=torch.int32, device=dev), "x", n,
+            WindowConfig(scope="thread", order=True, max_streams=2,
+                         same_op="sum", accumulate_ops=("sum",)))
+        acc = {} if op is None else {"same_op": op, "accumulate_ops": (op,)}
+        data_w = Window.allocate(x.clone(), "x", n, WindowConfig(
+            scope="thread", order=True, max_streams=2, **acc))
+        return {"data": data_w, "hdr": hdr_w}
+
+    a2a_cases = []
+    for dtype in (torch.int32, torch.bfloat16):
+        x = rand((n,) + a2a_shape, dtype)
+        for op in (None, "sum"):
+            compiled = all_to_all_plan("x", n, a2a_shape, dtype, op=op)
+            kinds = {low[1] for low in compiled.lowering}
+            check(kinds == {"k4" if op is None else "k6"},
+                  f"a2a op={op}: lowering {compiled.lowering}")
+            opbyop = dataclasses.replace(compiled, signal_pairs=())
+            want = opbyop.execute(a2a_windows(x, op),
+                                  {"x": x, "counts": send_counts}).outputs
+            a2a_cases.append((x, op, compiled, want))
+    K.reset_launch_counts()
+    for x, op, compiled, want in a2a_cases:
+        wins = a2a_windows(x, op)
+        got = compiled.execute(wins, {"x": x, "counts": send_counts}).outputs
+        for name in ("out", "counts", "bells"):
+            check(torch.equal(got[name], want[name]),
+                  f"a2a {x.dtype} op={op}: {name} differs from op by op")
+        ledger = sum(w.ledger.total for w in wins.values())
+        check(ledger == compiled.phases == A2A_PHASES,
+              f"a2a {x.dtype} op={op}: ledger {ledger}, planned "
+              f"{compiled.phases}, JAX planner {A2A_PHASES}")
+    counts = path_counts("all-to-all", ("put_signal", "accumulate_signal"))
+    check(counts["put_signal"] == counts["accumulate_signal"] == 2 * (n - 1),
+          f"a2a launches {counts}: want one K4 (plain) or K6 (sum) per peer "
+          f"and exchange")
+    print(f"[a2a] n={n} blocks ({cp}, {d_model + 1}) int32 and bfloat16, "
+          f"op None/sum: bit-identical to op by op; ledger {A2A_PHASES} "
+          f"phases = the JAX planner's; K4 {counts['put_signal']}, K6 "
+          f"{counts['accumulate_signal']} launches", flush=True)
+    del a2a_cases, x, want, got, wins
+    torch.cuda.empty_cache()
+
+    # the expert-parallel train step at full width
+    moe_cfg = cfg_moe.replace(n_layers=N_LAYERS, moe=dataclasses.replace(
+        cfg_moe.moe, num_experts=MOE_EXPERTS))
+    moe_params = sum(p.numel() for p in leaves(
+        build_model(moe_cfg).init(0, device="meta")))
+    print(f"[plan] {MOE_ARCH} x{N_LAYERS} layers, {MOE_EXPERTS} experts over "
+          f"{EP_RANKS} ranks: {moe_params} parameters, "
+          f"{moe_params * 16 / 2**30:.1f} GiB of weights, gradients and Adam "
+          f"state", flush=True)
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run = train(MOE_ARCH, tiny=False, n_layers=N_LAYERS,
+                num_experts=MOE_EXPERTS, steps=MOE_STEPS,
+                global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN, peak_lr=1e-3,
+                warmup_steps=0, grad_sync="gspmd", moe_ep="rma",
+                ep_ranks=EP_RANKS, device="cuda", log_every=1)
+    counts = path_counts(f"{MOE_ARCH} step", ("put_signal",
+                                              "accumulate_signal"))
+    check(run.n_params == moe_params, "MoE parameter count")
+    check(all(v == v and abs(v) < 1e6 for v in run.losses), "loss not finite")
+    check(run.losses[-1] < run.losses[0], f"loss did not fall: {run.losses}")
+    # per MoE layer and step: dispatch (K4) and combine (K6) forward, and
+    # each one's transpose in the backward, n-1 peers each
+    per_step = 2 * (EP_RANKS - 1)
+    check(counts["put_signal"] == counts["accumulate_signal"]
+          == per_step * MOE_STEPS,
+          f"K4/K6 launches {counts['put_signal']}/"
+          f"{counts['accumulate_signal']}, want {per_step} each per step")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(len(run.part_ms) == MOE_STEPS, "the step's parts were not timed")
+    parts = {k: [round(p[k], 2) for p in run.part_ms]
+             for k in run.part_ms[0]}
+    print(f"[train] {MOE_ARCH} d{d_model} x{N_LAYERS} layers (dense, MoE), "
+          f"{MOE_EXPERTS} experts top-{cfg_moe.moe.top_k} over {EP_RANKS} "
+          f"ranks, batch {GLOBAL_BATCH}x{SEQ_LEN} bf16: losses "
+          f"{[round(v, 4) for v in run.losses]}; step ms "
+          f"{[round(v, 1) for v in run.step_ms]}; parts ms (CUDA events; "
+          f"exchanges lie inside grads) {parts}; peak memory "
+          f"{peak_gib:.1f} GiB", flush=True)
 
     # ---- 3. the record ------------------------------------------------------
     replaces = {
@@ -339,18 +633,24 @@ def main() -> int:
         "ring_accumulate": ("K2", "src/repro/kernels/intrinsic.py:90"),
         "ring_put": ("K3", "src/repro/kernels/rma_put.py:47"),
         "put_wait": ("K3", "src/repro/kernels/rma_put.py:47"),
+        "put_signal": ("K4", "src/repro/kernels/ordered_put_signal.py:72"),
         "ring_all_reduce": ("K5", "src/repro/kernels/ring_allreduce.py:108"),
+        "accumulate_signal": ("K6",
+                              "src/repro/kernels/ordered_put_signal.py:144"),
     }
     sources = {"accumulate": "accumulate.cu", "ring_accumulate": "intrinsic.cu",
                "ring_put": "rma_put.cu", "put_wait": "rma_put.cu",
-               "ring_all_reduce": "ring_allreduce.cu"}
+               "put_signal": "put_signal.cu",
+               "ring_all_reduce": "ring_allreduce.cu",
+               "accumulate_signal": "put_signal.cu"}
     rows = []
-    for name, r in record.items():
+    for name in replaces:
+        r = record[name]
         tag, where = replaces[name]
         rows.append({
             "name": f"{tag} {name}", "route": "cuda",
             "source": f"src/repro_torch/csrc/{sources[name]}",
-            "replaces": where, "launches": counts[name],
+            "replaces": where, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

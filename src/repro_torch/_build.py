@@ -32,6 +32,7 @@ SOURCES = {
     "intrinsic": "intrinsic.cu",
     "rma_put": "rma_put.cu",
     "ring_allreduce": "ring_allreduce.cu",
+    "put_signal": "put_signal.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,6 +53,13 @@ SIGNATURES = {
                 "rt_put_wait": (_P, _I64, _I, _I, _U32P, _P, _P)},
     "ring_allreduce": {"rt_ring_all_reduce":
                        (_P, _I64, _I64, _I64, _P, _P, _I, _P)},
+    "put_signal": {
+        "rt_put_signal": (_P, _I64, _P, _I64, _I64, _P, _P, _I64, _I64, _I,
+                          _P, _I64, _P, _I64, _I64, _I64, _I, _I, _P, _P, _I,
+                          _I, _I, _I, _P, _P, _P),
+        "rt_accumulate_signal": (_P, _I64, _P, _I64, _I64, _P, _P, _I64, _I64,
+                                 _I, _I, _P, _I64, _P, _I64, _I64, _I64, _I,
+                                 _I, _P, _P, _I, _I, _I, _I, _P, _P)},
 }
 
 _loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}

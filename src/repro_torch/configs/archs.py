@@ -1,9 +1,10 @@
-"""The dense architectures the port builds, exactly as the JAX package
-registers them (``repro/configs/archs.py``).  The MoE, SSM, hybrid, enc-dec
-and VLM families arrive with their model code (ROADMAP queue 1)."""
+"""The dense and MoE architectures the port builds, exactly as the JAX
+package registers them (``repro/configs/archs.py``).  The MLA, SSM, hybrid,
+enc-dec and VLM families arrive with their model code (ROADMAP queue 1,
+item 11)."""
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import ModelConfig, MoEConfig, register
 
 
 @register("qwen3-4b")
@@ -60,6 +61,24 @@ def llama3_405b() -> ModelConfig:
         n_layers=126, d_model=16384, n_heads=128, n_kv_heads=8,
         d_ff=53248, vocab=128256,
         rope_theta=5e5, max_seq=524288,
+    )
+
+
+@register("llama4-maverick-400b-a17b")
+def llama4_maverick() -> ModelConfig:
+    """[moe] 128 routed experts top-1 + 1 shared, alternating dense/MoE
+    [hf:meta-llama/Llama-4-Scout-17B-16E; unverified].
+
+    48L, d=5120, 40H (GQA kv=8), ff=8192 per expert, vocab=202048.
+    """
+    return ModelConfig(
+        name="llama4-maverick-400b-a17b", family="moe",
+        n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8,
+        d_ff=16384, vocab=202048,
+        rope_theta=5e5, max_seq=524288,
+        moe=MoEConfig(num_experts=128, top_k=1, d_ff_expert=8192,
+                      n_shared=1, d_ff_shared=8192,
+                      interleave_step=2, interleave_offset=1),
     )
 
 

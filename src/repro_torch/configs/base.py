@@ -1,10 +1,11 @@
 """Model configuration and the architecture registry: the JAX package's
-``ModelConfig`` fields that the dense family reads, with torch dtypes.  The
-MoE, MLA, SSM, hybrid, enc-dec and VLM sub-configs arrive with their model
-code (ROADMAP queue 1, items 10–11)."""
+``ModelConfig`` fields that the dense and MoE families read, with torch
+dtypes.  The MLA, SSM, hybrid, enc-dec and VLM sub-configs arrive with their
+model code (ROADMAP queue 1, item 11)."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
@@ -13,9 +14,38 @@ from repro_torch.kernels.common import as_dtype
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0
+    d_ff_shared: int = 0
+    capacity_factor: float = 1.25
+    renorm_gates: bool = True
+    #: every `interleave_step`-th layer is MoE (1 = all layers);
+    #: offset chooses which residue is MoE.
+    interleave_step: int = 1
+    interleave_offset: int = 0
+    #: first `first_dense` layers use a dense FFN instead (DeepSeek).
+    first_dense: int = 0
+    d_ff_first_dense: int = 0
+    #: expert-parallel dispatch: "gspmd" is the single-program sort
+    #: dispatch; "rma" runs it over stacked expert-parallel ranks through
+    #: the one-sided declared all-to-all (repro_torch.core.rma.alltoall).
+    ep_mode: str = "gspmd"
+    #: lowering backend of the "rma" dispatch/combine plans (only "rma" is
+    #: ported; "auto" and "gspmd" raise).
+    ep_backend: str = "rma"
+
+    def capacity(self, tokens: int) -> int:
+        c = math.ceil(tokens * self.top_k * self.capacity_factor / self.num_experts)
+        return max(8, -(-c // 8) * 8)  # round up to 8 for tiling
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (the only family the port builds so far)
+    family: str  # dense | moe (the families the port builds so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -36,6 +66,7 @@ class ModelConfig:
     blockwise_threshold: int = 2048 * 2048
     attn_impl: str = "auto"    # auto | full | blockwise
     attn_block_kv: int = 1024
+    moe: MoEConfig | None = None
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
 
@@ -83,4 +114,5 @@ def list_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-__all__ = ["ModelConfig", "register", "get_config", "list_archs"]
+__all__ = ["MoEConfig", "ModelConfig", "register", "get_config",
+           "list_archs"]

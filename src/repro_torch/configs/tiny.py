@@ -1,8 +1,11 @@
 """Reduced same-family configs for tests and examples: ``tiny_config(arch)``
 keeps the structure of the architecture (family, qk-norm, GQA ratio, norm
-and activation kinds) and shrinks widths and depth, exactly as the JAX
-package's ``tiny_config`` does for the dense family."""
+and activation kinds, MoE interleave) and shrinks widths, depth and
+experts, exactly as the JAX package's ``tiny_config`` does for the dense
+and MoE families."""
 from __future__ import annotations
+
+import dataclasses
 
 from repro_torch.configs.base import ModelConfig, get_config
 
@@ -17,6 +20,13 @@ def tiny_config(arch: str, *, dtype: str = "float32") -> ModelConfig:
     if cfg.n_heads > 1:
         kw.update(n_heads=4, n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4,
                   head_dim=16)
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, top_k=min(2, cfg.moe.top_k),
+            d_ff_expert=64, d_ff_shared=64, d_ff_first_dense=128,
+            first_dense=min(1, cfg.moe.first_dense),
+            capacity_factor=8.0,  # ample: no drops, so oracles match exactly
+        )
     return cfg.replace(**kw)
 
 

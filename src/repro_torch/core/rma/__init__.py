@@ -12,7 +12,10 @@ rows of stacked ``(n, ...)`` tensors):
   :func:`routed_accumulate`, :func:`crossover_elems`, :func:`accumulate_signal`);
 * :class:`Topology` and :func:`default_topology`;
 * :class:`RmaPlan` / :class:`CompiledPlan` — declarative plans;
-* :func:`all_reduce_plan` / :func:`plan_all_reduce` — the planned ring.
+* :func:`all_reduce_plan` / :func:`plan_all_reduce` — the planned ring;
+* :func:`put_signal` / :func:`put_signal_pipelined` — payload then doorbell;
+* :func:`all_to_all_plan` / :func:`plan_all_to_all` — the planned MoE
+  all-to-all.
 """
 from repro_torch.core.rma.substrate import (SCOPE_PROCESS, SCOPE_THREAD,
                                             FlushQueues, PhaseLedger,
@@ -31,7 +34,11 @@ from repro_torch.core.rma.topology import (Topology, default_topology,
                                            topology_fingerprint)
 from repro_torch.core.rma.plan import (CompiledPlan, OpRef, PlanEnv,
                                        PlanError, PlanResult, RmaPlan)
-from repro_torch.core.rma.collectives import all_reduce_plan, plan_all_reduce
+from repro_torch.core.rma.collectives import (all_reduce_plan,
+                                              plan_all_reduce, put_signal,
+                                              put_signal_pipelined)
+from repro_torch.core.rma.alltoall import (AllToAllResult, all_to_all_plan,
+                                           plan_all_to_all)
 
 __all__ = [
     "Substrate", "FlushQueues", "PhaseLedger", "Window", "WindowConfig",
@@ -41,5 +48,7 @@ __all__ = [
     "apply_op", "route_accumulate", "routed_accumulate", "accumulate_signal",
     "crossover_elems", "Topology", "default_topology", "topology_fingerprint",
     "RmaPlan", "CompiledPlan", "PlanEnv", "PlanResult", "PlanError", "OpRef",
-    "all_reduce_plan", "plan_all_reduce",
+    "all_reduce_plan", "plan_all_reduce", "put_signal",
+    "put_signal_pipelined", "all_to_all_plan", "plan_all_to_all",
+    "AllToAllResult",
 ]

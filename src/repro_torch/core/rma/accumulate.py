@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.core.rma.intrinsic import INTRINSIC_MAX_COUNT, op_is_intrinsic
 from repro_torch.kernels.accumulate import accumulate_rows
-from repro_torch.kernels.common import combine_op
+from repro_torch.kernels.common import ATOMIC_KERNEL_OPS, combine_op
 
 Perm = Sequence[tuple[int, int]]
 
@@ -193,13 +193,25 @@ def accumulate_signal(win, data: torch.Tensor, perm: Perm, *,
     """Fused accumulate-with-signal: land an update and then its completion
     flag, both routed through the engine (on a ``same_op`` window the flag
     uses the declared op).  Under P2 the flag follows the update on the
-    ordered stream with no flush; without P2 a flush separates them.
-    ``flag_value``: stacked ``(n, 1)``, default :func:`default_flag_value`
-    for every rank."""
+    ordered stream with no flush, and an op of the atomic set runs as one
+    K6 launch (``kernels.ordered_put_signal``) billed as the two routed
+    accumulates; without P2 a flush separates them.  ``flag_value``:
+    stacked ``(n, 1)``, default :func:`default_flag_value` for every
+    rank."""
     flag_op = win.config.same_op if win.config.same_op is not None else "sum"
     if flag_value is None:
         one = default_flag_value(flag_op, win.buffer.dtype)
         flag_value = one.to(win.buffer.device).expand(win.axis_size, 1)
+    if win.config.order and op in ATOMIC_KERNEL_OPS:
+        win._check_stream(stream)
+        path = route(op, int(data[0].numel()), data.dtype, win.config)
+        flag_path = route(flag_op, int(flag_value[0].numel()),
+                          win.buffer.dtype, win.config)
+        win.substrate.acc_signal(
+            data, perm, op, path=path, offset=data_offset, flag=flag_value,
+            flag_offset=flag_offset, flag_op=flag_op, flag_path=flag_path,
+            stream=stream, shm=win._shm(perm))
+        return win
     win = routed_accumulate(win, data, perm, op=op, offset=data_offset,
                             stream=stream)
     if not win.config.order:

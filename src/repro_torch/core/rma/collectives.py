@@ -14,12 +14,17 @@ contribution, and every row of the result holds the reduction.  The
 declared flat ring executes as one launch of kernel K5
 (``kernels.ring_allreduce``), which sums in this recorder's order.
 
-``put_signal``/``put_signal_pipelined`` wait for kernel K4 (ROADMAP).
+Producer/consumer notification (paper Listings 1 and 2): ``put_signal`` and
+``put_signal_pipelined`` land a payload and then its flag, the pair as one
+launch of kernel K4 (``kernels.ordered_put_signal``).
 """
 from __future__ import annotations
 
 import torch
 
+import dataclasses
+
+from repro_torch.core.rma import accumulate as acc_engine
 from repro_torch.core.rma.plan import OpRef, RmaPlan, register_plan_cache
 from repro_torch.core.rma.substrate import SCOPE_THREAD
 from repro_torch.core.rma.topology import (Topology, default_topology,
@@ -329,4 +334,90 @@ def plan_all_reduce(x: torch.Tensor, axis: str, axis_size: int, *,
     return out[:, :orig] if pad else out
 
 
-__all__ = ["all_reduce_plan", "plan_all_reduce", "lower_ring_all_reduce"]
+# ---------------------------------------------------------------------------
+# Producer/consumer put+signal (paper Listings 1 & 2)
+# ---------------------------------------------------------------------------
+
+
+def _flag_payload(win: Window, flag_value):
+    """The flag's op on this window (its declared ``same_op``, else sum) and
+    the stacked ``(n, k)`` flag payload (default: the op-aware value)."""
+    flag_op = win.config.same_op if win.config.same_op is not None else "sum"
+    if flag_value is None:
+        one = acc_engine.default_flag_value(flag_op, win.buffer.dtype)
+        flag_value = one.to(win.buffer.device).expand(win.axis_size, 1)
+    return flag_op, flag_value.reshape(win.axis_size, -1)
+
+
+def _put_then_signal(win: Window, data, perm, *, data_offset, flag_offset,
+                     flag_value, stream) -> Window:
+    """The last put and its flag as one K4 launch, ordered on an
+    ``order=True`` window and in the Listing-1 shape otherwise."""
+    win._check_stream(stream)
+    flag_op, flag = _flag_payload(win, flag_value)
+    path = acc_engine.route(flag_op, int(flag[0].numel()), win.buffer.dtype,
+                            win.config)
+    win.substrate.put_signal(
+        data, perm, offset=data_offset, flag=flag, flag_offset=flag_offset,
+        flag_op=flag_op, flag_path=path, stream=stream, shm=win._shm(perm),
+        ordered=win.config.order, scope=win.config.scope)
+    return win
+
+
+def put_signal(win: Window, data: torch.Tensor, perm, *, data_offset=0,
+               flag_offset: int, flag_value=None, stream: int = 0,
+               after=None) -> Window:
+    """Put the stacked ``data`` then raise a completion flag at the target.
+
+    * ``win.config.order=True`` (paper Listing 2): the flag accumulate is
+      chained behind the put on the ordered channel — no intermediate
+      flush.  Phases: put 1 + flag 1 (2 on a hint-less window).
+    * ``win.config.order=False`` (paper Listing 1): a full flush separates
+      the put and the signal — 2 more phases, and on the card a grid-wide
+      completion wait inside the launch.
+
+    The flag is an accumulate routed through the engine: on a ``same_op``
+    window it uses the declared op, and the default ``flag_value`` (stacked
+    ``(n, 1)``) is op-aware (``accumulate.default_flag_value``; under
+    ``prod``/``band`` the caller must pre-set the word).  Both halves run as
+    one K4 launch.  ``after`` (a completion token of another window) is not
+    ported: the port has no tokens (ROADMAP queue 1, item 2)."""
+    if after is not None:
+        raise NotImplementedError(
+            "put_signal(after=...) is not ported to repro_torch yet: the port "
+            "has no completion tokens (ROADMAP queue 1, item 2)")
+    return _put_then_signal(win, data, perm, data_offset=data_offset,
+                            flag_offset=flag_offset, flag_value=flag_value,
+                            stream=stream)
+
+
+def put_signal_pipelined(win: Window, data: torch.Tensor, perm, *,
+                         chunks: int, data_offset: int = 0, flag_offset: int,
+                         flag_value=None, stream: int = 0,
+                         order: bool | None = None) -> Window:
+    """Chunked put + single signal: chunk ``c`` of the stacked ``data``
+    (split along dim 1) lands at ``data_offset + c * step``, back to back,
+    and the flag chains behind the last chunk (P2) or behind a flush
+    (without P2).  The last chunk and the flag are one K4 launch.
+
+    ``order``: per-use override of the ordering info key, applied by
+    duplicating the caller's window (P4) and handing back the caller's
+    config over the updated substrate."""
+    n = data.shape[1]
+    if n % chunks:
+        raise ValueError(f"data length {n} not divisible by chunks={chunks}")
+    view = win if order is None else win.dup_with_info(order=order)
+    step = n // chunks
+    for c in range(chunks - 1):
+        view = view.put(data[:, c * step:(c + 1) * step], perm,
+                        offset=data_offset + c * step, stream=stream)
+    view = _put_then_signal(view, data[:, (chunks - 1) * step:], perm,
+                            data_offset=data_offset + (chunks - 1) * step,
+                            flag_offset=flag_offset, flag_value=flag_value,
+                            stream=stream)
+    return view if order is None else dataclasses.replace(view,
+                                                          config=win.config)
+
+
+__all__ = ["all_reduce_plan", "plan_all_reduce", "lower_ring_all_reduce",
+           "put_signal", "put_signal_pipelined"]

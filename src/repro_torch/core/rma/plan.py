@@ -16,12 +16,17 @@ time (the paper's thesis lifted from windows to patterns):
 3. **Execute** replays the schedule eagerly on live windows whose substrate
    bills the same phases to its ledger.  A declared flat ring macro
    (``order=True``, ``same_op="sum"``, float32) runs as one launch of kernel
-   K5, billed the phases of the op range it replaces; everything else runs
-   op by op on the substrate's kernels.
+   K5, billed the phases of the op range it replaces.  A payload followed
+   by its chained doorbell on an ordered window — a ``put``/``send`` and
+   its ``signal`` (kernel K4), or a sum ``accumulate``/``hop`` and its
+   ``signal`` (kernel K6) — runs as one launch billed as the two ops;
+   everything else runs op by op on the substrate's kernels.  The chosen
+   lowering of every macro and every such pair is in
+   :attr:`CompiledPlan.lowering`.
 
 Only the ``rma`` backend is ported; the gspmd/interpret/auto backends, P5
-handle ops, prefetch edges and the all-to-all macro raise
-``NotImplementedError`` (ROADMAP queue 1).
+handle ops and prefetch edges raise ``NotImplementedError`` (ROADMAP
+queue 1).
 
 Values in a plan are stacked: a binding or an op result is ``(n, ...)``,
 row r = rank r, and recorded closures see the rank vector as ``env.ranks``.
@@ -310,8 +315,22 @@ class RmaPlan:
         raise _not_ported("RmaPlan.prefetch (planned prefetch edges)",
                           "item 8")
 
-    def all_to_all(self, *args, **kwargs):
-        raise _not_ported("RmaPlan.all_to_all", "item 10")
+    def all_to_all(self, data_window: str, hdr_window: str, source, counts,
+                   axis: str, n: int, *, shape, dtype, op: str | None = None,
+                   chunks: int = 1) -> tuple[OpRef, OpRef, OpRef]:
+        """Record a whole declared all-to-all (``shape[0] == n*m`` rows of
+        one rank, the k-th ``m``-row block addressed to rank k) with its
+        count headers and doorbells.  Returns ``(out, counts, bells)``
+        OpRefs — the exchanged data, per-source received row counts, and
+        per-source arrival flags.  Under a declared ``g×l`` topology with
+        ``g > 1 and l > 1`` (and ``chunks == 1``, ``op in (None, "sum")``)
+        the exchange is the hierarchical two-stage relay; otherwise the
+        flat per-peer exchange."""
+        from repro_torch.core.rma import alltoall as _a2a
+
+        return _a2a.lower_all_to_all(
+            self, data_window, hdr_window, source, counts, axis, n,
+            shape=tuple(shape), dtype=dtype, op=op, chunks=chunks)
 
     def ring_all_reduce(self, window: str, source, axis: str, n: int, *,
                         shape, dtype, op: str = "sum", stream: int = 0,
@@ -381,6 +400,63 @@ class RmaPlan:
         if mac.dtype != torch.float32:
             return "rma", f"K5 reduces float32, not {mac.dtype}"
         return "k5", "declared flat sum ring"
+
+    def _signal_lowering(self, ops, steps, fused_of, in_kernel, naive_flush):
+        """Pair every ``signal`` with the payload op it chains behind (an
+        ``after`` edge to a put/send/hop/accumulate on the same perm and
+        stream) and decide whether one kernel launch carries both: K4 for
+        a put or send, K6 for a sum accumulate or hop.  Returns
+        ``[(data idx, signal idx, kernel, hoisted value idx, reason)]``."""
+        pos = {s.op.idx: k for k, s in enumerate(steps) if s.kind == "op"}
+        pairs, used = [], set()
+        for sig in ops:
+            if sig.kind != "signal":
+                continue
+            cand = [ops[r.idx] for r in sig.after
+                    if ops[r.idx].kind in ("put", "send", "hop", "accumulate")
+                    and ops[r.idx].perm == sig.perm
+                    and ops[r.idx].stream == sig.stream]
+            if not cand:
+                continue
+            d = cand[-1]
+            kernel = "k4" if d.kind in ("put", "send") else "k6"
+            hoist, why = None, None
+            if naive_flush:
+                why = "naive_flush measures per-op epochs"
+            elif not self._windows[d.window].order:
+                why = "order=False: a flush separates payload and flag"
+            elif acc_engine.PATH_SOFTWARE in (d.path, sig.path):
+                why = "undeclared: completion acks"
+            elif kernel == "k6" and d.op != "sum":
+                why = f"K6 lowers sum, not {d.op}"
+            elif d.idx in fused_of:
+                why = "the payload joins a gather-write"
+            elif d.idx in in_kernel:
+                why = "the payload is part of a K5 ring"
+            elif d.idx in used:
+                why = "the payload already carries a flag"
+            elif len({t for _, t in d.perm}) != len(d.perm):
+                why = "two origins reach one target"
+            elif not _is_static(sig.offset):
+                why = "a flag displacement computed at replay"
+            elif any(steps[k].kind != "op" or steps[k].op.kind != "compute"
+                     for k in range(pos[d.idx] + 1, pos[sig.idx])):
+                why = "other operations between payload and flag"
+            elif isinstance(sig.value, OpRef) and sig.value.idx > d.idx:
+                v = ops[sig.value.idx]
+                if v.kind != "compute" or any(x > d.idx for x in v.deps):
+                    why = "the flag value depends on the payload"
+                else:
+                    hoist = v.idx
+            if why is None:
+                used.add(d.idx)
+                why = ("payload then chained flag in one launch"
+                       if kernel == "k4" else
+                       "sum fold then chained flag in one launch")
+            else:
+                kernel = "rma"
+            pairs.append((d.idx, sig.idx, kernel, hoist, why))
+        return pairs
 
     def compile(self, *, naive_flush: bool = False,
                 backend: str = "rma") -> "CompiledPlan":
@@ -619,10 +695,16 @@ class RmaPlan:
             elif inter_streams[wname]:
                 emit_flush(wname, None)
 
-        lowering = tuple((mac.label, *self._k5_lowering(mac, naive_flush))
-                         for mac in self._macros)
-        kernel_macros = tuple(mac for mac, low in zip(self._macros, lowering)
+        ring_low = [(mac.label, *self._k5_lowering(mac, naive_flush))
+                    for mac in self._macros]
+        kernel_macros = tuple(mac for mac, low in zip(self._macros, ring_low)
                               if low[1] == "k5")
+        in_kernel = {i for mac in kernel_macros for i in range(mac.lo, mac.hi)}
+        pairs = self._signal_lowering(ops, steps, fused_of, in_kernel,
+                                      naive_flush)
+        lowering = tuple(ring_low) + tuple(
+            (f"{ops[d].label or ops[d].kind}+{ops[g].label or 'signal'}", k,
+             why) for d, g, k, _, why in pairs)
         return CompiledPlan(
             name=self.name, windows=dict(self._windows),
             bindings=dict(self._bindings), steps=tuple(steps),
@@ -630,7 +712,8 @@ class RmaPlan:
             used_streams={w: tuple(sorted(s))
                           for w, s in used_streams.items()},
             naive=naive_flush, topology=self.topology, lowering=lowering,
-            kernel_macros=kernel_macros)
+            kernel_macros=kernel_macros,
+            signal_pairs=tuple(p for p in pairs if p[2] != "rma"))
 
     @staticmethod
     def _comm_ancestors(ops, o: _Op):
@@ -678,9 +761,13 @@ class CompiledPlan:
     used_streams: dict[str, tuple]
     naive: bool = False
     topology: Topology | None = None
-    #: per-macro lowering record: (macro label, "k5" | "rma", reason)
+    #: lowering record of every ring macro and every payload+doorbell pair:
+    #: (label, "k5" | "k4" | "k6" | "rma", reason)
     lowering: tuple = ()
     kernel_macros: tuple = ()
+    #: the pairs one kernel carries: (data idx, signal idx, kernel,
+    #: hoisted flag-value idx or None, reason)
+    signal_pairs: tuple = ()
 
     @property
     def phases(self) -> int:
@@ -768,6 +855,9 @@ class CompiledPlan:
         skip: set[int] = set()
         for mac in self.kernel_macros:
             skip.update(range(mac.lo, mac.hi))
+        pair_at = {p[0]: p for p in self.signal_pairs}
+        by_idx = {s.op.idx: s for s in self.steps if s.kind == "op"}
+        done: set[int] = set()      # ops a paired launch already carried
         for step in self.steps:
             if step.kind in ("entry", "flush"):
                 w = views[step.window]
@@ -787,8 +877,14 @@ class CompiledPlan:
                 if mac is not None:
                     self._run_kernel_macro(mac, views, env, donate)
                 continue
+            if o.idx in done:
+                continue
             if o.kind == "compute":
                 env.values[o.idx] = o.fn(env)
+                continue
+            pair = pair_at.get(o.idx)
+            if pair is not None:
+                done.update(self._run_signal_pair(pair, by_idx, views, env))
                 continue
             self._exec_comm(o, views, env)
 
@@ -818,6 +914,60 @@ class CompiledPlan:
             sub.ledger.bill("ring", s.phases, shm=shm)
             if not shm:
                 sub.queues.note_op(o.stream, o.perm)
+
+    @staticmethod
+    def _bill(step: _Step, sub) -> None:
+        """Bill a step's op to its window's ledger and queue as its op-by-op
+        execution would."""
+        o = step.op
+        kind = {"put": "put", "send": "send", "hop": "send"}.get(
+            o.kind, "accumulate")
+        shm = o.tier == "intra"
+        sub.ledger.bill(kind, step.phases, shm=shm)
+        if not shm:
+            sub.queues.note_op(o.stream, o.perm)
+
+    def _run_signal_pair(self, pair, by_idx, views, env: PlanEnv
+                         ) -> tuple[int, ...]:
+        """A payload op and its chained signal in one K4/K6 launch
+        (:meth:`Substrate.launch_signal`), billed as the two ops; returns
+        the ops it carried (the signal, a hoisted flag value)."""
+        d_idx, g_idx, _, hoist, _ = pair
+        d, sig = by_idx[d_idx].op, by_idx[g_idx].op
+        dsub = views[d.window].substrate
+        fsub = views[sig.window].substrate
+        fdecl = self.windows[sig.window]
+        if hoist is not None:
+            env.values[hoist] = by_idx[hoist].op.fn(env)
+        flag_op = fdecl.same_op if fdecl.same_op is not None else "sum"
+        flag = self._resolve(sig.value, env)
+        if flag is None:
+            one = acc_engine.default_flag_value(flag_op, fsub.buffer.dtype)
+            flag = one.to(fsub.buffer.device).expand(fsub.axis_size, 1)
+        common = dict(flag=flag, flag_offset=sig.offset, flag_op=flag_op,
+                      flag_sub=fsub, stream=d.stream)
+        if d.kind == "send":
+            src = self._resolve(d.source, env).contiguous()
+            rows = src.view(-1, 1) if src.dim() == 1 else src
+            out = torch.zeros_like(rows)
+            dsub.launch_signal(rows, d.perm, dst=out, **common)
+            env.values[d.idx] = out.view(src.shape)
+        elif d.kind == "hop":
+            out = self._resolve(d.cur, env).clone()
+            rows = out.view(-1, 1) if out.dim() == 1 else out
+            piece = self._resolve(d.source, env).reshape(rows.shape)
+            dsub.launch_signal(piece, d.perm, op=d.op, dst=rows, **common)
+            idle = sorted(set(range(out.shape[0])) - {t for _, t in d.perm})
+            if idle:    # op by op they add the zeros they received
+                out[idle] += 0
+            env.values[d.idx] = out
+        else:           # put / accumulate into the window
+            dsub.launch_signal(self._resolve(d.source, env), d.perm,
+                               op=d.op if d.kind == "accumulate" else None,
+                               offset=self._resolve(d.offset, env), **common)
+        self._bill(by_idx[d_idx], dsub)
+        self._bill(by_idx[g_idx], fsub)
+        return (g_idx,) if hoist is None else (g_idx, hoist)
 
     def _exec_comm(self, o: _Op, views, env: PlanEnv) -> None:
         decl = self.windows[o.window]

@@ -8,6 +8,9 @@ another rank's row, lowered to the port's kernels:
   (``kernels.rma_put``), which bumps a per-(rank, stream) completion counter;
 * a flush of stream s → K3's wait, on the card, for the counters (·, s) to
   reach what the stream's puts owe;
+* a put and its doorbell (``put_signal``) → one K4 launch, and an ordered
+  accumulate and its doorbell (``acc_signal``) → one K6 launch
+  (``kernels.ordered_put_signal``), billed as the operations they fuse;
 * intrinsic-routed accumulates → K2 (``kernels.intrinsic``): origin atomics
   on the target row;
 * tiled-routed accumulates → K3 lands the update, K1 (``kernels.accumulate``)
@@ -51,6 +54,8 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels.intrinsic import accumulate_rows_atomic
+from repro_torch.kernels.ordered_put_signal import (accumulate_signal_rows,
+                                                    put_signal_rows)
 from repro_torch.kernels.rma_put import (perm_targets, put_rows,
                                          targets_tensor, wait_counters)
 
@@ -160,6 +165,9 @@ class Substrate:
     expected: list
     stalls: torch.Tensor
     ledger: PhaseLedger
+    #: K4/K6's arrival counters; every launch leaves them at zero, and the
+    #: family's launches run in stream order
+    scratch: torch.Tensor
     #: origin → target maps already on the device, by map (kernels read
     #: them from device memory; building one is a host-to-device copy)
     targets: dict = dataclasses.field(default_factory=dict)
@@ -176,7 +184,9 @@ class Substrate:
         return cls(buffer, axis, axis_size, FlushQueues(), n_streams,
                    counters, [[0] * n_streams for _ in range(axis_size)],
                    torch.zeros(1, dtype=torch.int32, device=buffer.device),
-                   PhaseLedger())
+                   PhaseLedger(),
+                   torch.zeros(axis_size + 2, dtype=torch.int32,
+                               device=buffer.device))
 
     # -- helpers ----------------------------------------------------------
     def _targets(self, pairs) -> torch.Tensor:
@@ -407,7 +417,115 @@ class Substrate:
         self.ledger.bill("ack", 1)
         return self
 
+    # -- a payload and its doorbell in one launch (K4, K6) -----------------
+    def _flag_rows(self, flag: torch.Tensor, flag_offset: int):
+        """The flag payload and the window rows it lands in, flattened: a
+        flag displacement counts rows of a shard, a flag word elements."""
+        n = self.axis_size
+        flat = self.buffer.reshape(n, -1)
+        inner = flat.shape[1] // self.buffer.shape[1]
+        return flag.reshape(n, -1), flat, flag_offset * inner
+
+    @staticmethod
+    def _one_origin_per_target(perm: Perm) -> None:
+        """K4/K6 fold and flag with plain stores: exact only when no two
+        origins reach one target (a permutation, as the reference's
+        collective permutes require)."""
+        targets = [t for _, t in perm]
+        if len(set(targets)) != len(targets):
+            raise ValueError(f"perm {tuple(perm)} sends two origins to one "
+                             "target; put/accumulate+signal move a "
+                             "permutation")
+
+    def _rank_offsets(self, offset, perm: Perm):
+        if _is_static(offset):
+            return offset
+        offs = self._offsets(offset, perm)
+        return [offs.get(r, 0) for r in range(self.axis_size)]
+
+    def launch_signal(self, data: torch.Tensor, perm: Perm, *,
+                      op: str | None = None, dst: torch.Tensor | None = None,
+                      offset=0, flag: torch.Tensor, flag_offset: int,
+                      flag_op: str, flag_sub: "Substrate | None" = None,
+                      ordered: bool = True, stream: int = 0) -> None:
+        """One K4 (``op=None``: copy) or K6 (fold with ``op``) launch: the
+        payload along ``perm``, then its flag words at ``flag_offset`` of
+        ``flag_sub``'s window (default: this one).  The payload lands in
+        this window at ``offset``, or in ``dst`` (stacked rows, as a
+        two-sided send lands) when given.  Ticks this family's completion
+        counters on ``stream``; billing is the caller's."""
+        self._one_origin_per_target(perm)
+        fsub = self if flag_sub is None else flag_sub
+        flag, flat, foff = fsub._flag_rows(flag, flag_offset)
+        if dst is None:
+            data, dst = self._payload(data), self.buffer
+            offset = self._rank_offsets(offset, perm)
+        common = dict(flag=flag, flag_dst=flat, offset=offset,
+                      flag_offset=foff, flag_op=flag_op, ordered=ordered,
+                      counters=self.counters, stream=stream,
+                      stalls=self.stalls, scratch=self.scratch)
+        if op is None:
+            ticks = put_signal_rows(data, dst, self._targets(perm), **common)
+        else:
+            ticks = accumulate_signal_rows(data, dst, self._targets(perm),
+                                           op=op, **common)
+        for s, _ in perm:
+            self.expected[s][stream] += ticks
+
+    def put_signal(self, data: torch.Tensor, perm: Perm, *, offset=0,
+                   flag: torch.Tensor, flag_offset: int, flag_op: str,
+                   flag_path: str, stream: int = 0, shm: bool = False,
+                   ordered: bool = True, scope: str = SCOPE_THREAD
+                   ) -> "Substrate":
+        """A put and then its flag accumulate at ``flag_offset``, in one K4
+        launch.  Ordered (P2), the flag chains behind the payload: put 1 +
+        flag phases.  Unordered (Listing 1), the flush between them is the
+        launch's grid-wide completion wait: the streams the flush drains are
+        waited for first and billed 2 each, as :meth:`flush` bills them."""
+        from repro_torch.core.rma import accumulate as _engine
+
+        drained = {} if ordered else self.queues.take(scope, stream)
+        for s in drained:
+            self._wait(s)
+        self.launch_signal(data, perm, offset=offset, flag=flag,
+                           flag_offset=flag_offset, flag_op=flag_op,
+                           ordered=ordered, stream=stream)
+        self.ledger.bill("put", 1 + (0 if _is_static(offset) else 1), shm=shm)
+        if not ordered:
+            self.ledger.bill("flush", 2 * len(set(drained) | (
+                set() if shm else {stream})))
+        software = flag_path == _engine.PATH_SOFTWARE
+        self.ledger.bill("accumulate", 2 if software else 1, shm=shm)
+        if not shm:
+            self.queues.note_op(stream, perm)
+        return self
+
+    def acc_signal(self, data: torch.Tensor, perm: Perm, op: str, *,
+                   path: str, offset=0, flag: torch.Tensor, flag_offset: int,
+                   flag_op: str, flag_path: str, stream: int = 0,
+                   shm: bool = False) -> "Substrate":
+        """An ordered accumulate (already routed to ``path``) and its flag
+        accumulate in one K6 launch: the update folds straight into the
+        target rows, the flag chains behind it.  Billed as the two routed
+        accumulates."""
+        from repro_torch.core.rma import accumulate as _engine
+
+        self.launch_signal(data, perm, op=op, offset=offset, flag=flag,
+                           flag_offset=flag_offset, flag_op=flag_op,
+                           stream=stream)
+        for p, addr in ((path, 0 if _is_static(offset) else 1), (flag_path, 0)):
+            self.ledger.bill("accumulate",
+                             (2 if p == _engine.PATH_SOFTWARE else 1) + addr,
+                             shm=shm)
+        if not shm:
+            self.queues.note_op(stream, perm)
+        return self
+
     # -- the epoch engine ---------------------------------------------------
+    def _wait(self, stream: int) -> None:
+        wait_counters(self.counters, [owed[stream] for owed in self.expected],
+                      stream=stream, stalls=self.stalls)
+
     def flush(self, *, scope: str = SCOPE_PROCESS,
               stream: int | None = None) -> "Substrate":
         """``MPI_Win_flush`` (remote completion).  Thread scope (P1) drains
@@ -416,8 +534,7 @@ class Substrate:
         walks every pending stream, serialized: one wait each."""
         pending = self.queues.take(scope, stream)
         for s in pending:
-            wait_counters(self.counters, [owed[s] for owed in self.expected],
-                          stream=s, stalls=self.stalls)
+            self._wait(s)
         self.ledger.bill("flush", 2 * len(pending))
         return self
 

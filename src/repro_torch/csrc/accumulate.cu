@@ -19,59 +19,6 @@
 #include "rt_common.cuh"
 
 template <typename T>
-struct Combine {
-  __device__ __forceinline__ static T apply(T a, T b, int op) {
-    switch (op) {
-      case OP_SUM: return a + b;
-      case OP_MIN: return rt_fmin(a, b);
-      case OP_MAX: return rt_fmax(a, b);
-      case OP_PROD: return a * b;
-      default: return b;  // OP_REPLACE (bitwise ops are refused for floats)
-    }
-  }
-};
-
-// integers: wrap-around sum/product in unsigned arithmetic (two's complement,
-// as torch and jnp give), min/max/bitwise as is
-template <typename I, typename U>
-struct IntCombine {
-  __device__ __forceinline__ static I apply(I a, I b, int op) {
-    switch (op) {
-      case OP_SUM: return (I)((U)a + (U)b);
-      case OP_MIN: return b < a ? b : a;
-      case OP_MAX: return b > a ? b : a;
-      case OP_PROD: return (I)((U)a * (U)b);
-      case OP_BAND: return a & b;
-      case OP_BOR: return a | b;
-      case OP_BXOR: return a ^ b;
-      default: return b;  // OP_REPLACE
-    }
-  }
-};
-
-template <>
-struct Combine<int32_t> : IntCombine<int32_t, uint32_t> {};
-template <>
-struct Combine<int64_t> : IntCombine<int64_t, uint64_t> {};
-
-// half types combine in float and round once, as torch does on the CPU
-template <>
-struct Combine<__half> {
-  __device__ __forceinline__ static __half apply(__half a, __half b, int op) {
-    if (op == OP_REPLACE) return b;
-    return __float2half(Combine<float>::apply(__half2float(a), __half2float(b), op));
-  }
-};
-template <>
-struct Combine<__nv_bfloat16> {
-  __device__ __forceinline__ static __nv_bfloat16 apply(__nv_bfloat16 a, __nv_bfloat16 b, int op) {
-    if (op == OP_REPLACE) return b;
-    return __float2bfloat16(
-        Combine<float>::apply(__bfloat162float(a), __bfloat162float(b), op));
-  }
-};
-
-template <typename T>
 __global__ void acc_kernel(T* __restrict__ buf, int64_t buf_stride,
                            const T* __restrict__ upd, int64_t upd_stride,
                            int64_t m, int op) {

@@ -14,9 +14,9 @@ Every TPU kernel of the JAX package, by its ``pallas_call``:
 K1 ``kernels/accumulate.py:84``          ``accumulate``         1-D buffer op= update, any float/int  ``accumulate.py`` (CUDA)
 K2 ``kernels/intrinsic.py:90``           ``ring_accumulate``    per-rank update into neighbour row    ``intrinsic.py`` (CUDA)
 K3 ``kernels/rma_put.py:47``             ``ring_put``           per-rank shard to the neighbour       ``rma_put.py`` (CUDA)
-K4 ``kernels/ordered_put_signal.py:72``  ``put_signal``         payload + flag word, (un)ordered      not yet ported
+K4 ``kernels/ordered_put_signal.py:72``  ``put_signal``         payload + flag word, (un)ordered      ``ordered_put_signal.py`` (CUDA)
 K5 ``kernels/ring_allreduce.py:108``     ``ring_all_reduce``    (n·chunk, …) f32 sum all-reduce       ``ring_allreduce.py`` (CUDA)
-K6 ``kernels/ordered_put_signal.py:144`` ``accumulate_signal``  K2's fold + K4's flag fused           not yet ported
+K6 ``kernels/ordered_put_signal.py:144`` ``accumulate_signal``  K2's fold + K4's flag fused           ``ordered_put_signal.py`` (CUDA)
 K7 ``kernels/flash_attention.py:84``     ``flash_attention``    (B,H,S,D) causal forward              not yet ported
 K8 ``kernels/ssd_scan.py:62``            ``ssd_intra_chunk``    per (batch, chunk) SSD intra-chunk    not yet ported
 == ===================================== ====================== ===================================== =============
@@ -26,6 +26,10 @@ from repro_torch.kernels.accumulate import COUNTER as _K1
 from repro_torch.kernels.accumulate import accumulate, op_identity
 from repro_torch.kernels.intrinsic import COUNTER as _K2
 from repro_torch.kernels.intrinsic import ring_accumulate
+from repro_torch.kernels.ordered_put_signal import ACC_COUNTER as _K6
+from repro_torch.kernels.ordered_put_signal import PUT_COUNTER as _K4
+from repro_torch.kernels.ordered_put_signal import (accumulate_signal,
+                                                    put_signal)
 from repro_torch.kernels.rma_put import COUNTER as _K3
 from repro_torch.kernels.rma_put import WAIT_COUNTER as _K3_WAIT
 from repro_torch.kernels.rma_put import ring_put
@@ -33,7 +37,8 @@ from repro_torch.kernels.ring_allreduce import COUNTER as _K5
 from repro_torch.kernels.ring_allreduce import ring_all_reduce
 
 #: the launch counter of every ported kernel, by kernel name
-COUNTERS = {c.name: c for c in (_K1, _K2, _K3, _K3_WAIT, _K5)}
+COUNTERS = {c.name: c for c in (_K1, _K2, _K3, _K3_WAIT, _K4, _K5,
+                                 _K6)}
 
 
 def launch_counts() -> dict[str, int]:
@@ -47,5 +52,5 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "ref", "accumulate", "op_identity", "ring_accumulate", "ring_put",
-    "ring_all_reduce", "COUNTERS", "launch_counts", "reset_launch_counts",
+    "put_signal", "accumulate_signal", "ring_all_reduce", "COUNTERS", "launch_counts", "reset_launch_counts",
 ]

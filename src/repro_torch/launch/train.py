@@ -2,13 +2,18 @@
 
 Runs on the card unless ``device="cpu"``.  ``dp_ranks > 1`` with
 ``grad_sync="rma_ring"`` trains data-parallel over stacked ranks with the
-one-sided ring gradient sync.  ``n_layers`` cuts depth (never width) to fit
-a configuration on one card.  Checkpointing and the straggler monitor of
-the JAX launcher are not ported yet.
+one-sided ring gradient sync.  ``moe_ep="rma"`` runs an MoE arch's expert
+layers over ``ep_ranks`` stacked expert-parallel ranks through the
+one-sided all-to-all.  ``n_layers`` cuts depth and ``num_experts`` the
+experts held (never a width) to fit a configuration on one card.
+Checkpointing and the straggler monitor of the JAX launcher are not ported
+yet.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --tiny \
       --steps 20 --dp-ranks 4 --grad-sync rma_ring --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch llama4-maverick-400b-a17b --moe-ep rma --ep-ranks 4 --device cpu
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ from repro_torch.tree import leaves
 class TrainRun:
     """What a run did: per-step losses, wall times (ms, each step ending in
     a device synchronization) and, on the card, each step's parts (ms by
-    part: gradients, gradient ring, AdamW — CUDA events)."""
+    part: gradients, gradient ring, AdamW, and the all-to-all exchanges
+    inside the gradients — CUDA events)."""
 
     steps_run: int
     losses: list
@@ -46,11 +52,15 @@ def train(arch: str, *, tiny: bool = True, steps: int = 100,
           warmup_steps: int | None = None, log_every: int = 10,
           data_seed: int = 0, seed: int = 0, grad_sync: str = "gspmd",
           dp_ranks: int = 1, n_layers: int | None = None,
-          device="cuda") -> TrainRun:
+          moe_ep: str | None = None, ep_ranks: int = 1,
+          num_experts: int | None = None, device="cuda") -> TrainRun:
     dev = resolve_device(device)
     cfg = tiny_config(arch) if tiny else get_config(arch)
     if n_layers is not None:
         cfg = cfg.replace(n_layers=n_layers)
+    if num_experts is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  num_experts=num_experts))
     model = build_model(cfg)
     warm = min(20, steps // 5) if warmup_steps is None else warmup_steps
     opt_cfg = OptimizerConfig(peak_lr=peak_lr, warmup_steps=warm,
@@ -59,8 +69,10 @@ def train(arch: str, *, tiny: bool = True, steps: int = 100,
                                   global_batch=global_batch, seed=data_seed))
     params, opt_state = init_train_state(model, seed, device=dev)
     n_params = sum(p.numel() for p in leaves(params))
-    step_fn = make_train_step(model, opt_cfg, grad_sync=grad_sync,
-                              data_axis="data", data_axis_size=dp_ranks)
+    step_fn = make_train_step(
+        model, opt_cfg, grad_sync=grad_sync, data_axis="data",
+        data_axis_size=dp_ranks, moe_ep=moe_ep,
+        ep_ranks=ep_ranks if cfg.moe is not None else None)
     losses, step_ms, part_ms, phases = [], [], [], None
     for step in range(steps):
         batch = {k: torch.as_tensor(v, dtype=torch.int64).to(dev)
@@ -73,8 +85,12 @@ def train(arch: str, *, tiny: bool = True, steps: int = 100,
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss)
         if "events" in metrics:
-            part_ms.append({k: a.elapsed_time(b)
-                            for k, (a, b) in metrics["events"].items()})
+            parts = {k: a.elapsed_time(b)
+                     for k, (a, b) in metrics["events"].items()}
+            if metrics["exchange_events"]:
+                parts["exchanges"] = sum(a.elapsed_time(b) for a, b
+                                         in metrics["exchange_events"])
+            part_ms.append(parts)
         phases = metrics.get("phases", phases)
         if step % log_every == 0 or step == steps - 1:
             print(f"[train] step={step} loss={loss:.4f} "
@@ -98,12 +114,15 @@ def main(argv=None):
                     default="gspmd")
     ap.add_argument("--dp-ranks", type=int, default=1)
     ap.add_argument("--n-layers", type=int, default=None)
+    ap.add_argument("--moe-ep", choices=("gspmd", "rma"), default=None)
+    ap.add_argument("--ep-ranks", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     run = train(args.arch, tiny=args.tiny, steps=args.steps,
                 global_batch=args.global_batch, seq_len=args.seq_len,
                 peak_lr=args.peak_lr, grad_sync=args.grad_sync,
                 dp_ranks=args.dp_ranks, n_layers=args.n_layers,
+                moe_ep=args.moe_ep, ep_ranks=args.ep_ranks,
                 device=args.device)
     print(f"[train] done: loss {run.losses[0]:.4f} -> {run.losses[-1]:.4f}")
 

@@ -1,4 +1,5 @@
-"""repro_torch.models — the dense transformer family (training path)."""
+"""repro_torch.models — the dense and MoE transformer families (training
+path)."""
 from repro_torch.models.model import Model, build_model
 
 __all__ = ["Model", "build_model"]

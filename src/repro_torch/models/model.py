@@ -1,5 +1,5 @@
 """Top-level model API: ``build_model(cfg)`` → ``init`` / ``forward`` /
-``loss`` for the dense family, training path.
+``loss`` for the dense and MoE families, training path.
 
 Batch convention: ``{"tokens": (B, S) int64, "labels": (B, S) int64}``.
 Parameters are a plain dict tree with the JAX package's names and layouts
@@ -21,6 +21,9 @@ from repro_torch.models.transformer import LayerSpec
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
+    #: expert-parallel ranks of the MoE layers under ``ep_mode="rma"`` (the
+    #: size of the JAX package's expert mesh axis)
+    ep_ranks: int = 1
 
     @cached_property
     def plan(self) -> list[LayerSpec]:
@@ -59,33 +62,42 @@ class Model:
             logits = torch.where(lane, logits, logits.new_full((), -1e30))
         return logits
 
-    def forward(self, params, batch) -> torch.Tensor:
-        """Full-sequence forward; returns float32 logits."""
+    def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward; returns float32 logits and the summed MoE
+        aux loss."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = layers.embed(tokens, params["embed"], cfg.activation_dtype)
         positions = torch.arange(x.shape[1], device=x.device).expand(
             x.shape[:2])
-        x = transformer.apply_stack(params["stack"], x, cfg,
-                                    positions=positions, causal=True,
-                                    plan=self.plan)
-        return self._logits(params, x)
+        x, aux = transformer.apply_stack(params["stack"], x, cfg,
+                                         positions=positions, causal=True,
+                                         plan=self.plan,
+                                         ep_ranks=self.ep_ranks)
+        return self._logits(params, x), aux
 
     def loss(self, params, batch) -> tuple[torch.Tensor, dict]:
-        """Mean next-token cross-entropy over labels >= 0."""
-        logits = self.forward(params, batch)
+        """Mean next-token cross-entropy over labels >= 0, plus 0.01 × the
+        MoE aux loss."""
+        logits, aux = self.forward(params, batch)
         labels = batch["labels"]
         logp = torch.log_softmax(logits.float(), dim=-1)
         ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
         mask = (labels >= 0).float()
         xent = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-        aux = xent.new_zeros(())
-        return xent, {"xent": xent, "aux": aux}
+        return xent + 0.01 * aux, {"xent": xent, "aux": aux}
 
 
-def build_model(cfg: ModelConfig) -> Model:
+def build_model(cfg: ModelConfig, *, ep_ranks: int = 1) -> Model:
+    """The model of ``cfg``; ``ep_ranks`` stacked expert-parallel ranks
+    carry its MoE layers under ``ep_mode="rma"`` (it must divide
+    ``num_experts``)."""
     transformer.layer_plan(cfg)   # refuses families the port cannot build
-    return Model(cfg)
+    if ep_ranks < 1 or (cfg.moe is not None
+                        and cfg.moe.num_experts % ep_ranks):
+        raise ValueError(f"ep_ranks={ep_ranks} must be >= 1 and divide the "
+                         "number of experts")
+    return Model(cfg, ep_ranks)
 
 
 __all__ = ["Model", "build_model"]

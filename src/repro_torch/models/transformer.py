@@ -1,8 +1,10 @@
-"""Transformer stack for the dense family: the layer plan and its
+"""Transformer stack for the dense and MoE families: the layer plan and its
 [prefix] + [repeating period × count] decomposition, kept so the parameter
 tree matches the JAX package's (scanned leaves stacked on a leading layer
 axis).  The reference scans the periods (rematerializing each under
-``remat="block"``); here a Python loop walks them and keeps activations."""
+``remat="block"``); here a Python loop walks them and keeps activations.
+MoE layers (``first_dense``, ``interleave_step``/``interleave_offset``) add
+their load-balancing loss to the stack's aux sum."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,6 +12,7 @@ import dataclasses
 import torch
 
 from repro_torch.models import attention, layers
+from repro_torch.models import moe as moe_lib
 from repro_torch.tree import tree_map
 
 
@@ -21,12 +24,21 @@ class LayerSpec:
 
 
 def layer_plan(cfg) -> list[LayerSpec]:
-    """The per-layer structure of the decoder stack (dense family)."""
-    if cfg.family != "dense":
+    """The per-layer structure of the decoder stack (dense and MoE
+    families; MLA, SSM, hybrid and enc-dec stacks are not ported)."""
+    if cfg.family not in ("dense", "moe") or getattr(cfg, "mla", None) \
+            is not None:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported to repro_torch yet "
-            "(ROADMAP queue 1, items 10-11)")
-    return [LayerSpec() for _ in range(cfg.n_layers)]
+            f"model family {cfg.family!r} of {cfg.name!r} is not ported to "
+            "repro_torch yet (ROADMAP queue 1, item 11)")
+    plan = []
+    for i in range(cfg.n_layers):
+        ffn = "dense"
+        if cfg.moe is not None and i >= cfg.moe.first_dense and \
+                i % cfg.moe.interleave_step == cfg.moe.interleave_offset:
+            ffn = "moe"
+        plan.append(LayerSpec(ffn=ffn))
+    return plan
 
 
 def stage_plan(plan: list[LayerSpec]) -> tuple[int, int]:
@@ -60,24 +72,37 @@ def init_block(gen, spec: LayerSpec, cfg, device) -> dict:
     p: dict = {"norm_mixer": _norm_init(cfg, device),
                "attn": attention.init_gqa(gen, cfg, device),
                "norm_ffn": _norm_init(cfg, device)}
+    if spec.ffn == "moe":
+        p["moe"] = moe_lib.init_moe(gen, cfg, device)
+        return p
+    d_ff = cfg.d_ff
+    if cfg.moe is not None and cfg.moe.first_dense and \
+            cfg.moe.d_ff_first_dense:
+        d_ff = cfg.moe.d_ff_first_dense
     if cfg.act == "gelu":
-        p["mlp"] = layers.init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, pd, device,
+        p["mlp"] = layers.init_gelu_mlp(gen, cfg.d_model, d_ff, pd, device,
                                         bias=cfg.attn_bias)
     else:
-        p["mlp"] = layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, pd, device)
+        p["mlp"] = layers.init_swiglu(gen, cfg.d_model, d_ff, pd, device)
     return p
 
 
 def apply_block(params: dict, spec: LayerSpec, x: torch.Tensor, cfg, *,
-                positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
-    """One decoder block (pre-norm attention + pre-norm MLP)."""
+                positions: torch.Tensor, causal: bool = True,
+                ep_ranks: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decoder block (pre-norm attention + pre-norm MLP or MoE).
+    Returns ``(x, aux)``; ``ep_ranks`` is the MoE's expert-parallel rank
+    count."""
     h = _norm(x, params["norm_mixer"], cfg)
     x = x + attention.gqa_attention(params["attn"], h, cfg,
                                     positions=positions, causal=causal,
                                     block_kv=cfg.attn_block_kv)
     h = _norm(x, params["norm_ffn"], cfg)
+    if spec.ffn == "moe":
+        out, aux = moe_lib.moe_apply(params["moe"], h, cfg, ep_ranks=ep_ranks)
+        return x + out, aux
     mlp = layers.gelu_mlp if cfg.act == "gelu" else layers.swiglu
-    return x + mlp(h, params["mlp"])
+    return x + mlp(h, params["mlp"]), x.new_zeros((), dtype=torch.float32)
 
 
 def init_stack(gen, cfg, device, plan: list[LayerSpec] | None = None) -> dict:
@@ -95,19 +120,22 @@ def init_stack(gen, cfg, device, plan: list[LayerSpec] | None = None) -> dict:
 
 def apply_stack(params: dict, x: torch.Tensor, cfg, *,
                 positions: torch.Tensor, causal: bool = True,
-                plan: list[LayerSpec] | None = None) -> torch.Tensor:
+                plan: list[LayerSpec] | None = None, ep_ranks: int = 1
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the full stack.  Returns ``(x, aux_loss_sum)``."""
     plan = plan if plan is not None else layer_plan(cfg)
     prefix, period = stage_plan(plan)
     count = (len(plan) - prefix) // period
-    for i in range(prefix):
-        x = apply_block(params["prefix"][i], plan[i], x, cfg,
-                        positions=positions, causal=causal)
+    aux_total = x.new_zeros((), dtype=torch.float32)
+    blocks = [(params["prefix"][i], plan[i]) for i in range(prefix)]
     for c in range(count):
         block = tree_map(lambda p: p[c], params["scan"])
-        for j in range(period):
-            x = apply_block(block[f"l{j}"], plan[prefix + j], x, cfg,
-                            positions=positions, causal=causal)
-    return x
+        blocks += [(block[f"l{j}"], plan[prefix + j]) for j in range(period)]
+    for p, spec in blocks:
+        x, aux = apply_block(p, spec, x, cfg, positions=positions,
+                             causal=causal, ep_ranks=ep_ranks)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 __all__ = ["LayerSpec", "layer_plan", "stage_plan", "init_block",

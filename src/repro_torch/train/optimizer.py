@@ -1,7 +1,9 @@
 """AdamW + LR schedule + global-norm clipping in plain PyTorch (the JAX
 package's optimizer).  Optimizer state (m, v) is float32 whatever the
 parameter dtype.  Updates are applied in place — parameters, m and v —
-so a full-width step holds one copy of each."""
+slice by slice, with the clip scale applied inside the update: a
+full-width step holds one copy of each and no clipped copy of the
+gradients, and its temporaries are one slice's."""
 from __future__ import annotations
 
 import dataclasses
@@ -50,19 +52,26 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
-def clip_by_global_norm(grads: Any, max_norm: float
-                        ) -> tuple[Any, torch.Tensor]:
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+#: elements updated at once (bounds the update's temporaries)
+SLICE = 1 << 24
+
+
+def _slices(*tensors: torch.Tensor):
+    """Matching flat slices of same-shape contiguous tensors."""
+    flat = [t.view(-1) for t in tensors]
+    for lo in range(0, flat[0].numel(), SLICE):
+        yield [f[lo:lo + SLICE] for f in flat]
 
 
 @torch.no_grad()
 def adamw_update(grads: Any, opt_state: dict, params: Any,
                  cfg: OptimizerConfig) -> tuple[Any, dict, dict]:
-    """One AdamW step, in place on ``params`` and ``opt_state``.  Returns
+    """One AdamW step, in place on ``params`` and ``opt_state``, on the
+    gradients clipped to ``cfg.grad_clip`` global norm.  Returns
     ``(params, opt_state, metrics)``."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
     step = opt_state["step"] + 1
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -70,15 +79,16 @@ def adamw_update(grads: Any, opt_state: dict, params: Any,
     bc2 = 1 - b2 ** step.float()
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(opt_state["m"]),
                           leaves(opt_state["v"])):
-        g = g.float()
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g.square())
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
-            + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
+        for ps, gs, ms, vs in _slices(p, g.contiguous(), m, v):
+            gs = (gs * scale.to(gs.dtype)).float()
+            ms.mul_(b1).add_((1 - b1) * gs)
+            vs.mul_(b2).add_((1 - b2) * gs.square())
+            delta = (ms / bc1) / (torch.sqrt(vs / bc2) + cfg.eps) \
+                + cfg.weight_decay * ps.float()
+            ps.copy_((ps.float() - lr * delta).to(ps.dtype))
     opt_state["step"] = step
     return params, opt_state, {"lr": lr, "grad_norm": gnorm}
 
 
 __all__ = ["OptimizerConfig", "lr_at", "init_opt_state", "global_norm",
-           "clip_by_global_norm", "adamw_update"]
+           "adamw_update"]

@@ -1,5 +1,9 @@
 """Train-step factory: loss → grads → (optional RMA grad sync) → AdamW.
 
+``moe_ep`` rebuilds an MoE model with its expert-parallel dispatch mode
+replaced (``"rma"``: the one-sided all-to-all over ``ep_ranks`` stacked
+ranks, whose exchanges run forward and backward on kernels K4/K6).
+
 Two gradient-synchronization modes, over a stacked data-parallel axis:
 
 * ``"gspmd"``: one program over the whole global batch, no sync — the
@@ -15,8 +19,11 @@ Two gradient-synchronization modes, over a stacked data-parallel axis:
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from repro_torch.core.rma.alltoall import timed_exchanges
 from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
                                          init_opt_state)
 from repro_torch.tree import leaves, unflatten
@@ -25,16 +32,21 @@ from repro_torch.tree import leaves, unflatten
 def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
                     grad_sync: str = "gspmd", data_axis: str | None = None,
                     data_axis_size: int = 1, topology=None,
-                    backend: str = "rma"):
+                    backend: str = "rma", moe_ep: str | None = None,
+                    ep_ranks: int | None = None):
     """Build ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``batch`` is the global batch.  Parameters and optimizer
     state are updated in place.  On the card, CUDA events bracket the
     step's parts — gradients, the gradient ring, AdamW
-    (``metrics["events"]``, name → (start, end)).
+    (``metrics["events"]``, name → (start, end)) — and every all-to-all
+    exchange (``metrics["exchange_events"]``).
 
     ``topology``: the data axis's host×device factorization (``None``
     consults ``RMA_TOPOLOGY``); a non-degenerate one makes the ring
-    hierarchical.  ``backend``: only ``"rma"`` is ported."""
+    hierarchical.  ``backend``: only ``"rma"`` is ported.  ``moe_ep``:
+    override the MoE dispatch mode (``"gspmd"`` | ``"rma"``) of the step's
+    model; requires an MoE config.  ``ep_ranks``: its expert-parallel
+    ranks (default: the model's)."""
     if grad_sync not in ("gspmd", "rma_ring"):
         raise ValueError(f"grad_sync={grad_sync!r}; expected 'gspmd' or "
                          "'rma_ring'")
@@ -42,6 +54,21 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
         raise NotImplementedError(
             f"backend={backend!r} is not ported to repro_torch yet (ROADMAP "
             "queue 1, item 12)")
+    if moe_ep is not None or ep_ranks is not None:
+        from repro_torch.models import build_model
+
+        cfg = model.cfg
+        if cfg.moe is None:
+            raise ValueError(
+                f"moe_ep={moe_ep!r} requested but arch {cfg.name!r} has no "
+                "MoE config")
+        if moe_ep is not None:
+            cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, ep_mode=moe_ep))
+        if cfg.moe.ep_mode == "rma" and grad_sync == "rma_ring":
+            raise NotImplementedError(
+                "moe_ep='rma' with grad_sync='rma_ring' is not in the JAX "
+                "launcher and not ported (ROADMAP queue 1, item 10)")
+        model = build_model(cfg, ep_ranks=ep_ranks or model.ep_ranks)
     n = data_axis_size if grad_sync == "rma_ring" else 1
     axis = data_axis or "data"
 
@@ -62,7 +89,7 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
         for a in range(accum_steps):
             mb = {k: v[a * per:(a + 1) * per] for k, v in batch.items()}
             with torch.enable_grad():
-                loss, _ = model.loss(params, mb)
+                loss, parts = model.loss(params, mb)
                 gs = torch.autograd.grad(loss, ps)
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -84,7 +111,8 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
             else:
                 out.div_(accum_steps)
             loss_sum = loss_sum / accum_steps
-        return loss_sum, acc
+            parts = {"xent": loss_sum, "aux": loss_sum.new_zeros(())}
+        return loss_sum, acc, {k: v.detach() for k, v in parts.items()}
 
     def sync_grads(params, batch, metrics, mark):
         from repro_torch.core.rma.collectives import plan_all_reduce
@@ -102,11 +130,12 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
             raise ValueError(f"global batch of {rows} rows not divisible by "
                              f"data_axis_size={n}")
         per = rows // n
-        losses = []
+        losses, parts = [], []
         for r in range(n):
             shard = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
-            loss, _ = grads_into(params, shard, mat[r, :size])
+            loss, _, part = grads_into(params, shard, mat[r, :size])
             losses.append(loss)
+            parts.append(part)
         topo = topology if topology is not None else default_topology(n)
         # one window, one ring, all leaves: the gradient matrix is exposed
         # as a window and the ring runs on its sum-specialized dup
@@ -123,7 +152,9 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
         for p in ps:
             out.append(vec[off:off + p.numel()].view(p.shape))
             off += p.numel()
-        return torch.stack(losses).mean(), unflatten(params, out)
+        mean = {k: torch.stack([p[k] for p in parts]).mean()
+                for k in parts[0]}
+        return torch.stack(losses).mean(), unflatten(params, out), mean
 
     def train_step(params, opt_state, batch):
         metrics: dict = {}
@@ -142,20 +173,21 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
                 events[start] = ev
 
         mark(None, "grads")
-        if n > 1:
-            loss, grads = sync_grads(params, batch, metrics, mark)
-            mark("sync", "adamw")
-        else:
-            loss, gs = grads_into(params, batch, None)
-            grads = unflatten(params, gs)
-            mark("grads", "adamw")
+        with timed_exchanges(on_card) as exchanges:
+            if n > 1:
+                loss, grads, parts = sync_grads(params, batch, metrics, mark)
+                mark("sync", "adamw")
+            else:
+                loss, gs, parts = grads_into(params, batch, None)
+                grads = unflatten(params, gs)
+                mark("grads", "adamw")
         params, opt_state, opt_metrics = adamw_update(grads, opt_state, params,
                                                       opt_cfg)
         mark("adamw", None)
         if on_card:
             metrics["events"] = events
-        metrics.update({"loss": loss, "xent": loss,
-                        "aux": loss.new_zeros(()), **opt_metrics})
+            metrics["exchange_events"] = exchanges
+        metrics.update({"loss": loss, **parts, **opt_metrics})
         return params, opt_state, metrics
 
     return train_step

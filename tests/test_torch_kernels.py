@@ -16,7 +16,10 @@ from repro.core.rma import WindowConfig as JWindowConfig
 from repro.core.rma.collectives import plan_all_reduce as j_plan_all_reduce
 from repro.kernels import accumulate as j_accumulate
 from repro.kernels import op_identity as j_op_identity
+from repro.core.rma.accumulate import default_flag_value as j_flag_value
 from repro.kernels import ref as JR
+from repro.kernels.ordered_put_signal import \
+    accumulate_signal as j_accumulate_signal
 
 from repro_torch.core.rma import WindowConfig
 from repro_torch.kernels import common, ref as TR
@@ -24,6 +27,11 @@ from repro_torch.kernels.accumulate import (accumulate, accumulate_rows,
                                             op_identity)
 from repro_torch.kernels.intrinsic import (accumulate_rows_atomic,
                                            ring_accumulate)
+from repro_torch.kernels.ordered_put_signal import (_scratch,
+                                                    accumulate_signal,
+                                                    accumulate_signal_rows,
+                                                    copy_unit, put_signal,
+                                                    put_signal_rows)
 from repro_torch.kernels.rma_put import (WAIT_COUNTER, put_rows, ring_put,
                                          wait_counters)
 from repro_torch.kernels.ring_allreduce import (ring_all_reduce,
@@ -263,6 +271,139 @@ def test_k5_inplace_and_order_rejection():
 
 
 # ---------------------------------------------------------------------------
+# K4 put+signal and K6 accumulate+signal
+# ---------------------------------------------------------------------------
+
+K46_CASES = [(op, dt) for dt in ("float32", "int32", "bfloat16")
+             for op in common.ATOMIC_KERNEL_OPS
+             if not (op in common.BITWISE_OPS and dt != "int32")]
+
+
+def _stacked(rng, shape, dtype):
+    """The same values for both packages (bfloat16 rounded once, from
+    float32, by each)."""
+    if dtype == "int32":
+        a = rng.integers(-(2**20), 2**20, shape).astype(np.int32)
+        return jnp.asarray(a), torch.from_numpy(a)
+    a = rng.standard_normal(shape).astype(np.float32)
+    if dtype == "bfloat16":
+        return jnp.asarray(a).astype(jnp.bfloat16), \
+            torch.from_numpy(a).to(torch.bfloat16)
+    return jnp.asarray(a), torch.from_numpy(a)
+
+
+def _same(t, j):
+    np.testing.assert_array_equal(t.float().numpy() if t.is_floating_point()
+                                  else t.numpy(), np.asarray(j, np.float32)
+                                  if t.is_floating_point() else np.asarray(j))
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+@pytest.mark.parametrize("op,dtype", K46_CASES)
+def test_put_and_accumulate_signal_match_reference(op, dtype, ordered):
+    """K4: the ring put plus the flag word (the reference's
+    ``default_flag_value`` for ``op``); K6: the ring accumulate at an offset
+    plus the flag — exact, ordered and in the Listing-1 shape."""
+    n = 4
+    rng = np.random.default_rng(K46_CASES.index((op, dtype)))
+    jx, tx = _stacked(rng, (n, 13), dtype)
+    jb, tb = _stacked(rng, (n, 21), dtype)
+    jflag = jnp.broadcast_to(j_flag_value(op, jx.dtype), (n, 1))
+    tflag = torch.from_numpy(np.array(jflag, np.float32)).to(tx.dtype)
+    got, gflag = put_signal(tx, tflag, axis_size=n, ordered=ordered)
+    _same(got, JR.ring_put_ref(jx, axis_size=n))
+    _same(gflag, JR.ring_put_ref(jflag, axis_size=n))
+    got, gflag = accumulate_signal(tx, tb, tflag, axis_size=n, op=op,
+                                   offset=5, ordered=ordered)
+    _same(got, JR.ring_accumulate_ref(jb, jx, axis_size=n, op=op, offset=5))
+    _same(gflag, JR.ring_put_ref(jflag, axis_size=n))
+
+
+def test_signal_kernels_refuse_what_the_reference_refuses():
+    buf, upd, flag = torch.zeros(4, 8), torch.ones(4, 2), torch.ones(4, 1)
+    for op in ("prod", "bor"):
+        with pytest.raises(ValueError):
+            accumulate_signal(upd, buf, flag, axis_size=4, op=op)
+        with pytest.raises(ValueError):     # the reference kernel refuses too
+            j_accumulate_signal(jnp.ones((2,)), jnp.zeros((8,)),
+                                jnp.ones((1,)), axis="x", axis_size=4, op=op)
+
+
+def test_signal_kernels_raise_on_overrun():
+    """On the card an overrun is a stray write, so the wrappers raise where
+    the reference kernel has no check (ROADMAP §3)."""
+    src, dst = torch.ones(4, 3), torch.zeros(4, 8)
+    flag, fdst = torch.ones(4, 1), torch.zeros(4, 4)
+    ring = [1, 2, 3, 0]
+    for call in (
+            lambda: put_signal_rows(src, dst, ring, flag=flag, flag_dst=fdst,
+                                    offset=6),
+            lambda: put_signal_rows(src, dst, ring, flag=flag, flag_dst=fdst,
+                                    offset=[0, 0, 6, 0]),
+            lambda: put_signal_rows(src, dst, ring, flag=flag, flag_dst=fdst,
+                                    flag_offset=4),
+            lambda: accumulate_signal_rows(src, dst, ring, flag=flag,
+                                           flag_dst=fdst, offset=-1),
+            lambda: accumulate_signal(src, dst, flag, axis_size=4,
+                                      offset=6)):
+        with pytest.raises(ValueError, match="overrun"):
+            call()
+    put_signal_rows(src, dst, ring, flag=flag, flag_dst=fdst, offset=5,
+                    flag_offset=3)                  # the last in-range place
+
+
+def test_put_signal_rows_per_rank_offsets_counters_and_check():
+    rng = np.random.default_rng(7)
+    src = torch.from_numpy(rng.standard_normal((4, 3, 2)).astype(np.float32))
+    dst = torch.zeros(4, 9, 2)
+    fdst = torch.zeros(4, 2, dtype=torch.int32)
+    counters = torch.zeros(4, 2, dtype=torch.int32)
+    check = torch.zeros(1, dtype=torch.int32)
+    ticks = put_signal_rows(src, dst, [1, 2, 3, -1],
+                            flag=torch.ones(4, 1, dtype=torch.int32),
+                            flag_dst=fdst, offset=[0, 2, 4, 6], flag_offset=1,
+                            counters=counters, stream=1, check=check)
+    for r, t in enumerate([1, 2, 3]):
+        torch.testing.assert_close(dst[t, 2 * r:2 * r + 3], src[r],
+                                   rtol=0, atol=0)
+    assert dst[0].abs().sum() == 0                    # rank 3 sends nothing
+    assert fdst[:, 1].tolist() == [0, 1, 1, 1]
+    assert counters[:, 1].tolist() == [ticks] * 3 + [0]
+    assert check.item() == 0
+    with pytest.raises(ValueError, match="two origins"):
+        put_signal_rows(src, dst, [1, 1, -1, -1], flag=torch.ones(4, 1),
+                        flag_dst=torch.zeros(4, 2))
+
+
+@pytest.mark.parametrize("shape,dtype,offset,unit", [
+    ((4, 8, 5121), torch.bfloat16, 0, 16),   # the a2a block: 16-byte copies
+    ((4, 4097), torch.int32, 0, 4),          # a ragged int32 row
+    ((4, 8, 4), torch.float32, 1, 16),
+    ((4, 8, 4), torch.float32, [0, 1, 2, 3], 16),
+    ((4, 8, 3), torch.bfloat16, 1, 2),
+])
+def test_copy_unit_is_the_widest_that_divides_the_layout(shape, dtype, offset,
+                                                        unit):
+    src = torch.zeros(shape, dtype=dtype)
+    dst = torch.zeros((shape[0], shape[1] + 8) + shape[2:], dtype=dtype)
+    assert src.data_ptr() % 16 == dst.data_ptr() % 16 == 0
+    assert copy_unit(src, dst, offset) == unit
+
+
+def test_signal_kernels_check_their_scratch():
+    src, dst = torch.ones(4, 3), torch.zeros(4, 8)
+    sig = dict(flag=torch.ones(4, 1), flag_dst=torch.zeros(4, 4))
+    for bad in (torch.zeros(5, dtype=torch.int32), torch.zeros(6)):
+        with pytest.raises(ValueError, match="scratch"):
+            _scratch(bad, 4, torch.device("cpu"))
+    ok = torch.zeros(6, dtype=torch.int32)
+    assert _scratch(ok, 4, torch.device("cpu")) is ok
+    put_signal_rows(src, dst, [1, 2, 3, 0], scratch=ok, **sig)
+    accumulate_signal_rows(src, dst, [1, 2, 3, 0], scratch=ok, **sig)
+    assert not ok.any()
+
+
+# ---------------------------------------------------------------------------
 # invariants of the port
 # ---------------------------------------------------------------------------
 
@@ -296,6 +437,16 @@ WRAPPERS = [
         stalls=torch.zeros(1, dtype=torch.int32))),
     ("ring_all_reduce", lambda: ring_all_reduce(torch.ones(2, 4),
                                                 axis_size=2)),
+    ("put_signal", lambda: put_signal(torch.ones(2, 4), torch.ones(2, 1),
+                                      axis_size=2)),
+    ("put_signal_rows", lambda: put_signal_rows(
+        torch.ones(2, 4), torch.zeros(2, 4), [1, 0], flag=torch.ones(2, 1),
+        flag_dst=torch.zeros(2, 1))),
+    ("accumulate_signal", lambda: accumulate_signal(
+        torch.ones(2, 2), torch.zeros(2, 4), torch.ones(2, 1), axis_size=2)),
+    ("accumulate_signal_rows", lambda: accumulate_signal_rows(
+        torch.ones(2, 4), torch.zeros(2, 4), [1, 0], flag=torch.ones(2, 1),
+        flag_dst=torch.zeros(2, 1))),
 ]
 
 

@@ -436,8 +436,8 @@ def test_unported_surface_raises_not_implemented():
         p.compile(backend="gspmd")
     for call in (lambda: p.prefetch(None, None),
                  lambda: p.put_handle("w", "g", None, [(0, 1)]),
-                 lambda: p.all_to_all("w", "w", "g", None, "x", 2,
-                                      shape=(2,), dtype="float32")):
+                 lambda: T.all_to_all_plan("x", 2, (2,), "float32",
+                                           backend="gspmd")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 
