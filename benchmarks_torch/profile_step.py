@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of one train step of the port goes on a card.
+"""Where the time of one train step, or of one prefill and one decode tick
+of the serving path, of the port goes on a card.
 
-    python3 benchmarks_torch/profile_step.py [--moe]
+    python3 benchmarks_torch/profile_step.py [--moe | --serve]
 
 Builds a configuration ``chip_smoke.py`` trains — by default ``qwen3-4b``
 at full width with depth cut to 2 layers, 4 stacked data-parallel ranks,
@@ -20,6 +21,14 @@ shapes recorded) and prints:
 * the operators with the most device time, with their input shapes, and the
   kernels with the most time.
 
+With ``--serve``: ``chip_smoke.py``'s serving configuration — ``qwen3-4b``
+at all 36 layers and published widths, a dense engine of 4 slots and
+``max_seq`` 2048, 1016-token prompts — admits four requests as warm-up,
+then traces one prefill (a fifth prompt into slot 0) and one decode tick
+over the four slots, and prints for each the wall time, the card's busy
+time and idle share, K7's share of the busy time, and the operators and
+kernels with the most device time.
+
 Needs one CUDA card; exits non-zero without one.
 """
 import argparse
@@ -32,6 +41,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 N_LAYERS, N_RANKS, GLOBAL_BATCH, SEQ_LEN, WARMUP = 2, 4, 8, 512, 2
 MOE_EXPERTS = 8
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_PROMPT = 4, 2048, 1016
 
 
 def self_device_us(evt) -> float:
@@ -46,10 +56,79 @@ def is_kernel(evt) -> bool:
     return str(getattr(evt, "device_type", "")).endswith("CUDA")
 
 
+def report_tops(ops, kernels, n_ops: int = 16, n_kernels: int = 10) -> None:
+    print("[profile] operators by device time (self, ms; calls; input shapes):")
+    for e in sorted(ops, key=self_device_us, reverse=True)[:n_ops]:
+        shapes = [s for s in (e.input_shapes or []) if s][:3]
+        print(f"  {self_device_us(e) / 1e3:9.2f}  {e.count:4d}  "
+              f"{e.key[:40]:40s} {shapes}")
+    print("[profile] kernels by device time (ms; calls):")
+    for e in sorted(kernels, key=self_device_us, reverse=True)[:n_kernels]:
+        print(f"  {self_device_us(e) / 1e3:9.2f}  {e.count:4d}  {e.key[:90]}")
+
+
+def profile_serve(torch) -> int:
+    """One traced prefill and one traced decode tick of the serving path."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config("qwen3-4b")
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    eng = ServeEngine(model, params, n_slots=SERVE_SLOTS,
+                      max_seq=SERVE_MAX_SEQ)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, size=SERVE_PROMPT)
+               for _ in range(SERVE_SLOTS + 1)]
+    for rid, prompt in enumerate(prompts[:SERVE_SLOTS]):
+        eng.submit(Request(rid, prompt, 64))
+    eng.step()                        # warm-up: four prefills, one tick
+    eng.step()
+    tok = torch.as_tensor(prompts[-1], dtype=torch.int64,
+                          device="cuda")[None]
+    parts = (("prefill", lambda: eng.executor.prefill(
+                  tok, 0, [], np.zeros(0, bool))),
+             ("decode tick", eng.step))
+    for what, fn in parts:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            fn()                      # both end in a host read
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages(group_by_input_shape=True)
+        kernels = [e for e in events if is_kernel(e)]
+        ops = [e for e in events if not is_kernel(e)]
+        busy_ms = sum(self_device_us(e) for e in kernels) / 1e3
+        if busy_ms <= 0:
+            raise AssertionError("the profiler recorded no device time")
+        k7 = [e for e in kernels if "flash_fwd_kernel" in e.key]
+        k7_ms = sum(self_device_us(e) for e in k7) / 1e3
+        print(f"[profile] {cfg.name} x{cfg.n_layers} layers d{cfg.d_model}, "
+              f"{SERVE_SLOTS} slots, max_seq {SERVE_MAX_SEQ}, "
+              f"{SERVE_PROMPT}-token prompts, one {what}: wall "
+              f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle "
+              f"{100 * (1 - busy_ms / wall_ms):.1f} %; K7 "
+              f"{sum(e.count for e in k7)} launches, {k7_ms:.2f} ms "
+              f"({100 * k7_ms / busy_ms:.1f} % of busy)")
+        report_tops(ops, kernels)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--moe", action="store_true",
-                    help="profile the expert-parallel llama4-maverick step")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--moe", action="store_true",
+                      help="profile the expert-parallel llama4-maverick step")
+    mode.add_argument("--serve", action="store_true",
+                      help="profile one prefill and one decode tick of the "
+                           "qwen3-4b serving path")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.join(HERE, "..", "src"))
     import torch
@@ -57,6 +136,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2
+    if args.serve:
+        return profile_serve(torch)
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -133,14 +214,7 @@ def main(argv=None) -> int:
         print(f"[profile] {e.key[:60]}: {e.count} launches, "
               f"{self_device_us(e) / max(1, e.count) / 1e3:.4f} ms each "
               "(device time)")
-    print("[profile] operators by device time (self, ms; calls; input shapes):")
-    for e in sorted(ops, key=self_device_us, reverse=True)[:16]:
-        shapes = [s for s in (e.input_shapes or []) if s][:3]
-        print(f"  {self_device_us(e) / 1e3:9.2f}  {e.count:4d}  "
-              f"{e.key[:40]:40s} {shapes}")
-    print("[profile] kernels by device time (ms; calls):")
-    for e in sorted(kernels, key=self_device_us, reverse=True)[:10]:
-        print(f"  {self_device_us(e) / 1e3:9.2f}  {e.count:4d}  {e.key[:90]}")
+    report_tops(ops, kernels)
     return 0
 
 

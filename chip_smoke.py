@@ -8,10 +8,12 @@
    the card: K1 tiled accumulate, K2 atomic accumulate, K3 put and its
    flush wait, K4 put+signal, K5 ring all-reduce, K6 accumulate+signal —
    every op and dtype the kernel takes, a ragged tail, ordered and
-   unordered, and the paths' own shapes; K4's check mode counts the copy
+   unordered, and the paths' own shapes; K7 flash attention at the JAX
+   kernel test's four shapes and the prefill's (1, 32, 1024, 128) bfloat16
+   with GQA 32/8; K4's check mode counts the copy
    units a consumer read behind a raised flag that differ from what was
    sent (must be 0), in the launch the paths run.  Times kernel, plain
-   version and the nearest single PyTorch call (K4 and K6 by CUDA-graph
+   version and the nearest single PyTorch call (K4, K6 and K7 by CUDA-graph
    replay, so the times are the card's alone).
 2. Drives each path with every launch counter at 0 just before it and
    reads the counters just after: the window layer (allocate →
@@ -24,7 +26,13 @@
    exchange's shape, held bit for bit to the same plan run op by op; and an
    expert-parallel ``llama4-maverick-400b-a17b`` train step at full width
    (2 layers, 8 of 128 experts, 4 stacked expert ranks) whose dispatch and
-   combine exchanges run on K4 and K6, forward and backward.
+   combine exchanges run on K4 and K6, forward and backward; and the
+   serving path: ``qwen3-4b`` at all 36 layers and published widths behind
+   a dense engine and a paged engine with copy-on-write prefix sharing,
+   one request set each, every prefill's attention on K7 — greedy tokens
+   equal bit for bit, the page pool conserved, K7 launched 36 times per
+   prefill, and one prefill's logits held to the same prefill on K7's
+   plain version.
 3. Prints the kernels' record as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -41,9 +49,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 #: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 op/s
-#: outside the tensor cores
+#: outside the tensor cores, dense bfloat16 op/s on the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
 
 N_RANKS = 4
 WINDOW_ELEMS = 1 << 20        # one rank's window shard: 4 MiB of float32
@@ -57,10 +66,25 @@ N_LAYERS = 2                  # depth cut for one card; every width is full
 MOE_ARCH = "llama4-maverick-400b-a17b"
 MOE_EXPERTS, EP_RANKS, MOE_STEPS = 8, 4, 4
 A2A_PHASES = 16               # the JAX planner's count at n = 4 (CPU tests)
+# serving: qwen3-4b at all 36 layers and published widths, 8 requests over
+# 4 slots.  Prompts are 1016 tokens (1024 - 8): one ending mid-page is what
+# lets a copy-on-write fork happen at 16-token pages; K7 runs them at the
+# 1024 its 128 blocks pad to.  Four share a 512-token prefix, two of those
+# are the same prompt (their boundary page is shared copy-on-write).
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_PAGE = 4, 2048, 16
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_PREFIX, SERVE_NEW = 8, 1016, 512, 32
+#: K7 against its plain version: the JAX kernel test's tolerances
+K7_TOL = {"float32": dict(atol=2e-5, rtol=1e-2),
+          "bfloat16": dict(atol=2e-2, rtol=1e-2)}
+#: a 36-layer bfloat16 prefill on K7 against the same prefill on K7's plain
+#: version: max |d logit| over max |logit| (each layer's attention output
+#: rounds to bfloat16, ~2^-8 relative, and the differences pass 36 layers)
+PREFILL_LOGIT_RTOL = 5e-2
 
 
-def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+def bound_ms(nbytes: float, ops: float = 0.0,
+             peak: float = PEAK_F32) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -422,6 +446,50 @@ def main() -> int:
             2 * n * width * 4, (n - 1) * width)
     del y
     torch.cuda.empty_cache()
+
+    # K7 at the JAX kernel test's shapes (f32 and bf16) and the prefill's
+    k7 = sys.modules["repro_torch.kernels.flash_attention"]
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = K7_TOL[str(dtype).split(".")[1]]
+        for b_, h_, s_, hd_, causal, bq, bkv in (
+                (2, 4, 256, 64, True, 64, 64), (1, 2, 128, 32, False, 64, 32),
+                (1, 1, 512, 128, True, 128, 128),
+                (3, 2, 192, 64, True, 64, 64)):
+            q, k, v = (rand((b_, h_, s_, hd_), dtype) for _ in range(3))
+            got = k7.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                     block_kv=bkv)
+            want = k7.flash_attention_plain(q, k, v, causal=causal,
+                                             block_q=bq, block_kv=bkv)
+            check(torch.allclose(got.float(), want.float(), **tol),
+                  f"K7 {(b_, h_, s_, hd_)} causal={causal} {dtype}: max err "
+                  f"{(got.float() - want.float()).abs().max().item()}")
+    cfg_serve = get_config("qwen3-4b")
+    H_, KV_, HD_ = cfg_serve.n_heads, cfg_serve.n_kv_heads, cfg_serve.head_dim
+    S_ = 1024                        # SERVE_PROMPT padded to K7's 128 blocks
+    q = rand((1, H_, S_, HD_), torch.bfloat16)
+    k, v = (rand((1, KV_, S_, HD_), torch.bfloat16) for _ in range(2))
+    got = k7.flash_attention(q, k, v)
+    want = k7.flash_attention_plain(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.allclose(got.float(), want.float(), **K7_TOL["bfloat16"]),
+          f"K7 at the prefill shape: max err {err}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    record["flash_attention"] = dict(
+        ms=graph_ms(torch, lambda: k7.flash_attention(q, k, v)),
+        plain_ms=graph_ms(torch, lambda: k7.flash_attention_plain(q, k, v)),
+        library_ms=graph_ms(torch, lambda: sdpa(q, k, v, is_causal=True,
+                                                enable_gqa=True)),
+        max_abs_err=err, shape=[1, H_, S_, HD_], dtype="bfloat16")
+    pairs = S_ * (S_ + 1) // 2       # causal (query, key) pairs this run needs
+    record["flash_attention"]["bound_ms"], \
+        record["flash_attention"]["bound_by"] = bound_ms(
+            2 * (q.numel() + k.numel() + v.numel() + q.numel()),
+            4 * HD_ * H_ * pairs, peak=PEAK_BF16)
+    print(f"[kernels] K7 equals its plain version: the JAX kernel test's four "
+          f"shapes in float32 and bfloat16, and (1, {H_}, {S_}, {HD_}) "
+          f"bfloat16 causal GQA {H_}/{KV_} (max abs err {err:.3g})",
+          flush=True)
+    del q, k, v, got, want
     for name, r in record.items():
         lib_ms = r["library_ms"]
         print(f"[kernel] {name} {r['shape']}: {r['ms']:.4f} ms (plain "
@@ -627,6 +695,115 @@ def main() -> int:
           f"exchanges lie inside grads) {parts}; peak memory "
           f"{peak_gib:.1f} GiB", flush=True)
 
+    del run
+    torch.cuda.empty_cache()
+
+    # the serving path: qwen3-4b at all 36 layers, one request set through a
+    # dense engine and a paged engine with copy-on-write prefix sharing
+    import numpy as np
+
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    attn_mod = sys.modules["repro_torch.models.attention"]
+    serve_model = build_model(cfg_serve)
+    t0 = time.perf_counter()
+    serve_params = serve_model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n_serve = sum(p.numel() for p in leaves(serve_params))
+    print(f"[plan] {cfg_serve.name} x{cfg_serve.n_layers} layers d"
+          f"{cfg_serve.d_model}: {n_serve} float32 parameters "
+          f"({n_serve * 4 / 2**30:.1f} GiB) initialized on the card from seed "
+          f"0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    prng = np.random.RandomState(0)
+    prefix = prng.randint(0, cfg_serve.vocab, size=SERVE_PREFIX)
+    prompts = [np.concatenate([prefix, prng.randint(
+        0, cfg_serve.vocab, size=SERVE_PROMPT - SERVE_PREFIX)])
+        for _ in range(3)]
+    prompts.append(prompts[2].copy())
+    prompts += [prng.randint(0, cfg_serve.vocab, size=SERVE_PROMPT)
+                for _ in range(SERVE_REQUESTS - len(prompts))]
+    serve_out = {}
+    for mode, kw in (("dense", {}),
+                     ("paged+cow", dict(paged_kv=True, page_tokens=SERVE_PAGE,
+                                        prefix_share=True))):
+        eng = ServeEngine(serve_model, serve_params, n_slots=SERVE_SLOTS,
+                          max_seq=SERVE_MAX_SEQ, **kw)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid, prompt, SERVE_NEW))
+        spent = {"prefill": [], "decode": []}
+        for part in spent:            # both calls end in a host read
+            def timed(*a, _fn=getattr(eng.executor, part), _t=spent[part]):
+                t = time.perf_counter()
+                out = _fn(*a)
+                _t.append((time.perf_counter() - t) * 1e3)
+                return out
+            setattr(eng.executor, part, timed)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        done = eng.run(strict=True)
+        wall = time.perf_counter() - t0
+        counts = path_counts(f"serve {mode}", ("flash_attention",))
+        n_prefill = len(spent["prefill"])
+        check(n_prefill == SERVE_REQUESTS, f"{mode}: {n_prefill} prefills")
+        check(counts["flash_attention"] == cfg_serve.n_layers * n_prefill,
+              f"{mode}: K7 launched {counts['flash_attention']} times, want "
+              f"{cfg_serve.n_layers} x {n_prefill} prefills")
+        tokens = {c.rid: c.tokens for c in done}
+        check(sorted(tokens) == list(range(SERVE_REQUESTS)) and all(
+            len(t) == SERVE_NEW and all(0 <= x < cfg_serve.vocab for x in t)
+            for t in tokens.values()), f"{mode}: tokens {tokens}")
+        st = eng.stats()
+        if eng.paged_kv:
+            eng.pool.check_conservation()
+            check(st["cow_copies"] > 0 and st["pages_shared"] > 0,
+                  f"{mode}: no page was shared or forked: {st}")
+            check(eng.pool.n_free == eng.pool.n_pages,
+                  f"{mode}: pages still held after the run: {st}")
+        n_tok = sum(len(t) for t in tokens.values())
+        serve_out[mode] = tokens
+        pre, dec = spent["prefill"], spent["decode"]
+        print(f"[serve] {mode}: {SERVE_REQUESTS} requests x {SERVE_PROMPT} "
+              f"prompt tokens, {SERVE_NEW} new each, {SERVE_SLOTS} slots, "
+              f"max_seq {SERVE_MAX_SEQ}, bf16: {n_tok} tokens in {wall:.2f} s "
+              f"({n_tok / wall:.1f} tok/s); prefill ms per request "
+              f"{[round(x, 1) for x in pre]}; decode ms per tick median "
+              f"{sorted(dec)[len(dec) // 2]:.2f} (min {min(dec):.2f}, max "
+              f"{max(dec):.2f}, {len(dec)} ticks); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; stats "
+              f"{st}", flush=True)
+        del eng
+    check(serve_out["dense"] == serve_out["paged+cow"],
+          "dense and paged+COW greedy tokens differ")
+    print("[serve] dense and paged+COW greedy tokens equal bit for bit",
+          flush=True)
+    # one prefill on K7 against the same prefill on K7's plain version
+    tok = torch.as_tensor(prompts[0], dtype=torch.int64, device=dev)[None]
+    logits = {}
+    for name, fn in (("K7", attn_mod.flash_attention),
+                     ("plain", k7.flash_attention_plain)):
+        attn_mod.flash_attention = fn
+        try:
+            logits[name], _ = serve_model.prefill(
+                serve_params, {"tokens": tok},
+                serve_model.init_cache(1, SERVE_MAX_SEQ))
+        finally:
+            attn_mod.flash_attention = k7.flash_attention
+    lanes = slice(0, cfg_serve.vocab)     # the padded lanes hold -1e30
+    diff = (logits["K7"][..., lanes] - logits["plain"][..., lanes]
+            ).abs().max().item()
+    scale = logits["plain"][..., lanes].abs().max().item()
+    check(bool(torch.isfinite(logits["K7"]).all()), "prefill logits finite")
+    check(diff <= PREFILL_LOGIT_RTOL * scale,
+          f"prefill logits on K7 vs its plain version: max |d| {diff} of max "
+          f"|logit| {scale}")
+    print(f"[serve] one prefill's last logits, K7 vs its plain version: max "
+          f"|d| {diff:.4g} of max |logit| {scale:.4g} (bound "
+          f"{PREFILL_LOGIT_RTOL} x)", flush=True)
+    del serve_params, logits
+    torch.cuda.empty_cache()
+
     # ---- 3. the record ------------------------------------------------------
     replaces = {
         "accumulate": ("K1", "src/repro/kernels/accumulate.py:84"),
@@ -637,12 +814,14 @@ def main() -> int:
         "ring_all_reduce": ("K5", "src/repro/kernels/ring_allreduce.py:108"),
         "accumulate_signal": ("K6",
                               "src/repro/kernels/ordered_put_signal.py:144"),
+        "flash_attention": ("K7", "src/repro/kernels/flash_attention.py:84"),
     }
     sources = {"accumulate": "accumulate.cu", "ring_accumulate": "intrinsic.cu",
                "ring_put": "rma_put.cu", "put_wait": "rma_put.cu",
                "put_signal": "put_signal.cu",
                "ring_all_reduce": "ring_allreduce.cu",
-               "accumulate_signal": "put_signal.cu"}
+               "accumulate_signal": "put_signal.cu",
+               "flash_attention": "flash_attention.cu"}
     rows = []
     for name in replaces:
         r = record[name]

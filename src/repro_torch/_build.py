@@ -33,12 +33,13 @@ SOURCES = {
     "rma_put": "rma_put.cu",
     "ring_allreduce": "ring_allreduce.cu",
     "put_signal": "put_signal.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 _U32P = ctypes.POINTER(ctypes.c_uint32)
 
 #: the C entry points of each library: symbol → argtypes (the first is the
@@ -60,6 +61,9 @@ SIGNATURES = {
         "rt_accumulate_signal": (_P, _I64, _P, _I64, _I64, _P, _P, _I64, _I64,
                                  _I, _I, _P, _I64, _P, _I64, _I64, _I64, _I,
                                  _I, _P, _P, _I, _I, _I, _I, _P, _P)},
+    "flash_attention": {"rt_flash_attention":
+                        (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                         _F, _I, _I, _P)},
 }
 
 _loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}

@@ -1,10 +1,10 @@
 """repro_torch.kernels — hand-written Hopper kernels (CUDA C++, sm_90a) with
 their plain PyTorch versions and oracles (``ref``).
 
-Each wrapper takes the stacked ``(n, ...)`` layout (row r = rank r), computes
-its plain version on CPU tensors, and on CUDA tensors launches its kernel or
-raises.  Kernels build at first use (``repro_torch._build``) from
-``repro_torch/csrc/``.
+The RMA wrappers take the stacked ``(n, ...)`` layout (row r = rank r).
+Every wrapper computes its plain version on CPU tensors, and on CUDA tensors
+launches its kernel or raises.  Kernels build at first use
+(``repro_torch._build``) from ``repro_torch/csrc/``.
 
 Every TPU kernel of the JAX package, by its ``pallas_call``:
 
@@ -17,13 +17,15 @@ K3 ``kernels/rma_put.py:47``             ``ring_put``           per-rank shard t
 K4 ``kernels/ordered_put_signal.py:72``  ``put_signal``         payload + flag word, (un)ordered      ``ordered_put_signal.py`` (CUDA)
 K5 ``kernels/ring_allreduce.py:108``     ``ring_all_reduce``    (n·chunk, …) f32 sum all-reduce       ``ring_allreduce.py`` (CUDA)
 K6 ``kernels/ordered_put_signal.py:144`` ``accumulate_signal``  K2's fold + K4's flag fused           ``ordered_put_signal.py`` (CUDA)
-K7 ``kernels/flash_attention.py:84``     ``flash_attention``    (B,H,S,D) causal forward              not yet ported
+K7 ``kernels/flash_attention.py:84``     ``flash_attention``    (B,H,S,D) causal forward, GQA         ``flash_attention.py`` (CUDA)
 K8 ``kernels/ssd_scan.py:62``            ``ssd_intra_chunk``    per (batch, chunk) SSD intra-chunk    not yet ported
 == ===================================== ====================== ===================================== =============
 """
 from repro_torch.kernels import ref
 from repro_torch.kernels.accumulate import COUNTER as _K1
 from repro_torch.kernels.accumulate import accumulate, op_identity
+from repro_torch.kernels.flash_attention import COUNTER as _K7
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.intrinsic import COUNTER as _K2
 from repro_torch.kernels.intrinsic import ring_accumulate
 from repro_torch.kernels.ordered_put_signal import ACC_COUNTER as _K6
@@ -38,7 +40,7 @@ from repro_torch.kernels.ring_allreduce import ring_all_reduce
 
 #: the launch counter of every ported kernel, by kernel name
 COUNTERS = {c.name: c for c in (_K1, _K2, _K3, _K3_WAIT, _K4, _K5,
-                                 _K6)}
+                                 _K6, _K7)}
 
 
 def launch_counts() -> dict[str, int]:
@@ -52,5 +54,6 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "ref", "accumulate", "op_identity", "ring_accumulate", "ring_put",
-    "put_signal", "accumulate_signal", "ring_all_reduce", "COUNTERS", "launch_counts", "reset_launch_counts",
+    "put_signal", "accumulate_signal", "ring_all_reduce", "flash_attention",
+    "COUNTERS", "launch_counts", "reset_launch_counts",
 ]

@@ -1,11 +1,27 @@
-"""Plain-PyTorch oracles for the RMA kernels, in the stacked ``(n, ...)``
-layout (row r = rank r's shard).  Each mirrors one kernel's contract; the
-flash-attention and SSD oracles arrive with their kernels."""
+"""Plain-PyTorch oracles: the materialized-softmax attention oracle and the
+RMA kernels' oracles in the stacked ``(n, ...)`` layout (row r = rank r's
+shard).  Each mirrors one kernel's contract; the SSD oracle arrives with its
+kernel."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.common import is_integer
+
+NEG_INF = -2.0**30
+
+
+def flash_attention_ref(q, k, v, *, causal=True, sm_scale=None):
+    """q/k/v (B, H, S, hd) — materialized-softmax oracle."""
+    hd = q.shape[-1]
+    scale = sm_scale if sm_scale is not None else hd ** -0.5
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    if causal:
+        mask = torch.ones((q.shape[2], k.shape[2]), dtype=torch.bool,
+                          device=q.device).tril()
+        s = torch.where(mask, s, s.new_full((), NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    return (w @ v.float()).to(q.dtype)
 
 
 def accumulate_ref(buffer: torch.Tensor, update: torch.Tensor, *,
@@ -53,5 +69,5 @@ def ring_all_reduce_ref(x_global):
     return s.expand_as(x_global).clone()
 
 
-__all__ = ["accumulate_ref", "ring_accumulate_ref", "ring_put_ref",
+__all__ = ["flash_attention_ref", "accumulate_ref", "ring_accumulate_ref", "ring_put_ref",
            "ring_all_reduce_ref"]

@@ -1,0 +1,113 @@
+"""Serving launcher: continuous batching over a ported architecture.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --tiny \\
+      --requests 8 --max-new 16 --device cpu
+
+Runs on the card unless ``--device cpu``.  ``--disagg`` runs the decode
+engine on the paged KV pool (page-table indirection, page alloc/free at slot
+admit/release), and ``--prefix-share`` adds copy-on-write prefix sharing on
+it.  The JAX launcher's prefill→decode round-trip demo over a device mesh,
+its ``--dry-run`` and the elastic ``--inject`` mode are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from repro_torch.configs import get_config, tiny_config
+from repro_torch.models import build_model
+from repro_torch.serve.engine import Request, ServeEngine
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--tiny", action="store_true", default=True)
+    ap.add_argument("--full", dest="tiny", action="store_false")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=256)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="where the model runs (default: the card)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated mode: the paged-KV decode engine")
+    ap.add_argument("--page-tokens", type=int, default=16,
+                    help="tokens per KV page in --disagg mode")
+    ap.add_argument("--policy", default="continuous",
+                    choices=["continuous", "static", "priority", "fair"],
+                    help="admission policy: continuous batching (default), "
+                         "static whole-batch, priority, or fair-share")
+    ap.add_argument("--prefix-share", action="store_true",
+                    help="COW KV prefix sharing on the paged pool "
+                         "(requires --disagg); requests with a common "
+                         "prompt prefix map the same physical pages")
+    ap.add_argument("--kv-pages", type=int, default=None,
+                    help="cap the allocatable physical KV pages below "
+                         "slots*max_seq/page_tokens (admission backs off "
+                         "under pool pressure)")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="give every request the same random prefix of this "
+                         "many tokens")
+    ap.add_argument("--inject", default=None, metavar="SPEC",
+                    help="elastic mode with a scripted fault spec (not "
+                         "ported yet)")
+    ap.add_argument("--workers", type=int, default=2,
+                    help="with --inject: decode slots per worker group")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="with --disagg: run only the round-trip demo (not "
+                         "ported yet)")
+    args = ap.parse_args(argv)
+
+    if args.dry_run and not args.disagg:
+        ap.error("--dry-run requires --disagg")
+    if args.prefix_share and not args.disagg:
+        ap.error("--prefix-share requires --disagg (the paged pool)")
+    if args.dry_run:
+        raise NotImplementedError(
+            "--dry-run: the prefill→decode round trip over the control "
+            "window is not ported to repro_torch yet (ROADMAP queue 1, "
+            "item 9)")
+    if args.inject is not None:
+        raise NotImplementedError(
+            "--inject: the elastic runtime is not ported to repro_torch yet "
+            "(ROADMAP queue 1, item 12)")
+    if args.disagg:
+        print("[serve] the prefill→decode round-trip demo is not ported yet "
+              "(ROADMAP item 9); serving on the paged KV pool")
+
+    cfg = tiny_config(args.arch) if args.tiny else get_config(args.arch)
+    model = build_model(cfg)
+    params = model.init(args.seed, device=args.device)
+    eng = ServeEngine(model, params, n_slots=args.slots, max_seq=args.max_seq,
+                      paged_kv=args.disagg, page_tokens=args.page_tokens,
+                      policy=args.policy, prefix_share=args.prefix_share,
+                      kv_pages=args.kv_pages)
+    rng = np.random.RandomState(args.seed)
+    shared = rng.randint(0, cfg.vocab, size=args.shared_prefix_len)
+    t0 = time.perf_counter()
+    for rid in range(args.requests):
+        tail = max(args.prompt_len - args.shared_prefix_len, 1)
+        prompt = np.concatenate([shared, rng.randint(0, cfg.vocab, size=tail)])
+        eng.submit(Request(rid=rid, prompt=prompt,
+                           max_new_tokens=args.max_new))
+    done = eng.run()
+    dt = time.perf_counter() - t0
+    toks = sum(len(c.tokens) for c in done)
+    mode = "disagg/paged" if args.disagg else "dense"
+    print(f"[serve] {len(done)} requests, {toks} tokens in {dt:.2f}s "
+          f"({toks/dt:.1f} tok/s, {args.slots} slots, {mode} KV, "
+          f"{args.policy} admission, device {args.device})")
+    if args.disagg:
+        print(f"[serve] pool stats: {eng.stats()}")
+    for c in sorted(done, key=lambda c: c.rid)[:3]:
+        print(f"[serve]   rid={c.rid}: {c.tokens[:8]}...")
+    return done
+
+
+if __name__ == "__main__":
+    main()

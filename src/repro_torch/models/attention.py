@@ -1,18 +1,29 @@
-"""GQA attention, train/prefill path: full (materialized) and blockwise
-(online-softmax over KV blocks) attention, and the GQA layer without caches.
+"""GQA attention: full (materialized) and blockwise (online-softmax over KV
+blocks) attention for training, and the KV-cache path for serving — dense
+and paged caches, prefill through kernel K7 and decode over the cache.
 
 Shapes (batch B, sequence S, query heads H, kv heads KV, head_dim hd):
 weights wq (d, H, hd), wk/wv (d, KV, hd), wo (H, hd, d); activations
-(B, S, H, hd) — the JAX package's layout.  The decode path, paged caches and
-MLA arrive with serving and the other families (ROADMAP queue 1).
+(B, S, H, hd); caches k/v (B, S_max, KV, hd), or the paged layout of
+``repro_torch.serve.disagg.paginate_cache`` — the JAX package's layouts.
+
+Where the JAX package returns a new cache, the port writes the given cache
+in place (its tensors, ``pos`` included), so a decode step copies no cache.
+MLA and cross-attention arrive with their families (ROADMAP queue 1,
+item 11).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers
 
 NEG_INF = -2.0**30  # large-but-finite: avoids NaNs from (-inf) - (-inf)
+
+#: K7's block size in prefill: prompts are padded at the end to a multiple
+PREFILL_BLOCK = 128
 
 
 def init_gqa(gen, cfg, device) -> dict:
@@ -91,10 +102,126 @@ def blockwise_attention(q, k, v, *, causal: bool, block_kv: int = 1024,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                  ) -> torch.Tensor:
+    """Causal attention of a prompt over its own keys through K7: q (B, S,
+    H, hd), k/v (B, S, KV, hd) unexpanded → (B, S, H, hd).
+
+    q, k and v are padded at the end to a multiple of ``PREFILL_BLOCK`` and
+    the output sliced back: exact under the causal mask, since every padded
+    key comes after every real query."""
+    S = q.shape[1]
+    pad = (-S) % PREFILL_BLOCK
+
+    def heads(t):
+        return F.pad(t.transpose(1, 2), (0, 0, 0, pad))   # (B, heads, S+pad, hd)
+
+    out = flash_attention(heads(q), heads(k), heads(v), causal=True,
+                          block_q=PREFILL_BLOCK, block_kv=PREFILL_BLOCK)
+    return out[:, :, :S].transpose(1, 2)
+
+
+def _write_dense(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                 cols: torch.Tensor) -> None:
+    """``buf[r, cols[r]] = new[r]`` in place, dropping writes at cols >=
+    S_max as the JAX scatter drops them.  A dropped write is aimed at the
+    row's last position carrying the value that position ends with, so no
+    two writes to one place disagree."""
+    B, s_max = buf.shape[:2]
+    S = new.shape[1]
+    rows = torch.arange(B, device=buf.device)
+    last = s_max - 1 - pos.long()                    # the write to s_max - 1
+    hits_last = (last >= 0) & (last < S)
+    fill = torch.where(hits_last[:, None, None],
+                       new[rows, last.clamp(0, S - 1)].to(buf.dtype),
+                       buf[:, s_max - 1])
+    valid = (cols < s_max)[..., None, None]
+    buf[rows[:, None], cols.clamp(max=s_max - 1)] = torch.where(
+        valid, new.to(buf.dtype), fill[:, None])
+
+
+def _write_paged(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                 cols: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter new tokens through the page table into the physical pools in
+    place; return each row's gathered logical (B, pages·pt, KV, hd) K and V.
+
+    A write with no page (a row at ``pos == max_seq``), aimed at a
+    write-protected shared page (``page_ro``) or at a non-resident page
+    (``page_hot``) is dropped, as the JAX scatter drops its out-of-range
+    ids: it lands on the parking page carrying the value already there.
+    The parking page is the sink of parked rows' writes anyway, and no live
+    row reads it."""
+    kp, vp, table = cache["k_pages"], cache["v_pages"], cache["page_table"]
+    B = table.shape[0]
+    park = kp.shape[0] - 1
+    pt, ppr = kp.shape[1], table.shape[-1]
+    rows = torch.arange(B, device=kp.device)[:, None]
+    page_idx = cols // pt
+    valid = page_idx < ppr
+    phys = table[rows, page_idx.clamp(max=ppr - 1)].long()
+    gather_table = table.long()
+    if "page_ro" in cache:
+        valid &= ~cache["page_ro"][phys]
+    if "page_hot" in cache:
+        hot = cache["page_hot"]
+        valid &= hot[phys]
+        gather_table = torch.where(hot[gather_table], gather_table, park)
+    dest = torch.where(valid, phys, park)
+    in_page = cols % pt
+    keep = valid[..., None, None]
+    for pool, new in ((kp, k), (vp, v)):
+        pool[dest, in_page] = torch.where(keep, new.to(pool.dtype),
+                                          pool[park, in_page])
+    KV, hd = kp.shape[2], kp.shape[3]
+    return (kp[gather_table].reshape(B, -1, KV, hd),
+            vp[gather_table].reshape(B, -1, KV, hd))
+
+
+def _cached_attention(q, k, v, cache: dict, *, prefill: bool) -> torch.Tensor:
+    """Write the new k/v at each row's ``pos`` and attend; advances
+    ``pos`` in place.  Prefill (rows at position 0) attends over its own
+    keys through K7; decode over the whole cache with a masked softmax."""
+    B, S, H, hd = q.shape
+    pos = cache["pos"]
+    cols = pos.long()[:, None] + torch.arange(S, device=q.device)[None, :]
+    if "k_pages" in cache:
+        ck, cv = _write_paged(cache, k, v, cols)
+    else:
+        _write_dense(cache["k"], k, pos, cols)
+        _write_dense(cache["v"], v, pos, cols)
+        ck, cv = cache["k"], cache["v"]
+    pos += S
+    if prefill:
+        return flash_prefill(q, k, v)
+    dt = q.dtype
+    KV = ck.shape[2]
+    # grouped heads: query head h reads kv head h // (H // KV), unexpanded
+    qg = q.float().reshape(B, S, KV, H // KV, hd)
+    scores = torch.einsum("bsgrd,bkgd->bgrsk", qg,
+                          ck.to(dt).float()) * hd ** -0.5
+    kpos = torch.arange(ck.shape[1], device=q.device)
+    mask = cols[:, None, None, :, None] >= kpos
+    scores = torch.where(mask, scores, scores.new_full((), NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrsk,bkgd->bsgrd", w.to(dt), cv.to(dt))
+    return out.reshape(B, S, H, hd)
+
+
 def gqa_attention(params: dict, x: torch.Tensor, cfg, *,
                   positions: torch.Tensor, causal: bool = True,
-                  block_kv: int = 1024) -> torch.Tensor:
-    """GQA self-attention over ``x`` (B, S, d); returns (B, S, d)."""
+                  cache: dict | None = None, block_kv: int = 1024,
+                  prefill: bool = False,
+                  kv_input: torch.Tensor | None = None) -> torch.Tensor:
+    """GQA self-attention over ``x`` (B, S, d); returns (B, S, d).
+
+    With ``cache``: the serving path — the new k/v are written at each
+    row's ``cache['pos']`` (in place) and attended over the cache;
+    ``prefill=True`` (the model's prefill, rows starting at position 0)
+    computes the prompt's causal attention through K7 instead."""
+    if kv_input is not None:
+        raise NotImplementedError(
+            "cross-attention (enc-dec families) is not ported to repro_torch "
+            "yet (ROADMAP queue 1, item 11)")
     H, KV = cfg.n_heads, cfg.n_kv_heads
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
@@ -110,21 +237,55 @@ def gqa_attention(params: dict, x: torch.Tensor, cfg, *,
     if cfg.rope_theta:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    kk = _expand_kv(k, H // KV)
-    vv = _expand_kv(v, H // KV)
-    impl = cfg.attn_impl
-    if impl == "auto":
-        impl = ("blockwise" if x.shape[1] * kk.shape[1] > cfg.blockwise_threshold
-                else "full")
-    if impl == "blockwise":
-        out = blockwise_attention(q, kk, vv, causal=causal, block_kv=block_kv)
+    if cache is not None:
+        out = _cached_attention(q, k, v, cache, prefill=prefill)
     else:
-        out = full_attention(q, kk, vv, causal=causal)
+        kk = _expand_kv(k, H // KV)
+        vv = _expand_kv(v, H // KV)
+        impl = cfg.attn_impl
+        if impl == "auto":
+            impl = ("blockwise"
+                    if x.shape[1] * kk.shape[1] > cfg.blockwise_threshold
+                    else "full")
+        if impl == "blockwise":
+            out = blockwise_attention(q, kk, vv, causal=causal,
+                                      block_kv=block_kv)
+        else:
+            out = full_attention(q, kk, vv, causal=causal)
     proj = torch.einsum("bshk,hkd->bsd", out.to(dt), params["wo"].to(dt))
     if "bo" in params:
         proj = proj + params["bo"].to(dt)
     return proj
 
 
+def init_gqa_cache(cfg, batch: int, max_seq: int, dtype, device) -> dict:
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, max_seq, KV, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, max_seq, KV, hd), dtype=dtype, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def gqa_cache_spec(cfg) -> dict:
+    return {
+        "k": ("batch", "kv_seq", "kv_heads", None),
+        "v": ("batch", "kv_seq", "kv_heads", None),
+        "pos": ("batch",),
+    }
+
+
+def init_paged_gqa_cache(cfg, batch: int, max_seq: int, dtype, device,
+                         page_tokens: int) -> dict:
+    """Paged-layout GQA cache: a physical page pool (plus the parking page)
+    and a per-row page table, built by ``serve.disagg.paginate_cache`` — the
+    one definition of the layout."""
+    from repro_torch.serve.disagg import paginate_cache
+
+    return paginate_cache(init_gqa_cache(cfg, batch, max_seq, dtype, device),
+                          page_tokens)
+
+
 __all__ = ["init_gqa", "gqa_attention", "full_attention",
-           "blockwise_attention"]
+           "blockwise_attention", "flash_prefill", "init_gqa_cache",
+           "gqa_cache_spec", "init_paged_gqa_cache", "PREFILL_BLOCK"]

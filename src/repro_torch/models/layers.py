@@ -8,6 +8,8 @@ reference.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -120,8 +122,11 @@ def gelu_mlp(x: torch.Tensor, params: dict) -> torch.Tensor:
 
 # -- rotary position embeddings -----------------------------------------------------
 
+@functools.lru_cache(maxsize=16)
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
-    """Inverse frequencies for RoPE (float32, computed as the reference)."""
+    """Inverse frequencies for RoPE (float32, computed as the reference with
+    numpy), kept per device: copying them to the card at every call would
+    wait for the card twice a layer."""
     exponents = np.arange(0, head_dim, 2, dtype=np.float32) / head_dim
     return torch.from_numpy(np.asarray(1.0 / (theta ** exponents),
                                        np.float32)).to(device)

@@ -1,7 +1,11 @@
 """Top-level model API: ``build_model(cfg)`` → ``init`` / ``forward`` /
-``loss`` for the dense and MoE families, training path.
+``loss`` / ``init_cache`` / ``prefill`` / ``decode_step`` for the dense and
+MoE families.
 
-Batch convention: ``{"tokens": (B, S) int64, "labels": (B, S) int64}``.
+Batch conventions: train ``{"tokens": (B, S) int64, "labels": (B, S)
+int64}``; prefill ``{"tokens": (B, S)}``; decode tokens (B, 1) + cache.
+The cache is written in place and returned, where the JAX package returns a
+new one.
 Parameters are a plain dict tree with the JAX package's names and layouts
 (``repro_torch.convert.params_from_jax`` carries reference weights over).
 """
@@ -75,6 +79,53 @@ class Model:
                                          plan=self.plan,
                                          ep_ranks=self.ep_ranks)
         return self._logits(params, x), aux
+
+    # -- serving ---------------------------------------------------------------
+    def init_cache(self, batch: int, max_seq: int, dtype=None, *,
+                   device="cuda") -> dict:
+        """A zeroed stack cache for ``batch`` rows of ``max_seq`` tokens in
+        ``dtype`` (default the activation dtype), on the card unless
+        ``device="cpu"``."""
+        dev = resolve_device(device)
+        dtype = dtype if dtype is not None else self.cfg.activation_dtype
+        return transformer.init_stack_cache(self.cfg, batch, max_seq, dtype,
+                                            dev, plan=self.plan)
+
+    def cache_specs(self) -> dict:
+        return transformer.stack_cache_spec(self.cfg, self.plan)
+
+    def prefill(self, params, batch, cache) -> tuple[torch.Tensor, dict]:
+        """Process the prompt into a fresh cache (rows at position 0, as the
+        JAX package's prefill assumes: its positions start at 0); attention
+        runs through K7.  Returns (last-position float32 logits, cache)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = layers.embed(tokens, params["embed"], cfg.activation_dtype)
+        positions = torch.arange(x.shape[1], device=x.device).expand(
+            x.shape[:2])
+        x, _ = transformer.apply_stack(params["stack"], x, cfg,
+                                       positions=positions, causal=True,
+                                       plan=self.plan, ep_ranks=self.ep_ranks,
+                                       cache=cache, prefill=True)
+        return self._logits(params, x[:, -1:]), cache
+
+    def decode_step(self, params, cache, tokens: torch.Tensor
+                    ) -> tuple[torch.Tensor, dict]:
+        """One decode step: tokens (B, 1) against the cache."""
+        cfg = self.cfg
+        pos = self._cache_pos(cache)
+        positions = pos.long()[:, None] + torch.arange(
+            tokens.shape[1], device=tokens.device)[None, :]
+        x = layers.embed(tokens, params["embed"], cfg.activation_dtype)
+        x, _ = transformer.apply_stack(params["stack"], x, cfg,
+                                       positions=positions, causal=True,
+                                       plan=self.plan, ep_ranks=self.ep_ranks,
+                                       cache=cache)
+        return self._logits(params, x), cache
+
+    def _cache_pos(self, cache) -> torch.Tensor:
+        """Per-row sequence positions (the top-level step counter, (B,))."""
+        return cache["step"]
 
     def loss(self, params, batch) -> tuple[torch.Tensor, dict]:
         """Mean next-token cross-entropy over labels >= 0, plus 0.01 × the

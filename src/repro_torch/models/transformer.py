@@ -4,7 +4,12 @@ tree matches the JAX package's (scanned leaves stacked on a leading layer
 axis).  The reference scans the periods (rematerializing each under
 ``remat="block"``); here a Python loop walks them and keeps activations.
 MoE layers (``first_dense``, ``interleave_step``/``interleave_offset``) add
-their load-balancing loss to the stack's aux sum."""
+their load-balancing loss to the stack's aux sum.
+
+The serving caches follow the same decomposition: ``{"step", "prefix":
+[...], "scan": {...}}`` with the scanned blocks' leaves stacked on a leading
+layer axis, the JAX package's layout.  ``apply_stack(cache=...)`` hands each
+block a view of its slice, so the cache is written in place."""
 from __future__ import annotations
 
 import dataclasses
@@ -89,20 +94,33 @@ def init_block(gen, spec: LayerSpec, cfg, device) -> dict:
 
 def apply_block(params: dict, spec: LayerSpec, x: torch.Tensor, cfg, *,
                 positions: torch.Tensor, causal: bool = True,
-                ep_ranks: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+                ep_ranks: int = 1, cache: dict | None = None,
+                prefill: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """One decoder block (pre-norm attention + pre-norm MLP or MoE).
     Returns ``(x, aux)``; ``ep_ranks`` is the MoE's expert-parallel rank
-    count."""
+    count.  ``cache`` (the block's, written in place) and ``prefill`` go to
+    the attention."""
     h = _norm(x, params["norm_mixer"], cfg)
-    x = x + attention.gqa_attention(params["attn"], h, cfg,
-                                    positions=positions, causal=causal,
-                                    block_kv=cfg.attn_block_kv)
+    x = x + attention.gqa_attention(
+        params["attn"], h, cfg, positions=positions, causal=causal,
+        cache=cache["attn"] if cache is not None else None,
+        block_kv=cfg.attn_block_kv, prefill=prefill)
     h = _norm(x, params["norm_ffn"], cfg)
     if spec.ffn == "moe":
         out, aux = moe_lib.moe_apply(params["moe"], h, cfg, ep_ranks=ep_ranks)
         return x + out, aux
     mlp = layers.gelu_mlp if cfg.act == "gelu" else layers.swiglu
     return x + mlp(h, params["mlp"]), x.new_zeros((), dtype=torch.float32)
+
+
+def init_block_cache(spec: LayerSpec, cfg, batch: int, max_seq: int, dtype,
+                     device) -> dict:
+    return {"attn": attention.init_gqa_cache(cfg, batch, max_seq, dtype,
+                                             device)}
+
+
+def block_cache_spec(spec: LayerSpec, cfg) -> dict:
+    return {"attn": attention.gqa_cache_spec(cfg)}
 
 
 def init_stack(gen, cfg, device, plan: list[LayerSpec] | None = None) -> dict:
@@ -118,25 +136,74 @@ def init_stack(gen, cfg, device, plan: list[LayerSpec] | None = None) -> dict:
     return params
 
 
+def init_stack_cache(cfg, batch: int, max_seq: int, dtype, device,
+                     plan: list[LayerSpec] | None = None) -> dict:
+    plan = plan if plan is not None else layer_plan(cfg)
+    prefix, period = stage_plan(plan)
+    count = (len(plan) - prefix) // period
+    cache: dict = {
+        "step": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "prefix": [init_block_cache(plan[i], cfg, batch, max_seq, dtype,
+                                    device) for i in range(prefix)]}
+    if count:
+        blk = {f"l{j}": init_block_cache(plan[prefix + j], cfg, batch,
+                                         max_seq, dtype, device)
+               for j in range(period)}
+        cache["scan"] = tree_map(
+            lambda t: t[None].repeat((count,) + (1,) * t.dim()), blk)
+    return cache
+
+
+def stack_cache_spec(cfg, plan: list[LayerSpec] | None = None) -> dict:
+    plan = plan if plan is not None else layer_plan(cfg)
+    prefix, period = stage_plan(plan)
+    count = (len(plan) - prefix) // period
+    spec: dict = {"step": ("batch",),
+                  "prefix": [block_cache_spec(plan[i], cfg)
+                             for i in range(prefix)]}
+    if count:
+        # scanned leaves get a leading (stacked) layer axis
+        spec["scan"] = {
+            f"l{j}": {part: {leaf: (None, *names) for leaf, names in
+                             sub.items()} for part, sub in
+                      block_cache_spec(plan[prefix + j], cfg).items()}
+            for j in range(period)}
+    return spec
+
+
 def apply_stack(params: dict, x: torch.Tensor, cfg, *,
                 positions: torch.Tensor, causal: bool = True,
-                plan: list[LayerSpec] | None = None, ep_ranks: int = 1
+                plan: list[LayerSpec] | None = None, ep_ranks: int = 1,
+                cache: dict | None = None, prefill: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run the full stack.  Returns ``(x, aux_loss_sum)``."""
+    """Run the full stack.  Returns ``(x, aux_loss_sum)``.  With ``cache``
+    every block reads and writes its slice in place and ``cache['step']``
+    advances by the sequence length."""
     plan = plan if plan is not None else layer_plan(cfg)
     prefix, period = stage_plan(plan)
     count = (len(plan) - prefix) // period
     aux_total = x.new_zeros((), dtype=torch.float32)
-    blocks = [(params["prefix"][i], plan[i]) for i in range(prefix)]
+    blocks = [(params["prefix"][i], plan[i],
+               cache["prefix"][i] if cache is not None else None)
+              for i in range(prefix)]
     for c in range(count):
         block = tree_map(lambda p: p[c], params["scan"])
-        blocks += [(block[f"l{j}"], plan[prefix + j]) for j in range(period)]
-    for p, spec in blocks:
+        bcache = (tree_map(lambda t: t[c], cache["scan"])
+                  if cache is not None else None)
+        blocks += [(block[f"l{j}"], plan[prefix + j],
+                    bcache[f"l{j}"] if bcache is not None else None)
+                   for j in range(period)]
+    for p, spec, sub in blocks:
         x, aux = apply_block(p, spec, x, cfg, positions=positions,
-                             causal=causal, ep_ranks=ep_ranks)
+                             causal=causal, ep_ranks=ep_ranks, cache=sub,
+                             prefill=prefill)
         aux_total = aux_total + aux
+    if cache is not None:
+        cache["step"] += x.shape[1]
     return x, aux_total
 
 
 __all__ = ["LayerSpec", "layer_plan", "stage_plan", "init_block",
-           "apply_block", "init_stack", "apply_stack"]
+           "apply_block", "init_block_cache", "block_cache_spec",
+           "init_stack", "apply_stack", "init_stack_cache",
+           "stack_cache_spec"]

@@ -1,0 +1,536 @@
+"""The serving engine: scheduler / KV pool / executor, continuous batching.
+
+Three layers, as in the JAX package's ``serve/engine.py``:
+
+* :class:`repro_torch.serve.scheduler.Scheduler` — the **policy** layer:
+  request queue (arrival ticks, priorities, tenants) and per-tick
+  admission (continuous batching: any free slot is refilled every decode
+  tick).
+* :class:`repro_torch.serve.paged.KVPoolManager` — the **pool** layer:
+  refcounts on physical KV pages, copy-on-write prefix sharing, FIFO free
+  list, double-free guards.
+* :class:`Executor` (here) — the **execution** layer: owns the batched
+  device cache and runs prefill and decode eagerly, writing the cache in
+  place; one host read per call (the greedy tokens).
+
+:class:`ServeEngine` wires the three together (``submit`` / ``step`` /
+``run`` / ``stats``, ``slot_free`` / ``slot_req`` / ``done``).
+
+``paged_kv=True`` replaces the dense per-slot KV with the paged pool layout
+(``repro_torch.serve.disagg.paginate_cache``): a physical page pool plus a
+per-row page table.  ``prefix_share=True`` additionally admits new requests
+onto the pages of a live request with a common prompt prefix: full pages
+inside the common prefix are mapped read-only (refcount + 1, write-protected
+through the cache's ``page_ro`` leaf); the partial page at the prefix
+boundary is mapped copy-on-write when the new prompt ends exactly at the
+prefix, and forked (device page copy + table remap) the tick a holder's
+write position reaches it while it is still shared.  Sharing is bit-safe
+because the KV at position *i* depends only on tokens ``0..i`` and decode
+writes before it attends.
+
+Prefill runs each admitted prompt alone into a one-row sub-cache (through
+kernel K7) and inserts it into the slot; in paged mode the prompt's KV is
+re-paged into the slot's physical pages, and pages it shares land on the
+parking page.
+
+``kv_pages=(hbm_pages, host_pages)``, the tiered pool with a host-memory
+cold tier, is not ported yet (ROADMAP item 8) and raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.serve import disagg
+from repro_torch.serve.paged import KVPoolManager
+from repro_torch.serve.scheduler import Scheduler
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray          # (S,) int
+    max_new_tokens: int
+    eos_id: int = -1            # -1: never stops early
+    priority: int = 0           # policy="priority": higher admits first
+    tenant: int = 0             # policy="fair": fair-share key
+
+
+@dataclasses.dataclass
+class Completion:
+    rid: int
+    tokens: list
+    finished: bool = True       # False: run() ran out of ticks (partial)
+    arrival_tick: int = 0
+    done_tick: int = 0
+
+
+def _paged_dicts(tree):
+    """Every paged-attention dict of a cache tree."""
+    if isinstance(tree, dict):
+        if "k_pages" in tree:
+            yield tree
+            return
+        for v in tree.values():
+            yield from _paged_dicts(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _paged_dicts(v)
+
+
+def _insert_row(full: torch.Tensor, one: torch.Tensor, slot: int,
+                n_slots: int) -> None:
+    """Copy a 1-row leaf into row ``slot`` of the n_slots-row leaf, in place.
+
+    The batch axis is wherever ``one`` is 1 and ``full`` is n_slots with all
+    other dims equal (scan-stacked leaves carry a leading layer axis)."""
+    if full.dim() != one.dim():
+        return
+    for ax in range(full.dim()):
+        rest_f = full.shape[:ax] + full.shape[ax + 1:]
+        rest_o = one.shape[:ax] + one.shape[ax + 1:]
+        if one.shape[ax] == 1 and full.shape[ax] == n_slots \
+                and rest_f == rest_o:
+            full.narrow(ax, slot, 1).copy_(one)
+            return
+
+
+class Executor:
+    """The execution layer: the batched cache and eager prefill/decode.
+
+    Decisions live elsewhere — the scheduler picks *what* runs, the pool
+    manager *which pages* back it; the executor is handed a slot, a
+    physical-page row and a per-page write mask, and runs the model on the
+    device its parameters live on."""
+
+    def __init__(self, model, params, *, n_slots: int, max_seq: int,
+                 paged_kv: bool = False, page_tokens: int = 16):
+        self.model = model
+        self.params = params
+        self.n_slots = n_slots
+        self.max_seq = max_seq
+        self.page_tokens = page_tokens
+        self.device = params["embed"]["table"].device
+        self.cache = model.init_cache(n_slots, max_seq, device=self.device)
+        self.paged_kv = paged_kv
+        if paged_kv:
+            self.cache = disagg.paginate_cache(self.cache, page_tokens)
+
+    # -- the two model calls ----------------------------------------------------
+    def prefill(self, tokens: torch.Tensor, slot: int, phys_pages: list,
+                write_ok: np.ndarray) -> int:
+        """Prefill one admitted request (tokens (1, S)) into ``slot``;
+        returns its first greedy token."""
+        sub = self.model.init_cache(1, self.max_seq, device=self.device)
+        logits, sub = self.model.prefill(self.params, {"tokens": tokens}, sub)
+        self._insert(self.cache, sub, slot, phys_pages, write_ok)
+        return int(torch.argmax(logits[0, -1]))
+
+    def decode(self, last_tokens: np.ndarray) -> np.ndarray:
+        """One decode step over every slot; returns per-slot argmax (one
+        host read)."""
+        tokens = torch.as_tensor(last_tokens, dtype=torch.int64,
+                                 device=self.device)
+        logits, self.cache = self.model.decode_step(self.params, self.cache,
+                                                    tokens)
+        return torch.argmax(logits[:, -1, :], dim=-1).to(
+            torch.int32).cpu().numpy()
+
+    # -- paged-pool device ops ---------------------------------------------------
+    def fork_page(self, slot: int, j: int, src: int, dst: int) -> None:
+        """Copy-on-write fork: copy physical page ``src`` → ``dst`` in every
+        paged pool and point this slot's table entry ``j`` at the copy."""
+        for d in _paged_dicts(self.cache):
+            for key in ("k_pages", "v_pages"):
+                pool = d[key]
+                if pool.dim() == 4:
+                    pool[dst] = pool[src]
+                else:                               # leading layer axis
+                    pool[:, dst] = pool[:, src]
+            d["page_table"][..., slot, j] = dst
+            d["page_ro"][..., dst] = False
+            d["page_hot"][..., dst] = True
+
+    def set_pages_ro(self, pages, value: bool) -> None:
+        """(Un)write-protect physical pages device-side: decode scatters at
+        a read-only page are dropped like overflow writes (defence in depth
+        — the pool manager forks before any legitimate write reaches
+        one)."""
+        idx = torch.as_tensor(list(pages), dtype=torch.int64,
+                              device=self.device)
+        for d in _paged_dicts(self.cache):
+            d["page_ro"][..., idx] = value
+
+    def park(self, slot: int) -> None:
+        """Point a released slot's table rows at the parking page (its idle
+        decode writes must never land on pages a later admission owns)."""
+        disagg.park_slot(self.cache, slot)
+
+    # -- cache insertion ---------------------------------------------------------
+    def _insert(self, full, one, slot, phys_pages, write_ok) -> None:
+        """Insert the freshly prefilled 1-row cache ``one`` into slot
+        ``slot`` of ``full``: paged attention dicts scatter through the page
+        table, every other leaf copies along its batch axis."""
+        if isinstance(full, dict):
+            if "k_pages" in full:
+                self._insert_paged_attn(full, one, slot, phys_pages, write_ok)
+                return
+            for key in full:
+                self._insert(full[key], one[key], slot, phys_pages, write_ok)
+        elif isinstance(full, list):
+            for f, o in zip(full, one):
+                self._insert(f, o, slot, phys_pages, write_ok)
+        else:
+            _insert_row(full, one, slot, self.n_slots)
+
+    def _insert_paged_attn(self, full, one, slot, phys_pages, write_ok):
+        """Scatter a dense (…, 1, S, KV, hd) prefill KV into the slot's
+        physical pages and point the slot's page-table row at them.  Pages
+        with ``write_ok=False`` are shared — the donor already holds their
+        prefix KV — so their scatter lands on the parking page while the
+        table still maps them."""
+        pt = self.page_tokens
+        park = full["k_pages"].shape[-4] - 1
+        phys = torch.as_tensor(phys_pages, dtype=torch.int64,
+                               device=self.device)
+        ok = torch.as_tensor(write_ok, dtype=torch.bool, device=self.device)
+        dest = torch.where(ok, phys, park)
+        for key, src in (("k_pages", "k"), ("v_pages", "v")):
+            pool, dense = full[key], one[src]
+            *lead, _, s, kv, hd = dense.shape
+            d = dense.reshape(*lead, s // pt, pt, kv, hd).to(pool.dtype)
+            if pool.dim() == 4:
+                pool[dest] = d
+            else:
+                pool[:, dest] = d                   # leading layer axis
+        full["page_table"][..., slot, :] = phys.to(torch.int32)
+        full["pos"][..., slot] = one["pos"][..., 0]
+
+
+class ServeEngine:
+    """Greedy-decoding continuous-batching engine over ``n_slots`` slots —
+    the facade wiring scheduler, KV pool manager and executor together.
+    Runs on the device of ``params``."""
+
+    def __init__(self, model, params, *, n_slots: int, max_seq: int,
+                 paged_kv: bool = False, page_tokens: int = 16,
+                 policy: str = "continuous", prefix_share: bool = False,
+                 kv_pages: int | tuple[int, int] | None = None):
+        self.model = model
+        self.params = params
+        self.n_slots = n_slots
+        self.max_seq = max_seq
+        self.paged_kv = paged_kv
+        if prefix_share and not paged_kv:
+            raise ValueError("prefix_share=True requires paged_kv=True "
+                             "(sharing happens on the physical page pool)")
+        if isinstance(kv_pages, tuple):
+            raise NotImplementedError(
+                "kv_pages=(hbm, host): the tiered KV pool (host-memory cold "
+                "tier, HostKVTier, tier_step_plan) is not ported to "
+                "repro_torch yet (ROADMAP queue 1, item 8)")
+        self.prefix_share = prefix_share
+        self.executor = Executor(model, params, n_slots=n_slots,
+                                 max_seq=max_seq, paged_kv=paged_kv,
+                                 page_tokens=page_tokens)
+        if paged_kv:
+            self.page_tokens = page_tokens
+            self.pages_per_slot = max_seq // page_tokens
+            n_pages = n_slots * self.pages_per_slot
+            if kv_pages is not None:
+                if not self.pages_per_slot <= kv_pages <= n_pages:
+                    raise ValueError(
+                        f"kv_pages={kv_pages} must be between pages_per_slot"
+                        f"={self.pages_per_slot} and the device pool size "
+                        f"{n_pages}")
+                n_pages = kv_pages
+            self.pool = KVPoolManager(n_pages)
+            self.slot_pages: dict[int, list[int]] = {}
+            self._ro_pages: set[int] = set()
+        self.scheduler = Scheduler(n_slots, policy)
+        self.slot_free = [True] * n_slots
+        self._offline: set[int] = set()
+        self.evictions = 0
+        self.slot_req: dict[int, Request] = {}
+        self.slot_generated: dict[int, list] = {}
+        self.slot_pos: dict[int, int] = {}
+        self.slot_entry: dict[int, object] = {}
+        self.done: list[Completion] = []
+        self._last_tokens = np.zeros((n_slots, 1), np.int32)
+        self._tick = 0
+        self._incomplete = 0
+        self.max_live = 0
+
+    # -- public API --------------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        if len(req.prompt) >= self.max_seq:
+            raise ValueError("prompt longer than max_seq")
+        self.scheduler.submit(req, tick=self._tick,
+                              t_submit=time.perf_counter())
+
+    def step(self) -> None:
+        """One engine tick: admit per the policy, fork shared pages about
+        to be written, then one decode step over every slot."""
+        self._admit()
+        if self.slot_req:
+            if self.paged_kv and self.prefix_share:
+                self._cow_tick()
+            nxt = self.executor.decode(self._last_tokens)
+            for slot in list(self.slot_req):
+                tok = int(nxt[slot])
+                self.slot_generated[slot].append(tok)
+                self.slot_pos[slot] += 1
+                self._last_tokens[slot, 0] = tok
+                self._finish_if_ended(slot)
+        self._tick += 1
+
+    def evict_slots(self, slots, *, requeue: bool = True) -> int:
+        """Evict the live sequences on ``slots`` (the elastic path when a
+        worker owning them is quarantined): each releases its slot through
+        the normal teardown and, under ``requeue=True``, its scheduler entry
+        goes back to the front of the queue with its arrival intact —
+        re-admission re-prefills from the prompt, so greedy decode
+        reproduces the lost tokens.  Returns how many were requeued."""
+        n = 0
+        for slot in slots:
+            if slot not in self.slot_req:
+                continue
+            entry = self.slot_entry.get(slot)
+            req = self.slot_req[slot]
+            self._release(slot)
+            self.evictions += 1
+            if requeue:
+                if entry is not None:
+                    self.scheduler.requeue(entry)
+                else:
+                    self.scheduler.submit(req, tick=self._tick)
+                n += 1
+        return n
+
+    def set_slots_offline(self, slots, offline: bool = True) -> None:
+        """Take decode slots out of (or back into) the admission pool.
+        Offline slots read as not-free, so admission skips them."""
+        for slot in slots:
+            if offline:
+                if slot in self.slot_req:
+                    raise ValueError(
+                        f"slot {slot} still holds a live sequence — "
+                        f"evict_slots() it before taking it offline")
+                self._offline.add(slot)
+                self.slot_free[slot] = False
+            else:
+                self._offline.discard(slot)
+                if slot not in self.slot_req:
+                    self.slot_free[slot] = True
+
+    def run(self, max_ticks: int = 10_000, *,
+            strict: bool = False) -> list[Completion]:
+        """Drive ticks until every submitted request completes or
+        ``max_ticks`` is exhausted.  On exhaustion each live slot yields a
+        ``Completion(finished=False)`` with its partial tokens and each
+        queued request one with no tokens (``stats()['incomplete']`` counts
+        them), or under ``strict=True`` a ``RuntimeError`` names them."""
+        ticks = 0
+        while ((self.scheduler.pending_count or self.slot_req)
+               and ticks < max_ticks):
+            self.step()
+            ticks += 1
+        live = [(slot, self.slot_req[slot]) for slot in sorted(self.slot_req)]
+        queued = self.scheduler.pending_entries()
+        self._incomplete = len(live) + len(queued)
+        if self._incomplete and strict:
+            rids = [r.rid for _, r in live] + [e.req.rid for e in queued]
+            raise RuntimeError(
+                f"run(max_ticks={max_ticks}) exhausted with "
+                f"{self._incomplete} request(s) unfinished (rids {rids}) — "
+                "raise max_ticks, or strict=False for explicit incomplete "
+                "completions")
+        out = list(self.done)
+        for slot, req in live:
+            e = self.slot_entry.get(slot)
+            out.append(Completion(req.rid, list(self.slot_generated[slot]),
+                                  False, e.arrival if e else 0, self._tick))
+        for e in queued:
+            out.append(Completion(e.req.rid, [], False, e.arrival,
+                                  self._tick))
+        return out
+
+    def stats(self) -> dict:
+        """Engine health across all three layers."""
+        out = {"completed": len(self.done),
+               "pending": self.scheduler.pending_count,
+               "live_slots": len(self.slot_req), "paged_kv": self.paged_kv,
+               "policy": self.scheduler.policy,
+               "submitted": self.scheduler.submitted,
+               "admitted": self.scheduler.admitted,
+               "ticks": self._tick, "incomplete": self._incomplete,
+               "max_live": self.max_live, "evictions": self.evictions,
+               "offline_slots": len(self._offline)}
+        if self.paged_kv:
+            out.update(pages_allocated=self.pool.allocs,
+                       pages_freed=self.pool.frees,
+                       pages_free=self.pool.n_free,
+                       page_tokens=self.page_tokens,
+                       pages_shared=self.pool.shared_maps,
+                       cow_copies=self.pool.cow_copies,
+                       cow_debt=self.pool.cow_debt)
+        return out
+
+    # -- internals --------------------------------------------------------------
+    def _finish_if_ended(self, slot: int) -> bool:
+        """Complete-and-release ``slot`` iff its latest token ends the
+        request (EOS, token budget, or cache full)."""
+        req = self.slot_req[slot]
+        gen = self.slot_generated[slot]
+        ended = (gen[-1] == req.eos_id or
+                 len(gen) >= req.max_new_tokens or
+                 self.slot_pos[slot] >= self.max_seq - 1)
+        if ended:
+            e = self.slot_entry.get(slot)
+            self.done.append(Completion(req.rid, gen, True,
+                                        e.arrival if e else 0, self._tick))
+            self._release(slot)
+        return ended
+
+    def _admit(self) -> None:
+        """Admit what the scheduler selects, until it selects nothing (an
+        admission-time completion frees its slot within the tick)."""
+        while True:
+            entries = self.scheduler.select(sum(self.slot_free),
+                                            live=len(self.slot_req),
+                                            tick=self._tick)
+            if not entries:
+                return
+            for idx, entry in enumerate(entries):
+                slot = self.slot_free.index(True)
+                if not self._admit_one(entry, slot):
+                    # pool pressure: hand this and the rest back, front of
+                    # queue, original order — retry next tick
+                    for e in reversed(entries[idx:]):
+                        self.scheduler.requeue(e)
+                    return
+
+    def _admit_one(self, entry, slot: int) -> bool:
+        """Prefill one selected request into ``slot``.  Returns False (no
+        state changed; requeue the entry) when the pool cannot back it
+        fork-safely."""
+        req = entry.req
+        tokens = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64,
+                                 device=self.executor.device)[None]
+        phys, write_ok = [], np.zeros((0,), bool)
+        if self.paged_kv:
+            shared, shared_rw = ([], [])
+            if self.prefix_share:
+                shared, shared_rw = self._share_plan(req)
+            n_fresh = self.pages_per_slot - len(shared) - len(shared_rw)
+            # price shares by their true fork-debt delta
+            debt = (self.pool.share_price(shared)
+                    + self.pool.share_price(shared_rw, writable=True))
+            if not self.pool.can_admit(n_fresh, debt):
+                return False
+            fresh = self.pool.alloc(n_fresh)
+            if shared:
+                self.pool.share_pages(shared)
+            if shared_rw:
+                self.pool.share_pages(shared_rw, writable=True)
+            phys = shared + shared_rw + fresh
+            self.slot_pages[slot] = phys
+            write_ok = np.ones(self.pages_per_slot, bool)
+            write_ok[:len(shared) + len(shared_rw)] = False
+            newly_ro = [p for p in shared + shared_rw
+                        if self.pool.refcount_of(p) >= 2]
+            if newly_ro:
+                self.executor.set_pages_ro(newly_ro, True)
+                self._ro_pages.update(newly_ro)
+        first = self.executor.prefill(tokens, slot, phys, write_ok)
+        self.slot_free[slot] = False
+        self.slot_req[slot] = req
+        self.slot_generated[slot] = [first]
+        self.slot_pos[slot] = len(req.prompt) + 1
+        self.slot_entry[slot] = entry
+        self.max_live = max(self.max_live, len(self.slot_req))
+        # the prefill token can already end the request: complete and
+        # release now, or the slot decodes a spurious extra step
+        if self._finish_if_ended(slot):
+            return True
+        self._last_tokens[slot, 0] = first
+        return True
+
+    def _share_plan(self, req: Request) -> tuple[list[int], list[int]]:
+        """Find the live donor with the longest common prompt prefix and
+        split its pages into (read-only shared, copy-on-write shared).
+
+        Full pages inside the common prefix hold bit-identical KV for both
+        sequences.  The partial page at the prefix boundary is shared
+        copy-on-write only when the new prompt ends exactly at the prefix;
+        otherwise the new prefill writes that page's tail, so it is
+        allocated fresh."""
+        prompt = [int(t) for t in req.prompt]
+        best_c, donor = 0, None
+        for slot, dreq in self.slot_req.items():
+            if slot not in self.slot_pages:
+                continue
+            c = 0
+            for a, b in zip(prompt, dreq.prompt):
+                if a != int(b):
+                    break
+                c += 1
+            if c > best_c:
+                best_c, donor = c, slot
+        if donor is None:
+            return [], []
+        pt = self.page_tokens
+        n_full = min(best_c // pt, self.pages_per_slot)
+        shared = [self.slot_pages[donor][j] for j in range(n_full)]
+        shared_rw = []
+        if (best_c % pt and len(prompt) == best_c
+                and n_full < self.pages_per_slot):
+            shared_rw = [self.slot_pages[donor][n_full]]
+        return shared, shared_rw
+
+    def _cow_tick(self) -> None:
+        """Fork any shared page a live slot is about to write, before the
+        decode scatter: the write position this tick is ``slot_pos - 1``."""
+        for slot in list(self.slot_req):
+            pages = self.slot_pages.get(slot)
+            if not pages:
+                continue
+            wpos = self.slot_pos[slot] - 1
+            j = wpos // self.page_tokens
+            if j >= self.pages_per_slot:
+                continue               # cache full: the write is dropped
+            p = pages[j]
+            if self.pool.refcount_of(p) <= 1:
+                if p in self._ro_pages:     # last co-holder is gone
+                    self.executor.set_pages_ro([p], False)
+                    self._ro_pages.discard(p)
+                continue
+            new, _ = self.pool.cow_write(p)
+            self.executor.fork_page(slot, j, p, new)
+            pages[j] = new
+            if self.pool.refcount_of(p) <= 1 and p in self._ro_pages:
+                self.executor.set_pages_ro([p], False)
+                self._ro_pages.discard(p)
+
+    def _release(self, slot: int) -> None:
+        self.slot_free[slot] = slot not in self._offline
+        del self.slot_req[slot]
+        del self.slot_generated[slot]
+        del self.slot_pos[slot]
+        self.slot_entry.pop(slot, None)
+        if self.paged_kv and slot in self.slot_pages:
+            # park the row before its pages go back to the free list: idle
+            # rows keep scattering per-step KV, and those writes must never
+            # land on pages a later admission may own
+            self.executor.park(slot)
+            dropped = self.pool.release(self.slot_pages.pop(slot))
+            ro_clear = [p for p in dropped if p in self._ro_pages]
+            if ro_clear:
+                self.executor.set_pages_ro(ro_clear, False)
+                self._ro_pages.difference_update(ro_clear)
+
+
+__all__ = ["ServeEngine", "Executor", "Request", "Completion"]
