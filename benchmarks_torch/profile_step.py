@@ -2,7 +2,7 @@
 """Where the time of one train step, or of one prefill and one decode tick
 of the serving path, of the port goes on a card.
 
-    python3 benchmarks_torch/profile_step.py [--moe | --serve]
+    python3 benchmarks_torch/profile_step.py [--moe | --serve [--arch A]]
 
 Builds a configuration ``chip_smoke.py`` trains — by default ``qwen3-4b``
 at full width with depth cut to 2 layers, 4 stacked data-parallel ranks,
@@ -21,13 +21,17 @@ shapes recorded) and prints:
 * the operators with the most device time, with their input shapes, and the
   kernels with the most time.
 
-With ``--serve``: ``chip_smoke.py``'s serving configuration — ``qwen3-4b``
-at all 36 layers and published widths, a dense engine of 4 slots and
-``max_seq`` 2048, 1016-token prompts — admits four requests as warm-up,
-then traces one prefill (a fifth prompt into slot 0) and one decode tick
-over the four slots, and prints for each the wall time, the card's busy
-time and idle share, K7's share of the busy time, and the operators and
-kernels with the most device time.
+With ``--serve``: one of ``chip_smoke.py``'s serving configurations at all
+its layers and published widths behind a dense engine of 4 slots —
+``qwen3-4b`` (the default: ``max_seq`` 2048, 1016-token prompts) or
+``--arch mamba2-370m`` (``max_seq`` 4096, 2040-token prompts) — admits four
+requests as warm-up, then traces one prefill (a fifth prompt into slot 0)
+and one decode tick over the four slots, and prints for each the wall time,
+the card's busy time and idle share, the kernel's share of the busy time
+(K7, or K8 and the SSD scan's glue: the end pad, the inter-chunk
+recurrence and the read-out, timed by profiler ranges around
+``kernels.ops.ssd_scan`` and K8), and the operators and kernels with the
+most device time.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -41,7 +45,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 N_LAYERS, N_RANKS, GLOBAL_BATCH, SEQ_LEN, WARMUP = 2, 4, 8, 512, 2
 MOE_EXPERTS = 8
-SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_PROMPT = 4, 2048, 1016
+#: the profiler ranges ``--serve`` puts around the SSD scan and K8
+RANGES = ("ssd_scan", "ssd_intra_chunk")
+#: serving configurations: arch → (slots, max_seq, prompt tokens)
+SERVE = {"qwen3-4b": (4, 2048, 1016), "mamba2-370m": (4, 4096, 2040)}
 
 
 def self_device_us(evt) -> float:
@@ -67,7 +74,26 @@ def report_tops(ops, kernels, n_ops: int = 16, n_kernels: int = 10) -> None:
         print(f"  {self_device_us(e) / 1e3:9.2f}  {e.count:4d}  {e.key[:90]}")
 
 
-def profile_serve(torch) -> int:
+def annotate(module, name: str) -> None:
+    """Run ``module.<name>`` inside a profiler range of the same name."""
+    from torch.profiler import record_function
+
+    fn = getattr(module, name)
+
+    def ranged(*args, **kw):
+        with record_function(name):
+            return fn(*args, **kw)
+    setattr(module, name, ranged)
+
+
+def range_device_ms(prof, name: str) -> float:
+    """Device time of the kernels launched inside the profiler ranges
+    ``name``."""
+    return sum(e.device_time_total for e in prof.events()
+               if e.name == name and not is_kernel(e)) / 1e3
+
+
+def profile_serve(torch, arch: str) -> int:
     """One traced prefill and one traced decode tick of the serving path."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
@@ -76,15 +102,20 @@ def profile_serve(torch) -> int:
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = get_config("qwen3-4b")
+    slots, max_seq, prompt_len = SERVE[arch]
+    cfg = get_config(arch)
     model = build_model(cfg)
     params = model.init(0, device="cuda")
-    eng = ServeEngine(model, params, n_slots=SERVE_SLOTS,
-                      max_seq=SERVE_MAX_SEQ)
+    ssm = cfg.ssm is not None
+    if ssm:     # ranges around the SSD scan and its kernel
+        ops_mod = sys.modules["repro_torch.kernels.ops"]
+        for name in RANGES:
+            annotate(ops_mod, name)
+    eng = ServeEngine(model, params, n_slots=slots, max_seq=max_seq)
     rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, cfg.vocab, size=SERVE_PROMPT)
-               for _ in range(SERVE_SLOTS + 1)]
-    for rid, prompt in enumerate(prompts[:SERVE_SLOTS]):
+    prompts = [rng.randint(0, cfg.vocab, size=prompt_len)
+               for _ in range(slots + 1)]
+    for rid, prompt in enumerate(prompts[:slots]):
         eng.submit(Request(rid, prompt, 64))
     eng.step()                        # warm-up: four prefills, one tick
     eng.step()
@@ -103,20 +134,30 @@ def profile_serve(torch) -> int:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = prof.key_averages(group_by_input_shape=True)
-        kernels = [e for e in events if is_kernel(e)]
+        # the ranges show on the device timeline too, as spans: no kernels
+        kernels = [e for e in events if is_kernel(e) and e.key not in RANGES]
         ops = [e for e in events if not is_kernel(e)]
         busy_ms = sum(self_device_us(e) for e in kernels) / 1e3
         if busy_ms <= 0:
             raise AssertionError("the profiler recorded no device time")
-        k7 = [e for e in kernels if "flash_fwd_kernel" in e.key]
-        k7_ms = sum(self_device_us(e) for e in k7) / 1e3
+        tag, name = (("K8", "ssd_intra_kernel") if ssm
+                     else ("K7", "flash_fwd_kernel"))
+        kern = [e for e in kernels if name in e.key]
+        kern_ms = sum(self_device_us(e) for e in kern) / 1e3
         print(f"[profile] {cfg.name} x{cfg.n_layers} layers d{cfg.d_model}, "
-              f"{SERVE_SLOTS} slots, max_seq {SERVE_MAX_SEQ}, "
-              f"{SERVE_PROMPT}-token prompts, one {what}: wall "
-              f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle "
-              f"{100 * (1 - busy_ms / wall_ms):.1f} %; K7 "
-              f"{sum(e.count for e in k7)} launches, {k7_ms:.2f} ms "
-              f"({100 * k7_ms / busy_ms:.1f} % of busy)")
+              f"{slots} slots, max_seq {max_seq}, {prompt_len}-token "
+              f"prompts, one {what}: wall {wall_ms:.1f} ms, device busy "
+              f"{busy_ms:.1f} ms, idle {100 * (1 - busy_ms / wall_ms):.1f} "
+              f"%; {tag} {sum(e.count for e in kern)} launches, "
+              f"{kern_ms:.2f} ms ({100 * kern_ms / busy_ms:.1f} % of busy)")
+        if kern and ssm:
+            scan_ms = range_device_ms(prof, "ssd_scan")
+            # K8's ctypes launches may or may not be credited to the ranges;
+            # either way, the outer range less the inner is the glue
+            glue_ms = scan_ms - range_device_ms(prof, "ssd_intra_chunk")
+            print(f"[profile] the SSD scans' glue (pad, recurrence, "
+                  f"read-out): {glue_ms:.2f} ms of device time "
+                  f"({100 * glue_ms / busy_ms:.1f} % of busy)")
         report_tops(ops, kernels)
     return 0
 
@@ -128,8 +169,12 @@ def main(argv=None) -> int:
                       help="profile the expert-parallel llama4-maverick step")
     mode.add_argument("--serve", action="store_true",
                       help="profile one prefill and one decode tick of the "
-                           "qwen3-4b serving path")
+                           "serving path")
+    ap.add_argument("--arch", default="qwen3-4b", choices=sorted(SERVE),
+                    help="with --serve: the served architecture")
     args = ap.parse_args(argv)
+    if args.arch != "qwen3-4b" and not args.serve:
+        ap.error("--arch goes with --serve")
     sys.path.insert(0, os.path.join(HERE, "..", "src"))
     import torch
 
@@ -137,7 +182,7 @@ def main(argv=None) -> int:
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2
     if args.serve:
-        return profile_serve(torch)
+        return profile_serve(torch, args.arch)
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config

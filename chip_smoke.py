@@ -10,11 +10,14 @@
    every op and dtype the kernel takes, a ragged tail, ordered and
    unordered, and the paths' own shapes; K7 flash attention at the JAX
    kernel test's four shapes and the prefill's (1, 32, 1024, 128) bfloat16
-   with GQA 32/8; K4's check mode counts the copy
+   with GQA 32/8; K8 at the JAX kernel test's three shapes and an initial
+   state through the glue (float32), and the prefill's (1, 2048, 32 x 64),
+   N 128, chunk 64 in bfloat16; K4's check mode counts the copy
    units a consumer read behind a raised flag that differ from what was
    sent (must be 0), in the launch the paths run.  Times kernel, plain
-   version and the nearest single PyTorch call (K4, K6 and K7 by CUDA-graph
-   replay, so the times are the card's alone).
+   version and the nearest single PyTorch call (K4, K6, K7 and K8 by
+   CUDA-graph replay, so the times are the card's alone; K8 has no such
+   call).
 2. Drives each path with every launch counter at 0 just before it and
    reads the counters just after: the window layer (allocate →
    dup_with_info → ring put with a thread-scope flush → declared
@@ -32,7 +35,11 @@
    one request set each, every prefill's attention on K7 — greedy tokens
    equal bit for bit, the page pool conserved, K7 launched 36 times per
    prefill, and one prefill's logits held to the same prefill on K7's
-   plain version.
+   plain version; and ``mamba2-370m`` at all 48 layers and published
+   widths behind a dense engine, 8 requests of 2040-token prompts, every
+   prefill's SSD scan on K8 — K8 launched 48 times per prefill, every
+   request's 32 tokens in the vocabulary, one prefill's logits held to the
+   same prefill on K8's plain version and the next decode step finite.
 3. Prints the kernels' record as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -40,6 +47,7 @@ Any failed check raises, so the script exits non-zero and prints no result;
 so it does without a CUDA device, or without the repository around it.
 """
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -80,6 +88,25 @@ K7_TOL = {"float32": dict(atol=2e-5, rtol=1e-2),
 #: version: max |d logit| over max |logit| (each layer's attention output
 #: rounds to bfloat16, ~2^-8 relative, and the differences pass 36 layers)
 PREFILL_LOGIT_RTOL = 5e-2
+# serving a Mamba2 stack: mamba2-370m at all 48 layers and published widths,
+# 8 requests of 2040-token prompts over 4 slots, 32 new tokens each.  2040
+# is no multiple of the 64-token chunk, so the glue's exact end pad runs and
+# K8 sees L = 2048 (32 chunks) in every prefill
+SSM_ARCH = "mamba2-370m"
+SSM_SLOTS, SSM_MAX_SEQ, SSM_REQUESTS, SSM_PROMPT, SSM_NEW = 4, 4096, 8, 2040, 32
+#: K8 against its plain version.  float32: the JAX kernel test's tolerance
+#: (tests/test_kernels.py:148-181).  bfloat16 inputs: both compute in
+#: float32 from the same bf16 values and round y_intra to bf16 once, so y
+#: may differ by one bf16 step (at most 2^-7 of |y|); states and cum stay
+#: float32 and keep the float32 tolerance
+K8_TOL = {"float32": dict(atol=2e-4, rtol=1e-3),
+          "bfloat16": dict(atol=1e-3, rtol=2.0**-7)}
+#: a 48-layer bfloat16 Mamba2 prefill on K8 against the same prefill on K8's
+#: plain version: max |d logit| over max |logit| (each layer's y_intra
+#: rounds to bfloat16 in both, so entries may differ by one bf16 step,
+#: ~2^-8 relative, and the differences pass 48 layers — K7's bound and
+#: reasoning)
+SSM_LOGIT_RTOL = 5e-2
 
 
 def bound_ms(nbytes: float, ops: float = 0.0,
@@ -490,6 +517,81 @@ def main() -> int:
           f"bfloat16 causal GQA {H_}/{KV_} (max abs err {err:.3g})",
           flush=True)
     del q, k, v, got, want
+
+    # K8 at the JAX kernel test's shapes (float32, initial state through the
+    # glue) and at the prefill's (1, 2048, 32 x 64), N 128, chunk 64, bf16
+    k8 = sys.modules["repro_torch.kernels.ssd_scan"]
+    from repro_torch.kernels import ops as ops_mod
+
+    def ssd_inputs(b_, l_, h_, p_, n_, dtype):
+        xdt = rand((b_, l_, h_ * p_), torch.float32) * 0.5
+        a = -torch.nn.functional.softplus(rand((b_, l_, h_), torch.float32))
+        bm, cm = (rand((b_, l_, n_), torch.float32) * 0.5 for _ in range(2))
+        return xdt.to(dtype), a, bm.to(dtype), cm.to(dtype)
+
+    def k8_check(args, kw, dtype, what):
+        got = k8.ssd_intra_chunk(*args, **kw)
+        want = k8.ssd_intra_chunk_plain(*args, **kw)
+        for name, g, w, tol in zip(
+                ("y_intra", "states", "cum"), got, want,
+                (K8_TOL[str(dtype).split(".")[1]], K8_TOL["float32"],
+                 K8_TOL["float32"])):
+            check(g.dtype == w.dtype and g.shape == w.shape
+                  and torch.allclose(g.float(), w.float(), **tol),
+                  f"K8 {what} {name}: max err "
+                  f"{(g.float() - w.float()).abs().max().item()}")
+        return max((g.float() - w.float()).abs().max().item()
+                   for g, w in zip(got, want))
+
+    for b_, l_, h_, p_, n_, ch in ((2, 64, 4, 16, 32, 16),
+                                   (1, 128, 2, 32, 16, 32),
+                                   (1, 48, 8, 8, 64, 8)):
+        k8_check(ssd_inputs(b_, l_, h_, p_, n_, torch.float32),
+                 dict(chunk=ch, nheads=h_, headdim=p_), torch.float32,
+                 (b_, l_, h_, p_, n_, ch))
+    xdt, a, bm, cm = ssd_inputs(1, 32, 2, 8, 16, torch.float32)
+    s0 = rand((1, 2, 8, 16), torch.float32) * 0.3
+    xdt = xdt.reshape(1, 32, 2, 8)
+    got = ops_mod.ssd_scan(xdt, a, bm, cm, chunk=8, nheads=2, headdim=8,
+                           initial_state=s0)
+    want = R.ssd_scan_ref(xdt, a, bm, cm, initial_state=s0)
+    for g, w in zip(got, want):
+        check(torch.allclose(g, w, **K8_TOL["float32"]),
+              f"K8 + glue with an initial state vs the sequential oracle: "
+              f"max err {(g - w).abs().max().item()}")
+    cfg_ssm = get_config(SSM_ARCH)
+    ssm_h = cfg_ssm.ssm.expand * cfg_ssm.d_model // cfg_ssm.ssm.headdim
+    ssm_p, ssm_n, ssm_q = (cfg_ssm.ssm.headdim, cfg_ssm.ssm.d_state,
+                           cfg_ssm.ssm.chunk)
+    ssm_l = -(-SSM_PROMPT // ssm_q) * ssm_q     # the prompt padded by the glue
+    k8_args = ssd_inputs(1, ssm_l, ssm_h, ssm_p, ssm_n, torch.bfloat16)
+    k8_kw = dict(chunk=ssm_q, nheads=ssm_h, headdim=ssm_p)
+    err = k8_check(k8_args, k8_kw, torch.bfloat16, "at the prefill shape")
+    record["ssd_intra_chunk"] = dict(
+        ms=graph_ms(torch, lambda: k8.ssd_intra_chunk(*k8_args, **k8_kw)),
+        plain_ms=graph_ms(torch, lambda: k8.ssd_intra_chunk_plain(
+            *k8_args, **k8_kw)),
+        library_ms=None, max_abs_err=err,
+        shape=[1, ssm_l, ssm_h * ssm_p, ssm_n], dtype="bfloat16")
+    # bytes: x, a, B, C read once; y, the float32 states and cum written
+    # once.  Operations: the causal (i >= j) pairs of C B^T and of the y
+    # product, and every term of the states product
+    nc_ = ssm_l // ssm_q
+    pairs = nc_ * ssm_q * (ssm_q + 1) // 2
+    k8_bytes = (2 * 2 * ssm_l * ssm_h * ssm_p + 4 * ssm_l * ssm_h
+                + 2 * 2 * ssm_l * ssm_n + 4 * nc_ * ssm_h * ssm_p * ssm_n
+                + 4 * ssm_l * ssm_h)
+    k8_ops = 2 * (pairs * ssm_n + pairs * ssm_h * ssm_p
+                  + ssm_l * ssm_h * ssm_p * ssm_n)
+    record["ssd_intra_chunk"]["bound_ms"], \
+        record["ssd_intra_chunk"]["bound_by"] = bound_ms(
+            k8_bytes, k8_ops, peak=PEAK_BF16)
+    print(f"[kernels] K8 equals its plain version: the JAX kernel test's "
+          f"three shapes and the initial-state scan in float32, and (1, "
+          f"{ssm_l}, {ssm_h}x{ssm_p}) N {ssm_n} chunk {ssm_q} bfloat16 (max "
+          f"abs err {err:.3g}); {k8_bytes / 1e6:.2f} MB, "
+          f"{k8_ops / 1e9:.3f} GFLOP", flush=True)
+    del k8_args, xdt, a, bm, cm, s0, got, want
     for name, r in record.items():
         lib_ms = r["library_ms"]
         print(f"[kernel] {name} {r['shape']}: {r['ms']:.4f} ms (plain "
@@ -804,6 +906,99 @@ def main() -> int:
     del serve_params, logits
     torch.cuda.empty_cache()
 
+    # serving a Mamba2 stack: mamba2-370m at all 48 layers, a dense engine
+    # (its caches are the conv tail and the SSM state: nothing to page)
+    ssm_model = build_model(cfg_ssm)
+    t0 = time.perf_counter()
+    ssm_params = ssm_model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n_ssm = sum(p.numel() for p in leaves(ssm_params))
+    print(f"[plan] {cfg_ssm.name} x{cfg_ssm.n_layers} layers d"
+          f"{cfg_ssm.d_model}, {ssm_h} heads x {ssm_p}, d_state {ssm_n}, "
+          f"chunk {ssm_q}: {n_ssm} float32 parameters "
+          f"({n_ssm * 4 / 2**30:.2f} GiB) initialized on the card from seed "
+          f"0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    prng = np.random.RandomState(1)
+    ssm_prompts = [prng.randint(0, cfg_ssm.vocab, size=SSM_PROMPT)
+                   for _ in range(SSM_REQUESTS)]
+    eng = ServeEngine(ssm_model, ssm_params, n_slots=SSM_SLOTS,
+                      max_seq=SSM_MAX_SEQ)
+    for rid, prompt in enumerate(ssm_prompts):
+        eng.submit(Request(rid, prompt, SSM_NEW))
+    spent = {"prefill": [], "decode": []}
+    for part in spent:                # both calls end in a host read
+        def timed(*a, _fn=getattr(eng.executor, part), _t=spent[part]):
+            t = time.perf_counter()
+            out = _fn(*a)
+            _t.append((time.perf_counter() - t) * 1e3)
+            return out
+        setattr(eng.executor, part, timed)
+    # the engines above live on in reference cycles (each timed executor
+    # method holds its executor): collect them so that the peak is this one's
+    del timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    done = eng.run(strict=True)
+    wall = time.perf_counter() - t0
+    counts = path_counts("serve-ssm dense", ("ssd_intra_chunk",))
+    n_prefill = len(spent["prefill"])
+    check(n_prefill == SSM_REQUESTS, f"serve-ssm: {n_prefill} prefills")
+    check(counts["ssd_intra_chunk"] == cfg_ssm.n_layers * n_prefill,
+          f"serve-ssm: K8 launched {counts['ssd_intra_chunk']} times, want "
+          f"{cfg_ssm.n_layers} x {n_prefill} prefills")
+    tokens = {c.rid: c.tokens for c in done}
+    check(sorted(tokens) == list(range(SSM_REQUESTS)) and all(
+        len(t) == SSM_NEW and all(0 <= x < cfg_ssm.vocab for x in t)
+        for t in tokens.values()), f"serve-ssm: tokens {tokens}")
+    n_tok = sum(len(t) for t in tokens.values())
+    pre, dec = spent["prefill"], spent["decode"]
+    print(f"[serve-ssm] dense: {SSM_REQUESTS} requests x {SSM_PROMPT} prompt "
+          f"tokens, {SSM_NEW} new each, {SSM_SLOTS} slots, max_seq "
+          f"{SSM_MAX_SEQ}, bf16: {n_tok} tokens in {wall:.2f} s "
+          f"({n_tok / wall:.1f} tok/s); prefill ms per request "
+          f"{[round(x, 1) for x in pre]}; decode ms per tick median "
+          f"{sorted(dec)[len(dec) // 2]:.2f} (min {min(dec):.2f}, max "
+          f"{max(dec):.2f}, {len(dec)} ticks); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; stats "
+          f"{eng.stats()}", flush=True)
+    del eng
+    # one prefill on K8 against the same prefill on K8's plain version, and
+    # one decode step after it
+    tok = torch.as_tensor(ssm_prompts[0], dtype=torch.int64, device=dev)[None]
+    logits = {}
+    for name, fn in (("K8", k8.ssd_intra_chunk),
+                     ("plain", k8.ssd_intra_chunk_plain)):
+        ops_mod.ssd_intra_chunk = fn
+        try:
+            logits[name], cache = ssm_model.prefill(
+                ssm_params, {"tokens": tok},
+                ssm_model.init_cache(1, SSM_MAX_SEQ))
+        finally:
+            ops_mod.ssd_intra_chunk = k8.ssd_intra_chunk
+    step_logits, _ = ssm_model.decode_step(
+        ssm_params, cache, logits["K8"][:, -1].argmax(-1, keepdim=True))
+    lanes = slice(0, cfg_ssm.vocab)       # the padded lanes hold -1e30
+    diff = (logits["K8"][..., lanes] - logits["plain"][..., lanes]
+            ).abs().max().item()
+    scale = logits["plain"][..., lanes].abs().max().item()
+    check(bool(torch.isfinite(logits["K8"][..., lanes]).all())
+          and bool(torch.isfinite(step_logits[..., lanes]).all()),
+          "Mamba2 prefill or decode logits not finite")
+    check(diff <= SSM_LOGIT_RTOL * scale,
+          f"Mamba2 prefill logits on K8 vs its plain version: max |d| {diff} "
+          f"of max |logit| {scale}")
+    print(f"[serve-ssm] one prefill's last logits, K8 vs its plain version: "
+          f"max |d| {diff:.4g} of max |logit| {scale:.4g} (bound "
+          f"{SSM_LOGIT_RTOL} x); the next decode step's logits finite",
+          flush=True)
+    del ssm_params, logits, cache, step_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- 3. the record ------------------------------------------------------
     replaces = {
         "accumulate": ("K1", "src/repro/kernels/accumulate.py:84"),
@@ -815,13 +1010,15 @@ def main() -> int:
         "accumulate_signal": ("K6",
                               "src/repro/kernels/ordered_put_signal.py:144"),
         "flash_attention": ("K7", "src/repro/kernels/flash_attention.py:84"),
+        "ssd_intra_chunk": ("K8", "src/repro/kernels/ssd_scan.py:62"),
     }
     sources = {"accumulate": "accumulate.cu", "ring_accumulate": "intrinsic.cu",
                "ring_put": "rma_put.cu", "put_wait": "rma_put.cu",
                "put_signal": "put_signal.cu",
                "ring_all_reduce": "ring_allreduce.cu",
                "accumulate_signal": "put_signal.cu",
-               "flash_attention": "flash_attention.cu"}
+               "flash_attention": "flash_attention.cu",
+               "ssd_intra_chunk": "ssd_scan.cu"}
     rows = []
     for name in replaces:
         r = record[name]

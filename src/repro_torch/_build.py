@@ -34,6 +34,7 @@ SOURCES = {
     "ring_allreduce": "ring_allreduce.cu",
     "put_signal": "put_signal.cu",
     "flash_attention": "flash_attention.cu",
+    "ssd_scan": "ssd_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -64,6 +65,9 @@ SIGNATURES = {
     "flash_attention": {"rt_flash_attention":
                         (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                          _F, _I, _I, _P)},
+    "ssd_scan": {"rt_ssd_intra_chunk":
+                 (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                  _I64, _I, _P)},
 }
 
 _loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}

@@ -1,10 +1,11 @@
-"""The dense and MoE architectures the port builds, exactly as the JAX
-package registers them (``repro/configs/archs.py``).  The MLA, SSM, hybrid,
+"""The dense, MoE and pure-SSM architectures the port builds, exactly as the
+JAX package registers them (``repro/configs/archs.py``).  The MLA, hybrid,
 enc-dec and VLM families arrive with their model code (ROADMAP queue 1,
 item 11)."""
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig, MoEConfig, register
+from repro_torch.configs.base import (ModelConfig, MoEConfig, SSMConfig,
+                                      register)
 
 
 @register("qwen3-4b")
@@ -61,6 +62,23 @@ def llama3_405b() -> ModelConfig:
         n_layers=126, d_model=16384, n_heads=128, n_kv_heads=8,
         d_ff=53248, vocab=128256,
         rope_theta=5e5, max_seq=524288,
+    )
+
+
+@register("mamba2-370m")
+def mamba2_370m() -> ModelConfig:
+    """[ssm] SSD, attention-free [arXiv:2405.21060; unverified].
+
+    48L, d=1024, vocab=50280, d_state=128; d_ff=0 (Mamba2 blocks carry their
+    own projections).  Sub-quadratic: runs long_500k.
+    """
+    return ModelConfig(
+        name="mamba2-370m", family="ssm",
+        n_layers=48, d_model=1024, n_heads=1, n_kv_heads=1,
+        d_ff=0, vocab=50280,
+        rope_theta=0.0, tie_embeddings=True,
+        ssm=SSMConfig(d_state=128, headdim=64, expand=2, chunk=64, d_conv=4),
+        subquadratic=True, max_seq=524288,
     )
 
 

@@ -1,7 +1,7 @@
 """Model configuration and the architecture registry: the JAX package's
-``ModelConfig`` fields that the dense and MoE families read, with torch
-dtypes.  The MLA, SSM, hybrid, enc-dec and VLM sub-configs arrive with their
-model code (ROADMAP queue 1, item 11)."""
+``ModelConfig`` fields that the dense, MoE and pure-SSM families read, with
+torch dtypes.  The MLA, hybrid, enc-dec and VLM sub-configs arrive with
+their model code (ROADMAP queue 1, item 11)."""
 from __future__ import annotations
 
 import dataclasses
@@ -43,9 +43,18 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    headdim: int = 64
+    expand: int = 2
+    chunk: int = 64
+    d_conv: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe (the families the port builds so far)
+    family: str  # dense | moe | ssm (the families the port builds so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -67,8 +76,11 @@ class ModelConfig:
     attn_impl: str = "auto"    # auto | full | blockwise
     attn_block_kv: int = 1024
     moe: MoEConfig | None = None
+    ssm: SSMConfig | None = None
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    #: sub-quadratic decode memory (SSM/hybrid) — eligible for long_500k
+    subquadratic: bool = False
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -114,5 +126,5 @@ def list_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-__all__ = ["MoEConfig", "ModelConfig", "register", "get_config",
+__all__ = ["MoEConfig", "SSMConfig", "ModelConfig", "register", "get_config",
            "list_archs"]

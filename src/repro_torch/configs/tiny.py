@@ -1,8 +1,8 @@
 """Reduced same-family configs for tests and examples: ``tiny_config(arch)``
 keeps the structure of the architecture (family, qk-norm, GQA ratio, norm
-and activation kinds, MoE interleave) and shrinks widths, depth and
-experts, exactly as the JAX package's ``tiny_config`` does for the dense
-and MoE families."""
+and activation kinds, MoE interleave, SSM state) and shrinks widths, depth
+and experts, exactly as the JAX package's ``tiny_config`` does for the
+dense, MoE and pure-SSM families."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,6 +27,8 @@ def tiny_config(arch: str, *, dtype: str = "float32") -> ModelConfig:
             first_dense=min(1, cfg.moe.first_dense),
             capacity_factor=8.0,  # ample: no drops, so oracles match exactly
         )
+    if cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, headdim=16, chunk=8)
     return cfg.replace(**kw)
 
 

@@ -1,7 +1,7 @@
-"""Plain-PyTorch oracles: the materialized-softmax attention oracle and the
-RMA kernels' oracles in the stacked ``(n, ...)`` layout (row r = rank r's
-shard).  Each mirrors one kernel's contract; the SSD oracle arrives with its
-kernel."""
+"""Plain-PyTorch oracles: the materialized-softmax attention oracle, the
+exact sequential SSD recurrence, and the RMA kernels' oracles in the stacked
+``(n, ...)`` layout (row r = rank r's shard).  Each mirrors one kernel's
+contract."""
 from __future__ import annotations
 
 import torch
@@ -22,6 +22,23 @@ def flash_attention_ref(q, k, v, *, causal=True, sm_scale=None):
         s = torch.where(mask, s, s.new_full((), NEG_INF))
     w = torch.softmax(s, dim=-1)
     return (w @ v.float()).to(q.dtype)
+
+
+def ssd_scan_ref(xdt, a, Bm, Cm, *, initial_state=None):
+    """Sequential SSD recurrence (exact, O(L) steps): xdt (B, L, H, P), a
+    (B, L, H), Bm/Cm (B, L, N) → (y (B, L, H, P), final state (B, H, P,
+    N)), both in xdt's dtype — the JAX package's ``models.ssm.ssd_ref``."""
+    b, length, h, p = xdt.shape
+    n = Bm.shape[-1]
+    state = (initial_state.float() if initial_state is not None else
+             xdt.new_zeros((b, h, p, n), dtype=torch.float32))
+    ys = []
+    for t in range(length):
+        decay = torch.exp(a[:, t].float())                       # (B, H)
+        state = state * decay[:, :, None, None] + (
+            xdt[:, t].float()[..., None] * Bm[:, t].float()[:, None, None, :])
+        ys.append(torch.einsum("bhpn,bn->bhp", state, Cm[:, t].float()))
+    return torch.stack(ys, 1).to(xdt.dtype), state.to(xdt.dtype)
 
 
 def accumulate_ref(buffer: torch.Tensor, update: torch.Tensor, *,
@@ -69,5 +86,5 @@ def ring_all_reduce_ref(x_global):
     return s.expand_as(x_global).clone()
 
 
-__all__ = ["flash_attention_ref", "accumulate_ref", "ring_accumulate_ref", "ring_put_ref",
+__all__ = ["flash_attention_ref", "ssd_scan_ref", "accumulate_ref", "ring_accumulate_ref", "ring_put_ref",
            "ring_all_reduce_ref"]

@@ -2,8 +2,13 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --tiny \\
       --requests 8 --max-new 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      --full --prompt-len 2040 --max-seq 4096
 
-Runs on the card unless ``--device cpu``.  ``--disagg`` runs the decode
+Runs on the card unless ``--device cpu``; ``--full`` takes the published
+widths and depth (``--tiny``, the default, the reduced config).  A Mamba2
+stack (``mamba2-370m``) serves dense only: its caches are the conv tail and
+the SSM state, with no KV to page.  ``--disagg`` runs the decode
 engine on the paged KV pool (page-table indirection, page alloc/free at slot
 admit/release), and ``--prefix-share`` adds copy-on-write prefix sharing on
 it.  The JAX launcher's prefill→decode round-trip demo over a device mesh,

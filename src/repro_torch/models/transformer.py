@@ -1,8 +1,10 @@
-"""Transformer stack for the dense and MoE families: the layer plan and its
-[prefix] + [repeating period × count] decomposition, kept so the parameter
-tree matches the JAX package's (scanned leaves stacked on a leading layer
-axis).  The reference scans the periods (rematerializing each under
-``remat="block"``); here a Python loop walks them and keeps activations.
+"""Decoder stack for the dense, MoE and pure-SSM families: the layer plan
+and its [prefix] + [repeating period × count] decomposition, kept so the
+parameter tree matches the JAX package's (scanned leaves stacked on a
+leading layer axis).  A layer's mixer is GQA attention or a Mamba2 block
+(``mixer="mamba"``, with no FFN: ``ffn="none"``).  The reference scans the
+periods (rematerializing each under ``remat="block"``); here a Python loop
+walks them and keeps activations.
 MoE layers (``first_dense``, ``interleave_step``/``interleave_offset``) add
 their load-balancing loss to the stack's aux sum.
 
@@ -18,24 +20,29 @@ import torch
 
 from repro_torch.models import attention, layers
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm
 from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str = "gqa"
-    ffn: str = "dense"
+    mixer: str = "gqa"   # gqa | mamba
+    ffn: str = "dense"   # dense | moe | none
     cross: bool = False
 
 
 def layer_plan(cfg) -> list[LayerSpec]:
-    """The per-layer structure of the decoder stack (dense and MoE
-    families; MLA, SSM, hybrid and enc-dec stacks are not ported)."""
-    if cfg.family not in ("dense", "moe") or getattr(cfg, "mla", None) \
-            is not None:
+    """The per-layer structure of the decoder stack (dense, MoE and pure-SSM
+    families; MLA, hybrid and enc-dec stacks are not ported)."""
+    if cfg.family not in ("dense", "moe", "ssm") or \
+            getattr(cfg, "mla", None) is not None or \
+            (cfg.family == "ssm") != (cfg.ssm is not None):
         raise NotImplementedError(
             f"model family {cfg.family!r} of {cfg.name!r} is not ported to "
             "repro_torch yet (ROADMAP queue 1, item 11)")
+    if cfg.family == "ssm":   # pure Mamba2 blocks carry their own projections
+        return [LayerSpec(mixer="mamba", ffn="none")
+                for _ in range(cfg.n_layers)]
     plan = []
     for i in range(cfg.n_layers):
         ffn = "dense"
@@ -74,6 +81,9 @@ def _norm(x, p, cfg):
 
 def init_block(gen, spec: LayerSpec, cfg, device) -> dict:
     pd = cfg.parameter_dtype
+    if spec.mixer == "mamba":
+        return {"norm_mixer": _norm_init(cfg, device),
+                "mamba": ssm.init_mamba2(gen, cfg, device)}
     p: dict = {"norm_mixer": _norm_init(cfg, device),
                "attn": attention.init_gqa(gen, cfg, device),
                "norm_ffn": _norm_init(cfg, device)}
@@ -96,11 +106,17 @@ def apply_block(params: dict, spec: LayerSpec, x: torch.Tensor, cfg, *,
                 positions: torch.Tensor, causal: bool = True,
                 ep_ranks: int = 1, cache: dict | None = None,
                 prefill: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """One decoder block (pre-norm attention + pre-norm MLP or MoE).
-    Returns ``(x, aux)``; ``ep_ranks`` is the MoE's expert-parallel rank
-    count.  ``cache`` (the block's, written in place) and ``prefill`` go to
-    the attention."""
+    """One decoder block (pre-norm attention or Mamba2 mixer + pre-norm MLP
+    or MoE, or no FFN).  Returns ``(x, aux)``; ``ep_ranks`` is the MoE's
+    expert-parallel rank count.  ``cache`` (the block's, written in place)
+    goes to the mixer, ``prefill`` to the attention (a Mamba2 block decodes
+    exactly when it has a cache and one token)."""
     h = _norm(x, params["norm_mixer"], cfg)
+    if spec.mixer == "mamba":
+        x = x + ssm.mamba2_apply(
+            params["mamba"], h, cfg,
+            cache=cache["mamba"] if cache is not None else None)
+        return x, x.new_zeros((), dtype=torch.float32)
     x = x + attention.gqa_attention(
         params["attn"], h, cfg, positions=positions, causal=causal,
         cache=cache["attn"] if cache is not None else None,
@@ -115,11 +131,15 @@ def apply_block(params: dict, spec: LayerSpec, x: torch.Tensor, cfg, *,
 
 def init_block_cache(spec: LayerSpec, cfg, batch: int, max_seq: int, dtype,
                      device) -> dict:
+    if spec.mixer == "mamba":
+        return {"mamba": ssm.init_mamba2_cache(cfg, batch, dtype, device)}
     return {"attn": attention.init_gqa_cache(cfg, batch, max_seq, dtype,
                                              device)}
 
 
 def block_cache_spec(spec: LayerSpec, cfg) -> dict:
+    if spec.mixer == "mamba":
+        return {"mamba": ssm.mamba2_cache_spec(cfg)}
     return {"attn": attention.gqa_cache_spec(cfg)}
 
 

@@ -18,8 +18,9 @@ Three layers, as in the JAX package's ``serve/engine.py``:
 
 ``paged_kv=True`` replaces the dense per-slot KV with the paged pool layout
 (``repro_torch.serve.disagg.paginate_cache``): a physical page pool plus a
-per-row page table.  ``prefix_share=True`` additionally admits new requests
-onto the pages of a live request with a common prompt prefix: full pages
+per-row page table; a stack with no self-attention KV (pure SSM) refuses
+it.  ``prefix_share=True`` additionally admits new requests onto the pages
+of a live request with a common prompt prefix: full pages
 inside the common prefix are mapped read-only (refcount + 1, write-protected
 through the cache's ``page_ro`` leaf); the partial page at the prefix
 boundary is mapped copy-on-write when the new prompt ends exactly at the
@@ -29,9 +30,9 @@ because the KV at position *i* depends only on tokens ``0..i`` and decode
 writes before it attends.
 
 Prefill runs each admitted prompt alone into a one-row sub-cache (through
-kernel K7) and inserts it into the slot; in paged mode the prompt's KV is
-re-paged into the slot's physical pages, and pages it shares land on the
-parking page.
+kernel K7, or K8 for Mamba2 blocks) and inserts it into the slot; in paged
+mode the prompt's KV is re-paged into the slot's physical pages, and pages
+it shares land on the parking page.
 
 ``kv_pages=(hbm_pages, host_pages)``, the tiered pool with a host-memory
 cold tier, is not ported yet (ROADMAP item 8) and raises.
@@ -117,7 +118,13 @@ class Executor:
         self.cache = model.init_cache(n_slots, max_seq, device=self.device)
         self.paged_kv = paged_kv
         if paged_kv:
-            self.cache = disagg.paginate_cache(self.cache, page_tokens)
+            paged_cache = disagg.paginate_cache(self.cache, page_tokens)
+            if next(_paged_dicts(paged_cache), None) is None:
+                raise ValueError(
+                    f"paged_kv=True but the {model.cfg.family!r} stack has "
+                    "no self-attention KV caches to page (MLA/SSM caches "
+                    "stay dense) — the paged data plane would be a no-op")
+            self.cache = paged_cache
 
     # -- the two model calls ----------------------------------------------------
     def prefill(self, tokens: torch.Tensor, slot: int, phys_pages: list,
