@@ -141,7 +141,7 @@ def profile_serve(torch, arch: str) -> int:
         if busy_ms <= 0:
             raise AssertionError("the profiler recorded no device time")
         tag, name = (("K8", "ssd_intra_kernel") if ssm
-                     else ("K7", "flash_fwd_kernel"))
+                     else ("K7", "flash_fwd_"))
         kern = [e for e in kernels if name in e.key]
         kern_ms = sum(self_device_us(e) for e in kern) / 1e3
         print(f"[profile] {cfg.name} x{cfg.n_layers} layers d{cfg.d_model}, "

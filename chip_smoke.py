@@ -9,15 +9,21 @@
    flush wait, K4 put+signal, K5 ring all-reduce, K6 accumulate+signal —
    every op and dtype the kernel takes, a ragged tail, ordered and
    unordered, and the paths' own shapes; K7 flash attention at the JAX
-   kernel test's four shapes and the prefill's (1, 32, 1024, 128) bfloat16
-   with GQA 32/8; K8 at the JAX kernel test's three shapes and an initial
+   kernel test's four shapes and at (1, 32, 1024, 128) bfloat16 with GQA
+   32/8, and the prefill's own call on head-transposed views at 1016
+   tokens; K8 at the JAX kernel test's three shapes and an initial
    state through the glue (float32), and the prefill's (1, 2048, 32 x 64),
    N 128, chunk 64 in bfloat16; K4's check mode counts the copy
    units a consumer read behind a raised flag that differ from what was
-   sent (must be 0), in the launch the paths run.  Times kernel, plain
-   version and the nearest single PyTorch call (K4, K6, K7 and K8 by
-   CUDA-graph replay, so the times are the card's alone; K8 has no such
-   call).
+   sent (must be 0), in the launch the paths run.  K7 names the variant
+   each call ran (float32: the SIMT kernel; bfloat16: wgmma on TMA-fed
+   tiles, whose ``ptxas -v`` registers, spills and shared memory are
+   printed after the build).  Times kernel, plain version and the nearest
+   single PyTorch call by CUDA-graph replay, so the times are the card's
+   alone (K8 and the flush wait have no such call; the wait's plain
+   version copies from the host and is timed by calls), and K1-K3's and
+   the wait's wrapper calls back to back (``call_ms``, host included);
+   K7's achieved TFLOP/s and its ratio to ``scaled_dot_product_attention``.
 2. Drives each path with every launch counter at 0 just before it and
    reads the counters just after: the window layer (allocate →
    dup_with_info → ring put with a thread-scope flush → declared
@@ -194,6 +200,13 @@ def main() -> int:
     _build.build()
     print(f"[build] {len(_build.SOURCES)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    k7_ptxas = _build.ptxas_report("flash_attention", "flash_fwd_wgmma")
+    check(bool(k7_ptxas), "no ptxas report of K7's bfloat16 kernel")
+    for line in k7_ptxas:
+        print(f"[ptxas] K7 bf16 {line}", flush=True)
+    smem_of = _build.lib("flash_attention", "rt_flash_attention_bf16_smem")
+    print(f"[ptxas] K7 bf16 dynamic shared memory per CTA: {smem_of(128)} "
+          f"bytes at head_dim 128, {smem_of(64)} at 64", flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     record: dict[str, dict] = {}
@@ -315,10 +328,12 @@ def main() -> int:
     err = (got - want).abs().max().item()
     landed = torch.roll(upd, 1, 0)
     record["accumulate"] = dict(
-        ms=time_ms(torch, lambda: k1.accumulate_rows(got, landed, op="sum")),
-        plain_ms=time_ms(torch, lambda: k1.accumulate_plain(got, landed,
-                                                            op="sum")),
-        library_ms=time_ms(torch, lambda: got.add_(landed)),
+        ms=graph_ms(torch, lambda: k1.accumulate_rows(got, landed, op="sum")),
+        call_ms=time_ms(torch, lambda: k1.accumulate_rows(got, landed,
+                                                          op="sum")),
+        plain_ms=graph_ms(torch, lambda: k1.accumulate_plain(got, landed,
+                                                             op="sum")),
+        library_ms=graph_ms(torch, lambda: got.add_(landed)),
         max_abs_err=err, shape=[n, M], dtype="float32")
     record["accumulate"]["bound_ms"], record["accumulate"]["bound_by"] = \
         bound_ms(3 * n * M * 4, n * M)
@@ -335,12 +350,14 @@ def main() -> int:
     region = got[:, M - ATOMIC_COUNT:]
     tgt_t = tgt.long()
     record["ring_accumulate"] = dict(
-        ms=time_ms(torch, lambda: k2.accumulate_rows_atomic(
+        ms=graph_ms(torch, lambda: k2.accumulate_rows_atomic(
+            small, got, tgt, op="sum", offset=M - ATOMIC_COUNT)),
+        call_ms=time_ms(torch, lambda: k2.accumulate_rows_atomic(
             small, got, tgt, op="sum", offset=M - ATOMIC_COUNT), reps=50),
-        plain_ms=time_ms(torch, lambda: k2.accumulate_rows_atomic_plain(
-            small, got, tgt, op="sum", offset=M - ATOMIC_COUNT), reps=50),
-        library_ms=time_ms(torch, lambda: region.index_add_(0, tgt_t, small),
-                           reps=50),
+        plain_ms=graph_ms(torch, lambda: k2.accumulate_rows_atomic_plain(
+            small, got, ring_t, op="sum", offset=M - ATOMIC_COUNT)),
+        library_ms=graph_ms(torch, lambda: region.index_add_(0, tgt_t,
+                                                             small)),
         max_abs_err=err, shape=[n, ATOMIC_COUNT], dtype="float32")
     record["ring_accumulate"]["bound_ms"], \
         record["ring_accumulate"]["bound_by"] = bound_ms(
@@ -351,9 +368,11 @@ def main() -> int:
     err = (got - want).abs().max().item()
     dst = torch.empty_like(upd)
     record["ring_put"] = dict(
-        ms=time_ms(torch, lambda: k3.put_rows(upd, dst, tgt)),
-        plain_ms=time_ms(torch, lambda: k3.put_rows_plain(upd, dst, tgt)),
-        library_ms=time_ms(torch, lambda: torch.roll(upd, 1, 0)),
+        ms=graph_ms(torch, lambda: k3.put_rows(upd, dst, tgt)),
+        call_ms=time_ms(torch, lambda: k3.put_rows(upd, dst, tgt)),
+        plain_ms=graph_ms(torch, lambda: k3.put_rows_plain(upd, dst,
+                                                           ring_t)),
+        library_ms=graph_ms(torch, lambda: torch.roll(upd, 1, 0)),
         max_abs_err=err, shape=[n, M], dtype="float32")
     record["ring_put"]["bound_ms"], record["ring_put"]["bound_by"] = \
         bound_ms(2 * n * M * 4)
@@ -371,8 +390,12 @@ def main() -> int:
           f"{stalls[1].item()}, of 2")
     err = float(abs(stalls[0].item() - stalls[1].item()))
     owed = [ticks] * n
+    # the plain wait copies the owed counts to the card from the host, which
+    # a graph cannot capture: it is timed by calls
     record["put_wait"] = dict(
-        ms=time_ms(torch, lambda: k3.wait_counters(
+        ms=graph_ms(torch, lambda: k3.wait_counters(
+            counters, owed, stream=0, stalls=stalls[0])),
+        call_ms=time_ms(torch, lambda: k3.wait_counters(
             counters, owed, stream=0, stalls=stalls[0]), reps=50),
         plain_ms=time_ms(torch, lambda: k3.wait_counters_plain(
             counters, owed, stream=0, stalls=stalls[1]), reps=50),
@@ -474,49 +497,78 @@ def main() -> int:
     del y
     torch.cuda.empty_cache()
 
-    # K7 at the JAX kernel test's shapes (f32 and bf16) and the prefill's
+    # K7 at the JAX kernel test's shapes (f32 and bf16) and the prefill's,
+    # each call's variant read from the counter's split
     k7 = sys.modules["repro_torch.kernels.flash_attention"]
+
+    def k7_check(what, q, k, v, **kw):
+        before = dict(k7.COUNTER.by_variant)
+        got = k7.flash_attention(q, k, v, **kw)
+        ran = [n_ for n_, c in k7.COUNTER.by_variant.items()
+               if c != before.get(n_, 0)]
+        want = k7.flash_attention_plain(q, k, v, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        dt = str(q.dtype).split(".")[1]
+        check(ran == [k7.VARIANTS[q.dtype]], f"K7 {what} {dt} ran {ran}")
+        check(torch.allclose(got.float(), want.float(), **K7_TOL[dt]),
+              f"K7 {what} {dt}: max err {err}")
+        print(f"[kernel] flash_attention {what} {dt}: variant {ran[0]}, "
+              f"max abs err {err:.3g} (atol {K7_TOL[dt]['atol']})",
+              flush=True)
+        return err
+
     for dtype in (torch.float32, torch.bfloat16):
-        tol = K7_TOL[str(dtype).split(".")[1]]
         for b_, h_, s_, hd_, causal, bq, bkv in (
                 (2, 4, 256, 64, True, 64, 64), (1, 2, 128, 32, False, 64, 32),
                 (1, 1, 512, 128, True, 128, 128),
                 (3, 2, 192, 64, True, 64, 64)):
             q, k, v = (rand((b_, h_, s_, hd_), dtype) for _ in range(3))
-            got = k7.flash_attention(q, k, v, causal=causal, block_q=bq,
-                                     block_kv=bkv)
-            want = k7.flash_attention_plain(q, k, v, causal=causal,
-                                             block_q=bq, block_kv=bkv)
-            check(torch.allclose(got.float(), want.float(), **tol),
-                  f"K7 {(b_, h_, s_, hd_)} causal={causal} {dtype}: max err "
-                  f"{(got.float() - want.float()).abs().max().item()}")
+            k7_check(f"{(b_, h_, s_, hd_)} causal={causal}", q, k, v,
+                     causal=causal, block_q=bq, block_kv=bkv)
     cfg_serve = get_config("qwen3-4b")
     H_, KV_, HD_ = cfg_serve.n_heads, cfg_serve.n_kv_heads, cfg_serve.head_dim
-    S_ = 1024                        # SERVE_PROMPT padded to K7's 128 blocks
+    S_ = 1024                        # SERVE_PROMPT rounded up to K7's tile
     q = rand((1, H_, S_, HD_), torch.bfloat16)
     k, v = (rand((1, KV_, S_, HD_), torch.bfloat16) for _ in range(2))
-    got = k7.flash_attention(q, k, v)
-    want = k7.flash_attention_plain(q, k, v)
-    err = (got.float() - want.float()).abs().max().item()
-    check(torch.allclose(got.float(), want.float(), **K7_TOL["bfloat16"]),
-          f"K7 at the prefill shape: max err {err}")
+    err = k7_check(f"(1, {H_}, {S_}, {HD_}) causal GQA {H_}/{KV_}", q, k, v)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     record["flash_attention"] = dict(
         ms=graph_ms(torch, lambda: k7.flash_attention(q, k, v)),
         plain_ms=graph_ms(torch, lambda: k7.flash_attention_plain(q, k, v)),
         library_ms=graph_ms(torch, lambda: sdpa(q, k, v, is_causal=True,
                                                 enable_gqa=True)),
-        max_abs_err=err, shape=[1, H_, S_, HD_], dtype="bfloat16")
+        max_abs_err=err, shape=[1, H_, S_, HD_], dtype="bfloat16",
+        variant=k7.VARIANTS[torch.bfloat16])
     pairs = S_ * (S_ + 1) // 2       # causal (query, key) pairs this run needs
-    record["flash_attention"]["bound_ms"], \
-        record["flash_attention"]["bound_by"] = bound_ms(
-            2 * (q.numel() + k.numel() + v.numel() + q.numel()),
-            4 * HD_ * H_ * pairs, peak=PEAK_BF16)
-    print(f"[kernels] K7 equals its plain version: the JAX kernel test's four "
-          f"shapes in float32 and bfloat16, and (1, {H_}, {S_}, {HD_}) "
-          f"bfloat16 causal GQA {H_}/{KV_} (max abs err {err:.3g})",
-          flush=True)
-    del q, k, v, got, want
+    k7_ops = 4 * HD_ * H_ * pairs
+    r7 = record["flash_attention"]
+    r7["bound_ms"], r7["bound_by"] = bound_ms(
+        2 * (q.numel() + k.numel() + v.numel() + q.numel()), k7_ops,
+        peak=PEAK_BF16)
+    r7["tflops"] = k7_ops / r7["ms"] / 1e9
+    r7["vs_library"] = r7["ms"] / r7["library_ms"]
+    print(f"[kernel] flash_attention (1, {H_}, {S_}, {HD_}) bfloat16 causal "
+          f"GQA {H_}/{KV_}: {r7['variant']} {r7['ms']:.4f} ms, "
+          f"{r7['tflops']:.1f} TFLOP/s of causal pairs "
+          f"({100 * r7['tflops'] * 1e12 / PEAK_BF16:.1f} % of the bf16 "
+          f"peak), {r7['vs_library']:.2f} x scaled_dot_product_attention's "
+          f"{r7['library_ms']:.4f} ms in this call", flush=True)
+    # the prefill's own call: head-transposed views of (1, 1016, heads, 128)
+    # tensors, no pad, the output a view of a (1, 1016, 32, 128) tensor
+    qs = rand((1, SERVE_PROMPT, H_, HD_), torch.bfloat16)
+    ks, vs = (rand((1, SERVE_PROMPT, KV_, HD_), torch.bfloat16)
+              for _ in range(2))
+    views = (qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2))
+    blk = dict(block_q=SERVE_PROMPT, block_kv=SERVE_PROMPT)
+    k7_check(f"views of (1, {SERVE_PROMPT}, {H_}/{KV_}, {HD_})", *views,
+             **blk)
+    check(k7.flash_attention(*views, **blk).transpose(1, 2).is_contiguous(),
+          "K7's prefill output is not a view of (B, S, H, D)")
+    r7["prefill_views_ms"] = graph_ms(
+        torch, lambda: k7.flash_attention(*views, **blk))
+    print(f"[kernel] flash_attention prefill views (1, {SERVE_PROMPT}, "
+          f"{H_}/{KV_}, {HD_}): {r7['prefill_views_ms']:.4f} ms", flush=True)
+    del q, k, v, qs, ks, vs, views
 
     # K8 at the JAX kernel test's shapes (float32, initial state through the
     # glue) and at the prefill's (1, 2048, 32 x 64), N 128, chunk 64, bf16
@@ -594,10 +646,12 @@ def main() -> int:
     del k8_args, xdt, a, bm, cm, s0, got, want
     for name, r in record.items():
         lib_ms = r["library_ms"]
+        calls = (f", wrapper calls {r['call_ms']:.4f}" if "call_ms" in r
+                 else "")
         print(f"[kernel] {name} {r['shape']}: {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f}, library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}, bound "
-              f"{r['bound_ms']:.4f} by {r['bound_by']})", flush=True)
+              f"{r['bound_ms']:.4f} by {r['bound_by']}{calls})", flush=True)
 
     # ---- 2. the paths, every launch counter from 0 just before each -------
     from repro_torch.core.rma import (Window, WindowConfig, all_to_all_plan,
@@ -852,6 +906,10 @@ def main() -> int:
         check(counts["flash_attention"] == cfg_serve.n_layers * n_prefill,
               f"{mode}: K7 launched {counts['flash_attention']} times, want "
               f"{cfg_serve.n_layers} x {n_prefill} prefills")
+        check(k7.COUNTER.by_variant == {
+            k7.VARIANTS[torch.bfloat16]: counts["flash_attention"]},
+              f"{mode}: K7 variants {k7.COUNTER.by_variant}, want only the "
+              f"bfloat16 one")
         tokens = {c.rid: c.tokens for c in done}
         check(sorted(tokens) == list(range(SERVE_REQUESTS)) and all(
             len(t) == SERVE_NEW and all(0 <= x < cfg_serve.vocab for x in t)
@@ -1030,7 +1088,10 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"]})
+            "shape": r["shape"],
+            **{key: r[key] for key in ("call_ms", "variant", "tflops",
+                                       "vs_library", "prefill_views_ms")
+               if key in r}})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,7 @@ SOURCES = {
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 _U32P = ctypes.POINTER(ctypes.c_uint32)
@@ -62,9 +62,12 @@ SIGNATURES = {
         "rt_accumulate_signal": (_P, _I64, _P, _I64, _I64, _P, _P, _I64, _I64,
                                  _I, _I, _P, _I64, _P, _I64, _I64, _I64, _I,
                                  _I, _P, _P, _I, _I, _I, _I, _P, _P)},
-    "flash_attention": {"rt_flash_attention":
-                        (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
-                         _F, _I, _I, _P)},
+    "flash_attention": {
+        "rt_flash_attention": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                               _I64, _F, _I, _P),
+        "rt_flash_attention_bf16": (_P, _P, _P, _P, _P, _I64, _I64, _I64,
+                                    _I64, _I64, _I64, _F, _I, _P),
+        "rt_flash_attention_bf16_smem": (_I64,)},
     "ssd_scan": {"rt_ssd_intra_chunk":
                  (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                   _I64, _I, _P)},
@@ -128,10 +131,26 @@ def build(names=None) -> dict[str, Path]:
             failed.append(f"{n}: nvcc exit {proc.returncode}\n{log}")
             Path(tmp).unlink(missing_ok=True)
         else:
+            Path(f"{paths[n]}.log").write_text(log)   # ptxas -v: registers, spills
             os.replace(tmp, paths[n])   # atomic: no half-written library
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return paths
+
+
+def ptxas_report(name: str, kernel: str) -> list[str]:
+    """What ``ptxas -v`` said of each entry function of library ``name``
+    whose mangled name contains ``kernel``: one line each with its
+    registers, spill bytes, barriers and static shared memory."""
+    log = Path(f"{library_path(name)}.log").read_text().splitlines()
+    out, entry = [], None
+    for line in log:
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if kernel in line else None
+        elif entry and ("spill" in line or "Used" in line):
+            out.append(f"{entry}: {line.split(':', 1)[-1].strip()}"
+                       if "Used" in line else f"{entry}: {line.strip()}")
+    return out
 
 
 def lib(name: str, symbol: str | None = None):
@@ -156,4 +175,4 @@ def lib(name: str, symbol: str | None = None):
 
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build", "build_dir", "lib",
-           "library_path", "nvcc"]
+           "library_path", "nvcc", "ptxas_report"]

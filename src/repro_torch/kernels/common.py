@@ -97,17 +97,22 @@ def round_up(a: int, b: int) -> int:
 class LaunchCounter:
     """Number of times one kernel was launched on the card.  Each wrapper
     adds one where it launches its kernel and nowhere else, so a run can
-    show that its main path went through the kernel."""
+    show that its main path went through the kernel.  A kernel built in
+    variants names the one it launched: ``by_variant`` splits the count."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self.by_variant: dict[str, int] = {}
 
-    def bump(self) -> None:
+    def bump(self, variant: str | None = None) -> None:
         self.count += 1
+        if variant is not None:
+            self.by_variant[variant] = self.by_variant.get(variant, 0) + 1
 
     def reset(self) -> None:
         self.count = 0
+        self.by_variant.clear()
 
 
 def on_device(*tensors: torch.Tensor) -> bool:

@@ -15,14 +15,14 @@ item 11).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers
 
 NEG_INF = -2.0**30  # large-but-finite: avoids NaNs from (-inf) - (-inf)
 
-#: K7's block size in prefill: prompts are padded at the end to a multiple
+#: K7's query tile on the card (the bfloat16 variant's BQ): a prompt longer
+#: than this takes a second tile of queries and keys
 PREFILL_BLOCK = 128
 
 
@@ -107,18 +107,17 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """Causal attention of a prompt over its own keys through K7: q (B, S,
     H, hd), k/v (B, S, KV, hd) unexpanded → (B, S, H, hd).
 
-    q, k and v are padded at the end to a multiple of ``PREFILL_BLOCK`` and
-    the output sliced back: exact under the causal mask, since every padded
-    key comes after every real query."""
+    K7 takes the head-transposed views as they are: on the card its
+    bfloat16 variant reads them and writes its output through strides (the
+    output a view of a (B, S, H, hd) tensor), and rows past S are TMA's
+    zeros and clipped stores, so no pad and no layout copy.  The prompt is
+    one block of the JAX contract (``block_q = block_kv = S``): the plain
+    version on CPU tensors then is the causal softmax over the prompt."""
     S = q.shape[1]
-    pad = (-S) % PREFILL_BLOCK
-
-    def heads(t):
-        return F.pad(t.transpose(1, 2), (0, 0, 0, pad))   # (B, heads, S+pad, hd)
-
-    out = flash_attention(heads(q), heads(k), heads(v), causal=True,
-                          block_q=PREFILL_BLOCK, block_kv=PREFILL_BLOCK)
-    return out[:, :, :S].transpose(1, 2)
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=True, block_q=S,
+                          block_kv=S)
+    return out.transpose(1, 2)
 
 
 def _write_dense(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,

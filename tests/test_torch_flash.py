@@ -13,9 +13,11 @@ from repro.kernels import flash_attention as j_flash_attention
 from repro.kernels import ref as JR
 from repro.models.attention import full_attention as j_full_attention
 
+from repro_torch import _build
 from repro_torch.kernels import common
 from repro_torch.kernels import ref as TR
-from repro_torch.kernels.flash_attention import (COUNTER, flash_attention,
+from repro_torch.kernels.flash_attention import (COUNTER, VARIANTS,
+                                                 flash_attention,
                                                  flash_attention_plain)
 from repro_torch.models.attention import PREFILL_BLOCK, flash_prefill
 
@@ -124,3 +126,128 @@ def test_wrapper_on_card_raises_without_its_library(monkeypatch):
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(torch.zeros(1, 2, 128, 8), torch.zeros(1, 2, 128, 8),
                         torch.zeros(1, 2, 128, 8))
+
+
+def _bf16(x):
+    """Round float32 to bfloat16 (nearest, ties to even), kept in float32."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _emulate_bf16_kernel(q, k, v, causal, block_kv=128):
+    """The bfloat16 variant's arithmetic in numpy: float32 scores of bf16
+    inputs scaled in float32, NEG_INF on the causal mask, the online max and
+    denominator in float32 over its 128-key tiles, P rounded to bfloat16
+    before P V, out = acc / max(l, 1e-30) rounded to bfloat16."""
+    b, h, sq, hd = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    k = np.repeat(k, h // kvh, axis=1)
+    v = np.repeat(v, h // kvh, axis=1)
+    m = np.full((b, h, sq), -2.0**30, np.float32)
+    l = np.zeros((b, h, sq), np.float32)
+    acc = np.zeros((b, h, sq, hd), np.float32)
+    qpos = np.arange(sq)[:, None]
+    for k0 in range(0, sk, block_kv):
+        s = np.einsum("bhqd,bhkd->bhqk", q, k[:, :, k0:k0 + block_kv])
+        s = s.astype(np.float32) * np.float32(hd ** -0.5)
+        if causal:
+            kpos = np.arange(k0, k0 + s.shape[-1])[None, :]
+            s = np.where(qpos >= kpos, s, np.float32(-2.0**30))
+        m_new = np.maximum(m, s.max(-1))
+        alpha = np.exp(m - m_new)
+        p = np.exp(s - m_new[..., None]).astype(np.float32)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + np.einsum(
+            "bhqk,bhkd->bhqd", _bf16(p), v[:, :, k0:k0 + block_kv])
+        m = m_new
+    return _bf16(acc / np.maximum(l, np.float32(1e-30))[..., None])
+
+
+@pytest.mark.parametrize("b,h,kvh,s,hd,causal,bq,bkv", [
+    (2, 4, 4, 256, 64, True, 64, 64),
+    (1, 2, 2, 128, 32, False, 64, 32),
+    (1, 1, 1, 512, 128, True, 128, 128),
+    (3, 2, 2, 192, 64, True, 64, 64),
+    (1, 8, 2, 256, 128, True, 128, 128),   # a GQA prefill: 8 query heads / 2
+])
+def test_bf16_variant_arithmetic_within_tolerance_of_reference_kernel(
+        b, h, kvh, s, hd, causal, bq, bkv):
+    """The bfloat16 variant rounds P to bfloat16 before P V (the JAX
+    serving path's rounding of its weights) where the JAX kernel keeps P in
+    float32: an error of about 2^-9 of |v| per output, inside the JAX
+    kernel test's bfloat16 tolerance."""
+    atol = DTYPES["bfloat16"][2]
+    (jq, jk, jv), _ = _inputs(b * 1000 + s + h,
+                              [(b, h, s, hd), (b, kvh, s, hd),
+                               (b, kvh, s, hd)], "bfloat16")
+    q, k, v = (np.asarray(x, np.float32) for x in (jq, jk, jv))
+    got = _emulate_bf16_kernel(q, k, v, causal)
+    want = j_flash_attention(jq, jnp.repeat(jk, h // kvh, axis=1),
+                             jnp.repeat(jv, h // kvh, axis=1), causal=causal,
+                             block_q=bq, block_kv=bkv)
+    np.testing.assert_allclose(got, _np(want), atol=atol, rtol=1e-2)
+    assert np.abs(got - _np(want)).max() > 0   # the rounding is really there
+
+
+class _FakeLibrary:
+    """Stands in for the CUDA library: records the entry point each launch
+    reached and its arguments, and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, name, symbol=None):
+        def launch(*args):
+            self.calls.append((symbol, args))
+            return 0
+        return launch
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    monkeypatch.setattr(common, "on_device", lambda *ts: True)
+    monkeypatch.setattr(common, "stream_ptr", lambda device: 0)
+    fake = _FakeLibrary()
+    monkeypatch.setattr(_build, "lib", fake)
+    return fake
+
+
+def test_wrapper_routes_each_dtype_to_its_variant(fake_card):
+    """float32 launches the SIMT kernel on contiguous copies; bfloat16 the
+    wgmma/TMA kernel on the operands' own strides, its output in q's
+    layout; the counter names the variant."""
+    COUNTER.reset()
+    q = torch.zeros(1, 4, 128, 32)
+    flash_attention(q, q[:, :2], q[:, :2])
+    assert fake_card.calls[-1][0] is None        # the library's main entry
+    assert COUNTER.by_variant == {VARIANTS[torch.float32]: 1}
+    qs = torch.zeros(1, 96, 4, 32, dtype=torch.bfloat16)   # (B, S, H, D)
+    ks = torch.zeros(1, 96, 2, 32, dtype=torch.bfloat16)
+    out = flash_attention(qs.transpose(1, 2), ks.transpose(1, 2),
+                          ks.transpose(1, 2), block_q=96, block_kv=96)
+    symbol, args = fake_card.calls[-1]
+    assert symbol == "rt_flash_attention_bf16"
+    assert list(args[4]) == [96 * 4 * 32, 32, 4 * 32, 96 * 2 * 32, 32, 2 * 32,
+                             96 * 2 * 32, 32, 2 * 32, 96 * 4 * 32, 32, 4 * 32]
+    assert out.shape == (1, 4, 96, 32) and out.transpose(1, 2).is_contiguous()
+    assert COUNTER.count == 2 and COUNTER.by_variant == {
+        VARIANTS[torch.float32]: 1, VARIANTS[torch.bfloat16]: 1}
+    COUNTER.reset()
+
+
+def test_bf16_operand_breaking_tma_alignment_raises(fake_card):
+    """A bfloat16 base or stride off TMA's 16-byte grid, or a strided last
+    dim, raises before any launch, and nothing falls back."""
+    good = torch.zeros(1, 2, 128, 16, dtype=torch.bfloat16)
+    flat = torch.zeros(2 * 128 * 16 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(1, 2, 128, 16)              # base 2 bytes off
+    wide = torch.zeros(1, 2, 128, 20, dtype=torch.bfloat16)[..., :16]
+    strided = torch.zeros(1, 2, 128, 32, dtype=torch.bfloat16)[..., ::2]
+    before = COUNTER.count
+    for bad, what in ((shifted, "16 bytes"), (wide, "16 bytes"),
+                      (strided, "last dim")):
+        for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+            with pytest.raises(ValueError, match=what):
+                flash_attention(*args)
+    assert fake_card.calls == [] and COUNTER.count == before
