@@ -8,7 +8,9 @@
    the card: K1 tiled accumulate, K2 atomic accumulate, K3 put and its
    flush wait, K4 put+signal, K5 ring all-reduce, K6 accumulate+signal —
    every op and dtype the kernel takes, a ragged tail, ordered and
-   unordered, and the paths' own shapes; K7 flash attention at the JAX
+   unordered, and the paths' own shapes (K1 also on misaligned column
+   slices of a wider window; K5 also at 40 random ragged shapes and at the
+   gradient shape, against the sum oracle); K7 flash attention at the JAX
    kernel test's four shapes and at (1, 32, 1024, 128) bfloat16 with GQA
    32/8, and the prefill's own call on head-transposed views at 1016
    tokens; K8 at the JAX kernel test's three shapes and an initial
@@ -23,6 +25,10 @@
    alone (K8 and the flush wait have no such call; the wait's plain
    version copies from the host and is timed by calls), and K1-K3's and
    the wait's wrapper calls back to back (``call_ms``, host included);
+   K1 a second time past L2 at (4, 2^23) beside ``add_``; K5 by CUDA
+   events at the gradient shape beside ``torch.sum(x, 0)``, both on their
+   first call after a large free and warmed, with K5's achieved rate and
+   design; K1's and K5's ``ptxas -v`` registers and spills;
    K7's achieved TFLOP/s and its ratio to ``scaled_dot_product_attention``.
 2. Drives each path with every launch counter at 0 just before it and
    reads the counters just after: the window layer (allocate →
@@ -56,6 +62,7 @@ import dataclasses
 import gc
 import json
 import os
+import random
 import subprocess
 import sys
 import time
@@ -70,6 +77,7 @@ PEAK_BF16 = 989e12
 
 N_RANKS = 4
 WINDOW_ELEMS = 1 << 20        # one rank's window shard: 4 MiB of float32
+K1_PAST_L2 = 1 << 23          # K1's second timed shape: 403 MB, past L2
 ATOMIC_COUNT = 8              # at the default crossover: the intrinsic path
 STEPS = 4
 GLOBAL_BATCH, SEQ_LEN = 8, 512
@@ -200,6 +208,16 @@ def main() -> int:
     _build.build()
     print(f"[build] {len(_build.SOURCES)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for tag, name, kernel in (("K1", "accumulate", "acc_kernel"),
+                              ("K5", "ring_allreduce", "ring_ar_kernel")):
+        report = _build.ptxas_report(name, kernel)
+        check(bool(report), f"no ptxas report of {tag}")
+        regs = sorted({line.split("Used ")[1].split(" registers")[0]
+                       for line in report if "Used " in line}, key=int)
+        spills = {line.split(": ", 1)[1] for line in report
+                  if "spill" in line}
+        print(f"[ptxas] {tag}: {len(report) // 2} instance(s), registers "
+              f"{', '.join(regs)}; {' | '.join(sorted(spills))}", flush=True)
     k7_ptxas = _build.ptxas_report("flash_attention", "flash_fwd_wgmma")
     check(bool(k7_ptxas), "no ptxas report of K7's bfloat16 kernel")
     for line in k7_ptxas:
@@ -241,14 +259,48 @@ def main() -> int:
             check(torch.equal(k3.ring_put(x, axis_size=shape[0]),
                               R.ring_put_ref(x, axis_size=shape[0])),
                   f"K3 {shape} {dtype}")
-    for n, length in ((2, 6), (N_RANKS, 13), (8, 1000), (3, 3001)):
+    for dtype in (torch.float64, torch.float16, torch.bfloat16, torch.int64):
+        for op in k1.ACC_OPS:
+            if op in k1.BITWISE_OPS and dtype.is_floating_point:
+                continue
+            for m in (1, 4097, 1_000_003):
+                b, u = rand((m,), dtype), rand((m,), dtype)
+                want = k1.accumulate_plain(b.clone(), u, op=op)
+                check(torch.equal(k1.accumulate(b, u, op=op), want),
+                      f"K1 {op} {dtype} m={m}")
+    # odd-offset (misaligned) column slices of a wider window: the scalar
+    # path where the two rows' offsets differ, the scalar head where the
+    # buffer's row stride moves each row's offset
+    for dtype in (torch.float32, torch.float64, torch.bfloat16, torch.int32):
+        for op in k1.ACC_OPS:
+            if op in k1.BITWISE_OPS and dtype.is_floating_point:
+                continue
+            for off, width in ((1, 4099), (3, 65536), (8, 70001)):
+                win = rand((N_RANKS, width + off + 5), dtype)
+                u = rand((N_RANKS, width), dtype)
+                want = win.clone()
+                k1.accumulate_plain(want[:, off:off + width], u, op=op)
+                k1.accumulate_rows(win[:, off:off + width], u, op=op)
+                check(torch.equal(win, want),
+                      f"K1 {op} {dtype} column slice at {off}")
+    # K5 at fixed ragged shapes, then 40 random ones (rank counts 2-8,
+    # lengths up to 2^24: scalar and vector paths, from a few agents to
+    # every resident block with several tiles an agent), so the kernel's
+    # own schedules meet the ring's waits
+    pick = random.Random(0)
+    shapes = [(2, 6), (N_RANKS, 13), (8, 1000), (3, 3001)] + [
+        (pick.choice((2, 3, 4, 5, 8)), int(2 ** pick.uniform(0, 24)))
+        for _ in range(40)]
+    for n, length in shapes:
         x = rand((n, length), torch.float32)
         want = k5.ring_all_reduce_plain(
             torch.cat([x, x.new_zeros((n, (-length) % n))], 1))[:, :length]
         check(torch.equal(k5.ring_all_reduce(x, axis_size=n), want),
               f"K5 {n}x{length}")
     print("[kernels] K1/K2/K3/K5 equal their plain versions: every op, "
-          "float32/int32, ragged tails", flush=True)
+          "float32/int32 (K1 also float64/float16/bfloat16/int64, and "
+          f"misaligned column slices), ragged tails; K5 at {len(shapes)} "
+          "shapes", flush=True)
 
     # K4 / K6: ordered and Listing-1, every dtype of the paths and every K6
     # op, ragged tails and the all-to-all's own blocks (Cp x (d+1) bf16)
@@ -337,6 +389,26 @@ def main() -> int:
         max_abs_err=err, shape=[n, M], dtype="float32")
     record["accumulate"]["bound_ms"], record["accumulate"]["bound_by"] = \
         bound_ms(3 * n * M * 4, n * M)
+    # the same accumulate past the 50 MB L2: (4, 2^23) float32, 403 MB moved
+    big_buf, big_upd = rand((n, K1_PAST_L2), torch.float32), \
+        rand((n, K1_PAST_L2), torch.float32)
+    want = big_buf + big_upd
+    k1.accumulate_rows(big_buf, big_upd, op="sum")
+    check(torch.equal(big_buf, want), "K1 past L2")
+    record["accumulate"]["past_l2"] = dict(
+        shape=[n, K1_PAST_L2],
+        ms=graph_ms(torch, lambda: k1.accumulate_rows(big_buf, big_upd,
+                                                      op="sum")),
+        plain_ms=graph_ms(torch, lambda: k1.accumulate_plain(
+            big_buf, big_upd, op="sum")),
+        library_ms=graph_ms(torch, lambda: big_buf.add_(big_upd)),
+        bound_ms=bound_ms(3 * n * K1_PAST_L2 * 4, n * K1_PAST_L2)[0])
+    big = record["accumulate"]["past_l2"]
+    print(f"[kernel] accumulate past L2 [{n}, {K1_PAST_L2}] float32: "
+          f"{big['ms']:.4f} ms ({100 * big['bound_ms'] / big['ms']:.1f} % of "
+          f"the {big['bound_ms']:.4f} ms bound), add_ {big['library_ms']:.4f},"
+          f" plain {big['plain_ms']:.4f}", flush=True)
+    del big_buf, big_upd, want
 
     small = rand((n, ATOMIC_COUNT), torch.float32)
     tgt = torch.tensor([(r + 1) % n for r in range(n)], dtype=torch.int32,
@@ -472,8 +544,8 @@ def main() -> int:
     print(f"[plan] qwen3-4b x{N_LAYERS} layers: {n_params} parameters; "
           f"params {n_params * 4 / 2**30:.1f} GiB, ({n}, P) gradient matrix "
           f"{n * width * 4 / 2**30:.1f} GiB, Adam state "
-          f"{2 * n_params * 4 / 2**30:.1f} GiB, K5 landing slots "
-          f"{2 * width * 4 / 2**30:.1f} GiB", flush=True)
+          f"{2 * n_params * 4 / 2**30:.1f} GiB; K5 reduces it in place",
+          flush=True)
     x = rand((n, width), torch.float32)
     total = x.sum(0)
     y = x.clone()
@@ -484,16 +556,45 @@ def main() -> int:
     check(torch.allclose(y[0], total, rtol=1e-5, atol=1e-5),
           f"K5 vs the sum oracle: max abs err {err}")
     del x, total
-    torch.cuda.empty_cache()
-    record["ring_all_reduce"] = dict(
-        ms=time_ms(torch, lambda: k5.ring_all_reduce(y, axis_size=n,
-                                                     inplace=True), reps=3),
+    summed = torch.empty(width, device=dev)
+
+    def ar():
+        k5.ring_all_reduce(y, axis_size=n, inplace=True)
+
+    def library_sum():
+        torch.sum(y, 0, out=summed)
+
+    def first_after_free(fn) -> float:
+        """One call right after the 19.6 GB the check above held is freed
+        and the cache emptied: the first K5 calls there read slower than
+        the train step's, which frees nothing between steps."""
+        torch.cuda.empty_cache()
+        junk = torch.empty((n + 1, width), device=dev)
+        del junk
+        torch.cuda.empty_cache()
+        return time_ms(torch, fn, reps=1, warmup=0)
+
+    r5 = record["ring_all_reduce"] = dict(
+        first_ms=first_after_free(ar),
+        ms=time_ms(torch, ar, reps=5, warmup=3),
+        library_first_ms=first_after_free(library_sum),
+        library_ms=time_ms(torch, library_sum, reps=5, warmup=3),
         plain_ms=time_ms(torch, lambda: k5.ring_all_reduce_plain(y), reps=1),
-        library_ms=time_ms(torch, lambda: torch.sum(y, 0), reps=3),
-        max_abs_err=err, shape=[n, width], dtype="float32")
-    record["ring_all_reduce"]["bound_ms"], \
-        record["ring_all_reduce"]["bound_by"] = bound_ms(
-            2 * n * width * 4, (n - 1) * width)
+        max_abs_err=err, shape=[n, width], dtype="float32",
+        design="in place behind the neighbour's ready word, 16-byte vector "
+               "loads into registers, tile counters (2048 floats a tile), "
+               "last reduce-scatter hop fused with all-gather hop 0, L2 "
+               "evict-first hints, every resident block")
+    r5["bound_ms"], r5["bound_by"] = bound_ms(2 * n * width * 4,
+                                              (n - 1) * width)
+    r5["tbps_of_2x"] = 2 * n * width * 4 / r5["ms"] / 1e9
+    print(f"[kernel] ring_all_reduce [{n}, {width}]: {r5['ms']:.3f} ms "
+          f"warmed ({r5['first_ms']:.3f} the first call after a free), "
+          f"{r5['tbps_of_2x']:.2f} TB/s of the 2X bound's bytes; "
+          f"torch.sum {r5['library_ms']:.3f} ms warmed "
+          f"({r5['library_first_ms']:.3f} first); design: {r5['design']}",
+          flush=True)
+    del summed
     del y
     torch.cuda.empty_cache()
 
@@ -1090,7 +1191,9 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
             **{key: r[key] for key in ("call_ms", "variant", "tflops",
-                                       "vs_library", "prefill_views_ms")
+                                       "vs_library", "prefill_views_ms",
+                                       "past_l2", "design", "tbps_of_2x",
+                                       "first_ms", "library_first_ms")
                if key in r}})
     print(json.dumps({"kernels": rows}))
     print(smi)

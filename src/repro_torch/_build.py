@@ -47,14 +47,14 @@ _U32P = ctypes.POINTER(ctypes.c_uint32)
 #: library's main entry point)
 SIGNATURES = {
     "accumulate": {"rt_accumulate":
-                   (_P, _I64, _P, _I64, _I64, _I64, _I, _I, _I, _P)},
+                   (_P, _I64, _P, _I64, _I64, _I64, _I, _I, _P)},
     "intrinsic": {"rt_ring_accumulate":
                   (_P, _I64, _I64, _P, _I64, _P, _I64, _I, _I, _P)},
     "rma_put": {"rt_put": (_P, _I64, _P, _I64, _I64, _P, _I64, _I64, _I, _P,
                            _I, _I, _I, _P),
                 "rt_put_wait": (_P, _I64, _I, _I, _U32P, _P, _P)},
     "ring_allreduce": {"rt_ring_all_reduce":
-                       (_P, _I64, _I64, _I64, _P, _P, _I, _P)},
+                       (_P, _I64, _I64, _I64, _P, _I64, _P)},
     "put_signal": {
         "rt_put_signal": (_P, _I64, _P, _I64, _I64, _P, _P, _I64, _I64, _I,
                           _P, _I64, _P, _I64, _I64, _I64, _I, _I, _P, _P, _I,

@@ -6,10 +6,13 @@ intrinsic (small-count) side of the crossover is K2 in
 ``repro_torch.kernels.intrinsic``; ``core.rma.accumulate.route`` picks.
 
 Replaces ``repro/kernels/accumulate.py::accumulate`` (the ``pallas_call`` at
-``accumulate.py:84``).  CUDA source: ``csrc/accumulate.cu`` — a grid-stride
-loop that masks the ragged tail instead of padding it with the op's
-identity, updating the buffer in place.  Bound on an H100: bytes (two reads
-and one write per element).
+``accumulate.py:84``).  CUDA source: ``csrc/accumulate.cu`` — one compiled
+kernel per (dtype, op), 16-byte vectors wherever a row's two operands share
+their offset from a 16-byte boundary (scalar head and tail), the blocks the
+card holds at once walking the rows when both operands fit in L2 and one
+block a tile past it; it masks the ragged tail instead of padding it with
+the op's identity, updating the buffer in place.  Bound on an H100: bytes
+(two reads and one write per element).
 
 ``op_identity`` stays: the identity table is part of the accumulate
 contract (``test_op_identity_table``) even though the kernel needs no pad.
@@ -22,7 +25,7 @@ from repro_torch import _build
 from repro_torch.kernels import common as _common
 from repro_torch.kernels.common import (ACC_OPS, BITWISE_OPS, DTYPE_CODES,
                                         OP_CODES, LaunchCounter, as_dtype,
-                                        cdiv, check_launch, combine_op,
+                                        check_launch, combine_op,
                                         is_integer)
 
 COUNTER = LaunchCounter("accumulate")
@@ -101,7 +104,7 @@ def accumulate_rows(buffer: torch.Tensor, update: torch.Tensor, *,
         return buffer
     fn = _build.lib("accumulate")
     rc = fn(buffer.data_ptr(), buffer.stride(0), update.data_ptr(), m, rows, m,
-            DTYPE_CODES[buffer.dtype], OP_CODES[op], min(cdiv(m, 256), 1024),
+            DTYPE_CODES[buffer.dtype], OP_CODES[op],
             _common.stream_ptr(buffer.device))
     check_launch("accumulate", rc)
     COUNTER.bump()

@@ -1,18 +1,22 @@
 """K5 — the one-sided ring all-reduce (sum) as one persistent kernel.
 
 Reduce-scatter then all-gather over n stacked ranks: 2(n−1) hops per rank,
-each chained behind the previous on release/acquire flag words, with a
-double-buffered landing slot and a credit word back to the previous rank —
-the kernel twin of the plan's P2-ordered ring
-(``core.rma.collectives.plan_all_reduce`` with ``order=True``).  It sums in
-the ring's own order — at hop k rank r adds the incoming partial of chunk
-(r−k−1) to its own — so its result is bit-identical to the op-by-op ring.
+each chained behind the previous on release/acquire words — the kernel twin
+of the plan's P2-ordered ring (``core.rma.collectives.plan_all_reduce`` with
+``order=True``).  It sums in the ring's own order — at hop k rank r adds the
+partial of chunk (r−k−1) that rank r−1 holds to its own — so its result is
+bit-identical to the op-by-op ring.
 
 Replaces ``repro/kernels/ring_allreduce.py::ring_all_reduce`` (the
 ``pallas_call`` at ``ring_allreduce.py:108``).  CUDA source:
-``csrc/ring_allreduce.cu``: n × B co-resident blocks (cooperative launch,
-n·B ≤ the SM count), block (r, b) acting for rank r on column slice b.
-Bound on an H100: bytes.
+``csrc/ring_allreduce.cu``.  The ranks are rows of one tensor, so a rank
+reads its neighbour's row in place behind the neighbour's ready word: no
+landing slot and no credit word.  Each warp is a ring agent that walks its
+tiles of every chunk and runs the ring's steps on each tile, all ranks on
+the same tiles at once, so a partial is read back out of L2;
+:func:`agent_program` is that step program in Python, which
+``tests/test_torch_ring.py`` runs under random interleavings.  Bound on an
+H100: bytes (one read and one write of x).
 """
 from __future__ import annotations
 
@@ -23,8 +27,6 @@ from repro_torch.kernels import common as _common
 from repro_torch.kernels.common import LaunchCounter, cdiv, check_launch
 
 COUNTER = LaunchCounter("ring_all_reduce")
-
-_THREADS = 512   # kThreads in csrc/ring_allreduce.cu
 
 
 def _check_order(config) -> None:
@@ -56,20 +58,58 @@ def ring_all_reduce_plain(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def agent_program(n: int, chunk: int, tile: int, agents: int, r: int,
+                  g: int):
+    """The steps agent ``g`` of rank ``r`` runs in ``ring_ar_kernel``, in
+    order, over the same words: ``("wait", rank, value)`` — spin until
+    ``ready[rank][g] >= value``; ``("add", c, lo, hi, also)`` — row r's
+    chunk c += row r−1's over ``[lo, hi)``, and store the sum into row
+    ``also`` too when it is not None; ``("copy", c, lo, hi)`` — row r+1's
+    chunk c = row r's; ``("release", value)`` — ``ready[r][g] = value``.
+
+    The agent's tiles are g, g + G, ... (G = ``agents``; the kernel's tile
+    is 2048 floats).  A tile takes S = 2(n−1) − 1 steps, and step s of the
+    agent's j-th tile releases ``j·S + s + 1``; it waits for the
+    neighbour's step s − 1 of the same tile, except at step 0, which reads
+    only what the neighbour held at the start.  The last reduce-scatter hop
+    also stores into the next row: all-gather hop 0, fused."""
+    steps = 2 * (n - 1) - 1
+    nxt = (r + 1) % n
+    for j, t in enumerate(range(g, cdiv(chunk, tile), agents)):
+        base = j * steps
+        lo, hi = t * tile, min(t * tile + tile, chunk)
+        for k in range(n - 1):
+            if k > 0:
+                yield ("wait", (r - 1) % n, base + k)
+            yield ("add", (r - k - 1) % n, lo, hi,
+                   nxt if k == n - 2 else None)
+            yield ("release", base + k + 1)
+        for k in range(1, n - 1):
+            s = n - 2 + k
+            yield ("wait", (r - 1) % n, base + s)
+            yield ("copy", (r + 1 - k) % n, lo, hi)
+            yield ("release", base + s + 1)
+
+
 def _launch(x: torch.Tensor) -> None:
+    """Launch K5 on the contiguous ``(n, L)`` matrix ``x``; the kernel
+    spreads every block the card holds at once over the n ranks and takes
+    one ready word for each of their warps."""
     fn = _build.lib("ring_allreduce")
     n, length = x.shape
     chunk = length // n
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    if n > sms:
-        raise ValueError(f"K5 needs n <= {sms} co-resident ranks, got {n}")
-    blocks = max(1, min(sms // n, cdiv(chunk, 4 * _THREADS)))
-    landing = torch.empty((n, 2, chunk), dtype=torch.float32, device=x.device)
-    flags = torch.empty((2, n, blocks), dtype=torch.int32, device=x.device)
-    rc = fn(x.data_ptr(), length, n, chunk, landing.data_ptr(),
-            flags.data_ptr(), blocks, _common.stream_ptr(x.device))
+    if chunk >= 2**31 - 4:
+        raise ValueError(f"K5 takes chunks below 2^31 - 4 floats, got "
+                         f"{chunk}")
+    # an SM of sm_90 holds at most 64 warps
+    words = torch.cuda.get_device_properties(
+        x.device).multi_processor_count * 64
+    ready = torch.empty(words, dtype=torch.int32, device=x.device)
+    rc = fn(x.data_ptr(), length, n, chunk, ready.data_ptr(), words,
+            _common.stream_ptr(x.device))
     if rc == -2:
-        raise RuntimeError(f"K5: {n * blocks} blocks cannot all be resident")
+        raise ValueError(f"K5: the card cannot hold a block for each of "
+                         f"{n} ranks at once")
     check_launch("ring_all_reduce", rc)
     COUNTER.bump()
 
@@ -115,4 +155,5 @@ def ring_all_reduce(x: torch.Tensor, *, axis_size: int, config=None,
     return x if work is flat else work.view(x.shape)
 
 
-__all__ = ["ring_all_reduce", "ring_all_reduce_plain", "COUNTER"]
+__all__ = ["ring_all_reduce", "ring_all_reduce_plain", "agent_program",
+           "COUNTER"]
