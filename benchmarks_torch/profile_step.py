@@ -27,11 +27,11 @@ its layers and published widths behind a dense engine of 4 slots —
 ``--arch mamba2-370m`` (``max_seq`` 4096, 2040-token prompts) — admits four
 requests as warm-up, then traces one prefill (a fifth prompt into slot 0)
 and one decode tick over the four slots, and prints for each the wall time,
-the card's busy time and idle share, the kernel's share of the busy time
-(K7, or K8 and the SSD scan's glue: the end pad, the inter-chunk
-recurrence and the read-out, timed by profiler ranges around
-``kernels.ops.ssd_scan`` and K8), and the operators and kernels with the
-most device time.
+the card's busy time and idle share, the kernels' launches and shares of
+the busy time (K7; or K8 and the SSD pass, the two kernels of the SSD scan,
+and whatever else runs inside ``kernels.ops.ssd_scan``, found through a
+profiler range around it), and the operators and kernels with the most
+device time.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -45,8 +45,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 N_LAYERS, N_RANKS, GLOBAL_BATCH, SEQ_LEN, WARMUP = 2, 4, 8, 512, 2
 MOE_EXPERTS = 8
-#: the profiler ranges ``--serve`` puts around the SSD scan and K8
-RANGES = ("ssd_scan", "ssd_intra_chunk")
+#: the profiler range ``--serve`` puts around the SSD scan
+SCAN_RANGE = "ssd_scan"
 #: serving configurations: arch → (slots, max_seq, prompt tokens)
 SERVE = {"qwen3-4b": (4, 2048, 1016), "mamba2-370m": (4, 4096, 2040)}
 
@@ -86,11 +86,28 @@ def annotate(module, name: str) -> None:
     setattr(module, name, ranged)
 
 
-def range_device_ms(prof, name: str) -> float:
-    """Device time of the kernels launched inside the profiler ranges
-    ``name``."""
-    return sum(e.device_time_total for e in prof.events()
-               if e.name == name and not is_kernel(e)) / 1e3
+def device_us(evt) -> float:
+    """Device time of a profiler event, its children included."""
+    t = getattr(evt, "device_time_total", None)
+    if t is None:
+        t = getattr(evt, "cuda_time_total", 0.0)
+    return float(t)
+
+
+def operators_inside(prof, name: str) -> dict[str, list]:
+    """The operators and runtime calls the profiler recorded directly
+    inside the ranges ``name``: name → [calls, device ms, their own
+    children's names]."""
+    found: dict[str, list] = {}
+    for e in prof.events():
+        if e.name != name or is_kernel(e):
+            continue
+        for child in e.cpu_children:
+            entry = found.setdefault(child.name, [0, 0.0, set()])
+            entry[0] += 1
+            entry[1] += device_us(child) / 1e3
+            entry[2].update(c.name for c in child.cpu_children)
+    return found
 
 
 def profile_serve(torch, arch: str) -> int:
@@ -107,10 +124,8 @@ def profile_serve(torch, arch: str) -> int:
     model = build_model(cfg)
     params = model.init(0, device="cuda")
     ssm = cfg.ssm is not None
-    if ssm:     # ranges around the SSD scan and its kernel
-        ops_mod = sys.modules["repro_torch.kernels.ops"]
-        for name in RANGES:
-            annotate(ops_mod, name)
+    if ssm:     # a range around the SSD scan
+        annotate(sys.modules["repro_torch.kernels.ops"], SCAN_RANGE)
     eng = ServeEngine(model, params, n_slots=slots, max_seq=max_seq)
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab, size=prompt_len)
@@ -135,29 +150,39 @@ def profile_serve(torch, arch: str) -> int:
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = prof.key_averages(group_by_input_shape=True)
         # the ranges show on the device timeline too, as spans: no kernels
-        kernels = [e for e in events if is_kernel(e) and e.key not in RANGES]
+        kernels = [e for e in events if is_kernel(e) and e.key != SCAN_RANGE]
         ops = [e for e in events if not is_kernel(e)]
         busy_ms = sum(self_device_us(e) for e in kernels) / 1e3
         if busy_ms <= 0:
             raise AssertionError("the profiler recorded no device time")
-        tag, name = (("K8", "ssd_intra_kernel") if ssm
-                     else ("K7", "flash_fwd_"))
-        kern = [e for e in kernels if name in e.key]
-        kern_ms = sum(self_device_us(e) for e in kern) / 1e3
+        shares = []
+        for tag, name in ((("K8", "ssd_intra"), ("the SSD pass", "ssd_pass"))
+                          if ssm else (("K7", "flash_fwd_"),)):
+            kern = [e for e in kernels if name in e.key]
+            kern_ms = sum(self_device_us(e) for e in kern) / 1e3
+            shares.append(f"{tag} {sum(e.count for e in kern)} launches, "
+                          f"{kern_ms:.2f} ms ({100 * kern_ms / busy_ms:.1f} "
+                          "% of busy)")
         print(f"[profile] {cfg.name} x{cfg.n_layers} layers d{cfg.d_model}, "
               f"{slots} slots, max_seq {max_seq}, {prompt_len}-token "
               f"prompts, one {what}: wall {wall_ms:.1f} ms, device busy "
               f"{busy_ms:.1f} ms, idle {100 * (1 - busy_ms / wall_ms):.1f} "
-              f"%; {tag} {sum(e.count for e in kern)} launches, "
-              f"{kern_ms:.2f} ms ({100 * kern_ms / busy_ms:.1f} % of busy)")
-        if kern and ssm:
-            scan_ms = range_device_ms(prof, "ssd_scan")
-            # K8's ctypes launches may or may not be credited to the ranges;
-            # either way, the outer range less the inner is the glue
-            glue_ms = scan_ms - range_device_ms(prof, "ssd_intra_chunk")
-            print(f"[profile] the SSD scans' glue (pad, recurrence, "
-                  f"read-out): {glue_ms:.2f} ms of device time "
-                  f"({100 * glue_ms / busy_ms:.1f} % of busy)")
+              f"%; {'; '.join(shares)}")
+        if ssm:
+            # the runtime's launch calls are the two kernels' own launches
+            inside = operators_inside(prof, SCAN_RANGE)
+            calls = sum(v[0] for k, v in inside.items() if k.startswith("cuda"))
+            others = {k: v for k, v in inside.items()
+                      if not k.startswith("cuda")}
+            left_ms = sum(v[1] for v in others.values())
+            print(f"[profile] inside kernels.ops.ssd_scan: {calls} launch "
+                  f"calls of the runtime (the two kernels'); beside them "
+                  f"{sum(v[0] for v in others.values())} operators with "
+                  f"{left_ms:.3f} ms of device time "
+                  f"({100 * left_ms / busy_ms:.2f} % of busy)")
+            for op, (n, ms, sub) in sorted(others.items(),
+                                           key=lambda kv: -kv[1][1]):
+                print(f"  {ms:9.3f}  {n:4d}  {op} {sorted(sub)[:4]}")
         report_tops(ops, kernels)
     return 0
 

@@ -13,22 +13,27 @@
    gradient shape, against the sum oracle); K7 flash attention at the JAX
    kernel test's four shapes and at (1, 32, 1024, 128) bfloat16 with GQA
    32/8, and the prefill's own call on head-transposed views at 1016
-   tokens; K8 at the JAX kernel test's three shapes and an initial
-   state through the glue (float32), and the prefill's (1, 2048, 32 x 64),
-   N 128, chunk 64 in bfloat16; K4's check mode counts the copy
+   tokens; K8 at the JAX kernel test's three shapes (float32 and
+   bfloat16) and the prefill's (1, 2048, 32 x 64), N 128, chunk 64 in
+   bfloat16, and the SSD pass on K8's outputs at the same shapes, with and
+   without an initial state; the whole card scan (K8 + pass) against the
+   sequential oracle in float32 (an initial state, ragged lengths) and
+   against the plain scan at the 2040-token prefill in bfloat16, one scan
+   traced to show it is two kernels; K4's check mode counts the copy
    units a consumer read behind a raised flag that differ from what was
    sent (must be 0), in the launch the paths run.  K7 names the variant
    each call ran (float32: the SIMT kernel; bfloat16: wgmma on TMA-fed
    tiles, whose ``ptxas -v`` registers, spills and shared memory are
    printed after the build).  Times kernel, plain version and the nearest
    single PyTorch call by CUDA-graph replay, so the times are the card's
-   alone (K8 and the flush wait have no such call; the wait's plain
+   alone (K8, its pass and the flush wait have no such call; the wait's plain
    version copies from the host and is timed by calls), and K1-K3's and
    the wait's wrapper calls back to back (``call_ms``, host included);
    K1 a second time past L2 at (4, 2^23) beside ``add_``; K5 by CUDA
    events at the gradient shape beside ``torch.sum(x, 0)``, both on their
    first call after a large free and warmed, with K5's achieved rate and
-   design; K1's and K5's ``ptxas -v`` registers and spills;
+   design; K1's, K5's, K8's and the pass's ``ptxas -v`` registers and
+   spills;
    K7's achieved TFLOP/s and its ratio to ``scaled_dot_product_attention``.
 2. Drives each path with every launch counter at 0 just before it and
    reads the counters just after: the window layer (allocate →
@@ -49,9 +54,10 @@
    prefill, and one prefill's logits held to the same prefill on K7's
    plain version; and ``mamba2-370m`` at all 48 layers and published
    widths behind a dense engine, 8 requests of 2040-token prompts, every
-   prefill's SSD scan on K8 — K8 launched 48 times per prefill, every
-   request's 32 tokens in the vocabulary, one prefill's logits held to the
-   same prefill on K8's plain version and the next decode step finite.
+   prefill's SSD scan on K8 and the pass — each launched 48 times per
+   prefill, every request's 32 tokens in the vocabulary, one prefill's
+   logits held to the same prefill on their plain composition and the next
+   decode step finite.
 3. Prints the kernels' record as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -104,22 +110,28 @@ K7_TOL = {"float32": dict(atol=2e-5, rtol=1e-2),
 PREFILL_LOGIT_RTOL = 5e-2
 # serving a Mamba2 stack: mamba2-370m at all 48 layers and published widths,
 # 8 requests of 2040-token prompts over 4 slots, 32 new tokens each.  2040
-# is no multiple of the 64-token chunk, so the glue's exact end pad runs and
-# K8 sees L = 2048 (32 chunks) in every prefill
+# is no multiple of the 64-token chunk: K8 and the pass take the ragged last
+# chunk (56 rows) unpadded in every prefill
 SSM_ARCH = "mamba2-370m"
 SSM_SLOTS, SSM_MAX_SEQ, SSM_REQUESTS, SSM_PROMPT, SSM_NEW = 4, 4096, 8, 2040, 32
 #: K8 against its plain version.  float32: the JAX kernel test's tolerance
-#: (tests/test_kernels.py:148-181).  bfloat16 inputs: both compute in
-#: float32 from the same bf16 values and round y_intra to bf16 once, so y
-#: may differ by one bf16 step (at most 2^-7 of |y|); states and cum stay
-#: float32 and keep the float32 tolerance
+#: (tests/test_kernels.py:148-181).  bfloat16 inputs: both sum in float32
+#: (the kernel's hi/lo products keep ~2^-16) and round y_intra to bf16
+#: once, so y may differ by one bf16 step (at most 2^-7 of |y|); states and
+#: cum stay float32 and keep the float32 tolerance
 K8_TOL = {"float32": dict(atol=2e-4, rtol=1e-3),
           "bfloat16": dict(atol=1e-3, rtol=2.0**-7)}
-#: a 48-layer bfloat16 Mamba2 prefill on K8 against the same prefill on K8's
-#: plain version: max |d logit| over max |logit| (each layer's y_intra
-#: rounds to bfloat16 in both, so entries may differ by one bf16 step,
-#: ~2^-8 relative, and the differences pass 48 layers — K7's bound and
-#: reasoning)
+#: the SSD pass (and the whole card scan) against its plain version at
+#: bfloat16, y only: y = bf16(y_intra + bf16(y_inter)) rounds twice from
+#: y_inter values ~2^-16 apart, and y_intra may itself be one step apart
+#: (K8_TOL), so each rounding may land one bf16 step (2^-7 of the value
+#: rounded) apart: |d| <= atol + 2^-6 (|y_intra| + |y_inter|)
+PASS_BF16_RTOL = 2.0 ** -6
+#: a 48-layer bfloat16 Mamba2 prefill on K8 and the pass against the same
+#: prefill on their plain versions: max |d logit| over max |logit| (each
+#: layer's y rounds to bfloat16 in both, so entries may differ by one bf16
+#: step, ~2^-8 relative, and the differences pass 48 layers — K7's bound
+#: and reasoning)
 SSM_LOGIT_RTOL = 5e-2
 
 
@@ -218,6 +230,15 @@ def main() -> int:
                   if "spill" in line}
         print(f"[ptxas] {tag}: {len(report) // 2} instance(s), registers "
               f"{', '.join(regs)}; {' | '.join(sorted(spills))}", flush=True)
+    for tag, name, kernel in (("K8", "ssd_scan", "ssd_intra"),
+                              ("K8 pass", "ssd_pass", "ssd_pass_kernel")):
+        report = _build.ptxas_report(name, kernel)
+        check(bool(report), f"no ptxas report of {tag}")
+        for line in report:
+            if "Used" in line or "spill" in line:
+                entry, what = line.split(": ", 1)
+                variant = ("bf16" if "bfloat16" in entry else "float32")
+                print(f"[ptxas] {tag} {variant}: {what}", flush=True)
     k7_ptxas = _build.ptxas_report("flash_attention", "flash_fwd_wgmma")
     check(bool(k7_ptxas), "no ptxas report of K7's bfloat16 kernel")
     for line in k7_ptxas:
@@ -671,16 +692,28 @@ def main() -> int:
           f"{H_}/{KV_}, {HD_}): {r7['prefill_views_ms']:.4f} ms", flush=True)
     del q, k, v, qs, ks, vs, views
 
-    # K8 at the JAX kernel test's shapes (float32, initial state through the
-    # glue) and at the prefill's (1, 2048, 32 x 64), N 128, chunk 64, bf16
+    # K8 and the SSD pass: K8 at the JAX kernel test's shapes in float32 and
+    # bfloat16 and at the prefill's (1, 2048, 32 x 64), N 128, chunk 64,
+    # bf16; the pass on K8's card outputs against its plain version (the
+    # JAX glue) at the same shapes, with and without an initial state; the
+    # whole card scan against the sequential oracle in float32
+    # (initial state, ragged length) and against the plain scan at the
+    # 2040-token prefill in bf16, with its B and C as the model's slices;
+    # and one scan traced: exactly two kernels, K8 then the pass
     k8 = sys.modules["repro_torch.kernels.ssd_scan"]
+    kp = sys.modules["repro_torch.kernels.ssd_pass"]
     from repro_torch.kernels import ops as ops_mod
+    from torch.profiler import ProfilerActivity, profile
 
     def ssd_inputs(b_, l_, h_, p_, n_, dtype):
         xdt = rand((b_, l_, h_ * p_), torch.float32) * 0.5
         a = -torch.nn.functional.softplus(rand((b_, l_, h_), torch.float32))
         bm, cm = (rand((b_, l_, n_), torch.float32) * 0.5 for _ in range(2))
         return xdt.to(dtype), a, bm.to(dtype), cm.to(dtype)
+
+    def max_err(got, want):
+        return max((g.float() - w.float()).abs().max().item()
+                   for g, w in zip(got, want))
 
     def k8_check(args, kw, dtype, what):
         got = k8.ssd_intra_chunk(*args, **kw)
@@ -693,58 +726,168 @@ def main() -> int:
                   and torch.allclose(g.float(), w.float(), **tol),
                   f"K8 {what} {name}: max err "
                   f"{(g.float() - w.float()).abs().max().item()}")
-        return max((g.float() - w.float()).abs().max().item()
-                   for g, w in zip(got, want))
+        return max_err(got, want)
 
-    for b_, l_, h_, p_, n_, ch in ((2, 64, 4, 16, 32, 16),
-                                   (1, 128, 2, 32, 16, 32),
-                                   (1, 48, 8, 8, 64, 8)):
-        k8_check(ssd_inputs(b_, l_, h_, p_, n_, torch.float32),
-                 dict(chunk=ch, nheads=h_, headdim=p_), torch.float32,
-                 (b_, l_, h_, p_, n_, ch))
-    xdt, a, bm, cm = ssd_inputs(1, 32, 2, 8, 16, torch.float32)
-    s0 = rand((1, 2, 8, 16), torch.float32) * 0.3
-    xdt = xdt.reshape(1, 32, 2, 8)
-    got = ops_mod.ssd_scan(xdt, a, bm, cm, chunk=8, nheads=2, headdim=8,
-                           initial_state=s0)
-    want = R.ssd_scan_ref(xdt, a, bm, cm, initial_state=s0)
-    for g, w in zip(got, want):
-        check(torch.allclose(g, w, **K8_TOL["float32"]),
-              f"K8 + glue with an initial state vs the sequential oracle: "
-              f"max err {(g - w).abs().max().item()}")
+    def y_check(got, want, y_intra, what):
+        """bf16 y against the plain version's: PASS_BF16_RTOL of |y_intra|
+        + |y_inter| (the plain version's values) plus K8's atol."""
+        scale = y_intra.float().abs() + (want.float() - y_intra.float()).abs()
+        d = (got.float() - want.float()).abs()
+        check(bool((d <= K8_TOL["bfloat16"]["atol"]
+                    + PASS_BF16_RTOL * scale).all()),
+              f"{what}: max err {d.max().item()}")
+
+    def pass_check(args, kw, dtype, what, s0=None):
+        """The pass on K8's card outputs against its plain version."""
+        y_intra, states, cum = k8.launch_intra_chunk(*args, **kw)
+        ins = (y_intra, states, cum, args[3])
+        got = kp.ssd_pass(*ins, **kw, initial_state=s0)
+        want = kp.ssd_pass_plain(*ins, **kw, initial_state=s0)
+        check(all(g.dtype == w.dtype == dtype and g.shape == w.shape
+                  for g, w in zip(got, want)), f"the pass {what}: shapes")
+        if dtype == torch.float32:
+            for g, w in zip(got, want):
+                check(torch.allclose(g, w, **K8_TOL["float32"]),
+                      f"the pass {what}: max err {(g - w).abs().max().item()}")
+        else:
+            y_check(got[0], want[0], y_intra.reshape(want[0].shape),
+                    f"the pass {what} y")
+            check(torch.allclose(got[1].float(), want[1].float(),
+                                 **K8_TOL["bfloat16"]),
+                  f"the pass {what} final state: max err "
+                  f"{max_err(got[1:], want[1:])}")
+        return max_err(got, want)
+
+    # the JAX kernel test's shapes, and one whose headdim and d_state are no
+    # multiples of 8 (bf16 rows then load one element at a time)
+    k8_shapes = ((2, 64, 4, 16, 32, 16), (1, 128, 2, 32, 16, 32),
+                 (1, 48, 8, 8, 64, 8), (1, 48, 3, 12, 20, 16))
+    pass_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b_, l_, h_, p_, n_, ch in k8_shapes:
+            args = ssd_inputs(b_, l_, h_, p_, n_, dtype)
+            kw = dict(chunk=ch, nheads=h_, headdim=p_)
+            k8_check(args, kw, dtype, (b_, l_, h_, p_, n_, ch, str(dtype)))
+            s0 = (rand((b_, h_, p_, n_), torch.float32) * 0.3).to(dtype)
+            for init in (None, s0):
+                pass_err = max(pass_err, pass_check(
+                    args, kw, dtype, (b_, l_, h_, p_, n_, ch, str(dtype)),
+                    s0=init))
+    # the whole card scan against the sequential oracle, float32: the JAX
+    # initial-state case (tests/test_kernels.py:163) and ragged lengths
+    for b_, l_, h_, p_, n_, ch, init in ((1, 32, 2, 8, 16, 8, True),
+                                         (2, 45, 3, 8, 16, 8, False),
+                                         (1, 70, 2, 16, 32, 16, True)):
+        xdt, a, bm, cm = ssd_inputs(b_, l_, h_, p_, n_, torch.float32)
+        s0 = rand((b_, h_, p_, n_), torch.float32) * 0.3 if init else None
+        xdt = xdt.reshape(b_, l_, h_, p_)
+        got = ops_mod.ssd_scan(xdt, a, bm, cm, chunk=ch, nheads=h_,
+                               headdim=p_, initial_state=s0)
+        want = R.ssd_scan_ref(xdt, a, bm, cm, initial_state=s0)
+        for g, w in zip(got, want):
+            check(torch.allclose(g, w, **K8_TOL["float32"]),
+                  f"the card scan {(b_, l_, h_, p_, n_, ch, init)} vs the "
+                  f"sequential oracle: max err {(g - w).abs().max().item()}")
     cfg_ssm = get_config(SSM_ARCH)
     ssm_h = cfg_ssm.ssm.expand * cfg_ssm.d_model // cfg_ssm.ssm.headdim
     ssm_p, ssm_n, ssm_q = (cfg_ssm.ssm.headdim, cfg_ssm.ssm.d_state,
                            cfg_ssm.ssm.chunk)
-    ssm_l = -(-SSM_PROMPT // ssm_q) * ssm_q     # the prompt padded by the glue
+    ssm_l = -(-SSM_PROMPT // ssm_q) * ssm_q     # whole chunks over the prompt
     k8_args = ssd_inputs(1, ssm_l, ssm_h, ssm_p, ssm_n, torch.bfloat16)
     k8_kw = dict(chunk=ssm_q, nheads=ssm_h, headdim=ssm_p)
     err = k8_check(k8_args, k8_kw, torch.bfloat16, "at the prefill shape")
+    pass_err = max(pass_err, pass_check(k8_args, k8_kw, torch.bfloat16,
+                                        "at the prefill shape"))
     record["ssd_intra_chunk"] = dict(
         ms=graph_ms(torch, lambda: k8.ssd_intra_chunk(*k8_args, **k8_kw)),
         plain_ms=graph_ms(torch, lambda: k8.ssd_intra_chunk_plain(
             *k8_args, **k8_kw)),
         library_ms=None, max_abs_err=err,
         shape=[1, ssm_l, ssm_h * ssm_p, ssm_n], dtype="bfloat16")
+    k8_outs = k8.ssd_intra_chunk(*k8_args, **k8_kw)
+    pass_ins = k8_outs + (k8_args[3],)
+    record["ssd_pass"] = dict(
+        ms=graph_ms(torch, lambda: kp.ssd_pass(*pass_ins, **k8_kw)),
+        plain_ms=graph_ms(torch, lambda: kp.ssd_pass_plain(
+            *pass_ins, **k8_kw)),
+        library_ms=None, max_abs_err=pass_err,
+        shape=[1, ssm_l, ssm_h * ssm_p, ssm_n], dtype="bfloat16")
     # bytes: x, a, B, C read once; y, the float32 states and cum written
     # once.  Operations: the causal (i >= j) pairs of C B^T and of the y
     # product, and every term of the states product
     nc_ = ssm_l // ssm_q
     pairs = nc_ * ssm_q * (ssm_q + 1) // 2
-    k8_bytes = (2 * 2 * ssm_l * ssm_h * ssm_p + 4 * ssm_l * ssm_h
-                + 2 * 2 * ssm_l * ssm_n + 4 * nc_ * ssm_h * ssm_p * ssm_n
-                + 4 * ssm_l * ssm_h)
-    k8_ops = 2 * (pairs * ssm_n + pairs * ssm_h * ssm_p
-                  + ssm_l * ssm_h * ssm_p * ssm_n)
+    hp_ = ssm_h * ssm_p
+    states_bytes = 4 * nc_ * hp_ * ssm_n
+    k8_bytes = (2 * 2 * ssm_l * hp_ + 4 * ssm_l * ssm_h
+                + 2 * 2 * ssm_l * ssm_n + states_bytes + 4 * ssm_l * ssm_h)
+    k8_ops = 2 * (pairs * ssm_n + pairs * hp_ + ssm_l * hp_ * ssm_n)
     record["ssd_intra_chunk"]["bound_ms"], \
         record["ssd_intra_chunk"]["bound_by"] = bound_ms(
             k8_bytes, k8_ops, peak=PEAK_BF16)
+    # the pass: the states, y_intra, C and cum read once, y and the final
+    # state written once (no initial state here).  Operations: the read-out
+    # C_t . carry for every row and the carry update, once a chunk
+    pass_bytes = (states_bytes + 2 * ssm_l * hp_ + 2 * ssm_l * ssm_n
+                  + 4 * ssm_l * ssm_h + 2 * ssm_l * hp_ + 2 * hp_ * ssm_n)
+    pass_ops = 2 * ssm_l * hp_ * ssm_n + 2 * nc_ * hp_ * ssm_n
+    record["ssd_pass"]["bound_ms"], record["ssd_pass"]["bound_by"] = \
+        bound_ms(pass_bytes, pass_ops, peak=PEAK_BF16)
+    # the whole scan at the 2040-token prefill, B and C sliced from one
+    # projection as the model hands them over, against the plain scan
+    xdt, a, bm, cm = (t[:, :SSM_PROMPT] for t in k8_args)
+    xbc = torch.cat([bm, cm], -1)
+    xdt = xdt.reshape(1, SSM_PROMPT, ssm_h, ssm_p)
+    s0 = (rand((1, ssm_h, ssm_p, ssm_n), torch.float32) * 0.3).to(
+        torch.bfloat16)
+    scan_args = (xdt, a, xbc[..., :ssm_n], xbc[..., ssm_n:])
+    got = ops_mod.ssd_scan(*scan_args, **k8_kw, initial_state=s0)
+    want = ops_mod.ssd_scan_plain(*scan_args, **k8_kw, initial_state=s0)
+    yi_plain = k8.ssd_intra_chunk_plain(
+        *(torch.nn.functional.pad(t, (0, 0, 0, ssm_l - SSM_PROMPT))
+          for t in (xdt.reshape(1, SSM_PROMPT, hp_), a, bm, cm)),
+        **k8_kw)[0][:, :SSM_PROMPT].reshape(want[0].shape)
+    y_check(got[0], want[0], yi_plain, "the card scan at the prefill")
+    check(torch.allclose(got[1].float(), want[1].float(),
+                         **K8_TOL["bfloat16"]),
+          f"the card scan's final state at the prefill: max err "
+          f"{max_err(got[1:], want[1:])}")
+    scan_ms = graph_ms(torch, lambda: ops_mod.ssd_scan(*scan_args, **k8_kw))
+    scan_plain_ms = graph_ms(
+        torch, lambda: ops_mod.ssd_scan_plain(*scan_args, **k8_kw))
+    # one card scan traced, bf16 at the prefill and float32 ragged: two
+    # kernels, K8's then the pass's, and nothing else on the card
+    f32_args = ssd_inputs(2, 45, 3, 8, 16, torch.float32)
+    for what, scan_in, kw in (
+            ("bf16 prefill", scan_args, k8_kw),
+            ("float32 ragged", (f32_args[0].reshape(2, 45, 3, 8),)
+             + f32_args[1:], dict(chunk=8, nheads=3, headdim=8))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ops_mod.ssd_scan(*scan_in, **kw)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        check(len(names) == 2 and "ssd_intra" in names[0]
+              and "ssd_pass" in names[1],
+              f"one {what} card scan ran {names}, want K8 then the pass")
     print(f"[kernels] K8 equals its plain version: the JAX kernel test's "
-          f"three shapes and the initial-state scan in float32, and (1, "
-          f"{ssm_l}, {ssm_h}x{ssm_p}) N {ssm_n} chunk {ssm_q} bfloat16 (max "
-          f"abs err {err:.3g}); {k8_bytes / 1e6:.2f} MB, "
-          f"{k8_ops / 1e9:.3f} GFLOP", flush=True)
-    del k8_args, xdt, a, bm, cm, s0, got, want
+          f"three shapes and (1, 48, 3x12) N 20 chunk 16 in float32 and "
+          f"bfloat16, and (1, {ssm_l}, "
+          f"{ssm_h}x{ssm_p}) N {ssm_n} chunk {ssm_q} bfloat16 (max abs err "
+          f"{err:.3g}); {k8_bytes / 1e6:.2f} MB, {k8_ops / 1e9:.3f} GFLOP",
+          flush=True)
+    print(f"[kernels] the SSD pass equals its plain version on K8's outputs "
+          f"at the same shapes, with and without an initial state (max abs "
+          f"err {pass_err:.3g}); {pass_bytes / 1e6:.2f} MB", flush=True)
+    print(f"[kernels] the card scan (K8 + pass) equals the sequential oracle "
+          f"in float32 (initial state; L 45 and 70, ragged) and the plain "
+          f"scan at (1, {SSM_PROMPT}, {ssm_h}x{ssm_p}) bf16 with B and C "
+          f"sliced from one projection: {scan_ms:.4f} ms against "
+          f"{scan_plain_ms:.4f} plain; one scan traced is two kernels, K8 "
+          f"then the pass (bf16 prefill, float32 ragged)", flush=True)
+    del k8_args, k8_outs, pass_ins, scan_args, xdt, a, bm, cm, xbc, s0, \
+        got, want, yi_plain
     for name, r in record.items():
         lib_ms = r["library_ms"]
         calls = (f", wrapper calls {r['call_ms']:.4f}" if "call_ms" in r
@@ -1103,12 +1246,13 @@ def main() -> int:
     t0 = time.perf_counter()
     done = eng.run(strict=True)
     wall = time.perf_counter() - t0
-    counts = path_counts("serve-ssm dense", ("ssd_intra_chunk",))
+    counts = path_counts("serve-ssm dense", ("ssd_intra_chunk", "ssd_pass"))
     n_prefill = len(spent["prefill"])
     check(n_prefill == SSM_REQUESTS, f"serve-ssm: {n_prefill} prefills")
-    check(counts["ssd_intra_chunk"] == cfg_ssm.n_layers * n_prefill,
-          f"serve-ssm: K8 launched {counts['ssd_intra_chunk']} times, want "
-          f"{cfg_ssm.n_layers} x {n_prefill} prefills")
+    for name in ("ssd_intra_chunk", "ssd_pass"):
+        check(counts[name] == cfg_ssm.n_layers * n_prefill,
+              f"serve-ssm: {name} launched {counts[name]} times, want "
+              f"{cfg_ssm.n_layers} x {n_prefill} prefills")
     tokens = {c.rid: c.tokens for c in done}
     check(sorted(tokens) == list(range(SSM_REQUESTS)) and all(
         len(t) == SSM_NEW and all(0 <= x < cfg_ssm.vocab for x in t)
@@ -1125,32 +1269,33 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; stats "
           f"{eng.stats()}", flush=True)
     del eng
-    # one prefill on K8 against the same prefill on K8's plain version, and
-    # one decode step after it
+    # one prefill on the card scan (K8 + pass) against the same prefill on
+    # their plain composition, and one decode step after it
     tok = torch.as_tensor(ssm_prompts[0], dtype=torch.int64, device=dev)[None]
     logits = {}
-    for name, fn in (("K8", k8.ssd_intra_chunk),
-                     ("plain", k8.ssd_intra_chunk_plain)):
-        ops_mod.ssd_intra_chunk = fn
+    card_scan = ops_mod.ssd_scan
+    for name, fn in (("kernels", card_scan), ("plain", ops_mod.ssd_scan_plain)):
+        ops_mod.ssd_scan = fn
         try:
             logits[name], cache = ssm_model.prefill(
                 ssm_params, {"tokens": tok},
                 ssm_model.init_cache(1, SSM_MAX_SEQ))
         finally:
-            ops_mod.ssd_intra_chunk = k8.ssd_intra_chunk
+            ops_mod.ssd_scan = card_scan
     step_logits, _ = ssm_model.decode_step(
-        ssm_params, cache, logits["K8"][:, -1].argmax(-1, keepdim=True))
+        ssm_params, cache, logits["kernels"][:, -1].argmax(-1, keepdim=True))
     lanes = slice(0, cfg_ssm.vocab)       # the padded lanes hold -1e30
-    diff = (logits["K8"][..., lanes] - logits["plain"][..., lanes]
+    diff = (logits["kernels"][..., lanes] - logits["plain"][..., lanes]
             ).abs().max().item()
     scale = logits["plain"][..., lanes].abs().max().item()
-    check(bool(torch.isfinite(logits["K8"][..., lanes]).all())
+    check(bool(torch.isfinite(logits["kernels"][..., lanes]).all())
           and bool(torch.isfinite(step_logits[..., lanes]).all()),
           "Mamba2 prefill or decode logits not finite")
     check(diff <= SSM_LOGIT_RTOL * scale,
-          f"Mamba2 prefill logits on K8 vs its plain version: max |d| {diff} "
-          f"of max |logit| {scale}")
-    print(f"[serve-ssm] one prefill's last logits, K8 vs its plain version: "
+          f"Mamba2 prefill logits on K8 + pass vs their plain versions: max "
+          f"|d| {diff} of max |logit| {scale}")
+    print(f"[serve-ssm] one prefill's last logits, K8 + pass vs their plain "
+          f"versions: "
           f"max |d| {diff:.4g} of max |logit| {scale:.4g} (bound "
           f"{SSM_LOGIT_RTOL} x); the next decode step's logits finite",
           flush=True)
@@ -1170,6 +1315,7 @@ def main() -> int:
                               "src/repro/kernels/ordered_put_signal.py:144"),
         "flash_attention": ("K7", "src/repro/kernels/flash_attention.py:84"),
         "ssd_intra_chunk": ("K8", "src/repro/kernels/ssd_scan.py:62"),
+        "ssd_pass": ("K8 glue", "src/repro/kernels/ops.py:24"),
     }
     sources = {"accumulate": "accumulate.cu", "ring_accumulate": "intrinsic.cu",
                "ring_put": "rma_put.cu", "put_wait": "rma_put.cu",
@@ -1177,7 +1323,7 @@ def main() -> int:
                "ring_all_reduce": "ring_allreduce.cu",
                "accumulate_signal": "put_signal.cu",
                "flash_attention": "flash_attention.cu",
-               "ssd_intra_chunk": "ssd_scan.cu"}
+               "ssd_intra_chunk": "ssd_scan.cu", "ssd_pass": "ssd_pass.cu"}
     rows = []
     for name in replaces:
         r = record[name]

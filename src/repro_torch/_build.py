@@ -35,6 +35,7 @@ SOURCES = {
     "put_signal": "put_signal.cu",
     "flash_attention": "flash_attention.cu",
     "ssd_scan": "ssd_scan.cu",
+    "ssd_pass": "ssd_pass.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -70,7 +71,10 @@ SIGNATURES = {
         "rt_flash_attention_bf16_smem": (_I64,)},
     "ssd_scan": {"rt_ssd_intra_chunk":
                  (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                  _I64, _I, _P)},
+                  _I64, _I64, _I64, _I, _P)},
+    "ssd_pass": {"rt_ssd_pass":
+                 (_P, _P, _P, _P, _P, _I, _P, _P, _I64, _I64, _I64, _I64,
+                  _I64, _I64, _I64, _I, _P)},
 }
 
 _loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}

@@ -107,3 +107,80 @@ struct Combine<__nv_bfloat16> {
         Combine<float>::apply(__bfloat162float(a), __bfloat162float(b), op));
   }
 };
+
+// Tensor-core and async-copy building blocks (the SSD kernels): the warp-wide
+// mma.sync m16n8k16 bf16 -> f32 product fed by ldmatrix, and cp.async copies
+// of 16 or 4 bytes from global to shared memory that zero-fill instead of
+// reading when `valid` is false (the source pointer must still be a mapped
+// address then).
+__device__ __forceinline__ uint32_t rt_smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void rt_cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(rt_smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void rt_cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(rt_smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void rt_cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void rt_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8.  Plain: lane t gets row t / 4, columns
+// 2(t % 4) and 2(t % 4) + 1 of each; .trans: column t / 4, rows 2(t % 4) and
+// 2(t % 4) + 1
+__device__ __forceinline__ void rt_ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(rt_smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void rt_ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(rt_smem_u32(p))
+               : "memory");
+}
+
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 accumulate.  Lane
+// t holds d rows t / 4 and t / 4 + 8, columns 2(t % 4) and 2(t % 4) + 1.
+__device__ __forceinline__ void rt_mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as one bf16 pair, the first in the low half
+__device__ __forceinline__ uint32_t rt_pack_bf16x2(float v0, float v1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// two floats as bf16 pairs hi = bf16(v) and lo = bf16(v - hi) (the first
+// value in the low half): hi + lo carries v to about 2^-16 relative, so a
+// float32 operand multiplies an exact bf16 one in two products
+__device__ __forceinline__ void rt_split_bf16(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}

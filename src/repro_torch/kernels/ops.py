@@ -1,29 +1,24 @@
-"""Public wrappers that compose a kernel with its host-side glue (the JAX
-package's ``kernels/ops.py`` layer): the full SSD scan, K8 plus the
-inter-chunk recurrence and read-out."""
+"""Public wrappers that compose kernels (the JAX package's ``kernels/ops.py``
+layer): the full SSD scan, K8 (intra-chunk) then the SSD state pass (the
+inter-chunk recurrence and read-out)."""
 from __future__ import annotations
 
-import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd_scan import ssd_intra_chunk
+from repro_torch.kernels import common as _common
+from repro_torch.kernels.ssd_pass import launch_pass, ssd_pass_plain
+from repro_torch.kernels.ssd_scan import (check_shapes, launch_intra_chunk,
+                                          refuse_grad, ssd_intra_chunk_plain)
 
 
-def ssd_scan(xdt, a, Bm, Cm, *, chunk: int, nheads: int, headdim: int,
-             initial_state=None):
-    """Full SSD scan = K8 (intra-chunk) + the inter-chunk combine.
-
-    xdt (B, L, H, P); a (B, L, H); Bm/Cm (B, L, N); ``initial_state`` (B,
-    H, P, N) or None.  Returns (y (B, L, H, P), final_state (B, H, P, N)),
-    both in xdt's dtype.
-
-    L need not divide by ``chunk``: the inputs are zero-padded at the end as
-    ``models.ssm.ssd_chunked`` pads them (a = 0 is a decay of 1 and x = 0
-    adds nothing, so the final state is exact) and the padded rows are
-    sliced off.  ``y_intra`` is rounded to xdt's dtype before ``y_inter`` is
-    added, as the JAX glue does (``ssd_chunked`` rounds once)."""
+def ssd_scan_plain(xdt, a, Bm, Cm, *, chunk: int, nheads: int, headdim: int,
+                   initial_state=None):
+    """The plain composition on either device: the inputs zero-padded at
+    the end to whole chunks as ``models.ssm.ssd_chunked`` pads them (a = 0
+    is a decay of 1 and x = 0 adds nothing, so the final state is exact),
+    K8's plain version, the pass's plain version (the JAX glue), and the
+    padded rows sliced off."""
     b, length, h, p = xdt.shape
-    n = Bm.shape[-1]
     pad = (-length) % chunk
     if pad:
         xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
@@ -31,30 +26,42 @@ def ssd_scan(xdt, a, Bm, Cm, *, chunk: int, nheads: int, headdim: int,
         Bm = F.pad(Bm, (0, 0, 0, pad))
         Cm = F.pad(Cm, (0, 0, 0, pad))
     lp = length + pad
-    nc = lp // chunk
-    y_intra, states, cum = ssd_intra_chunk(
+    y_intra, states, cum = ssd_intra_chunk_plain(
         xdt.reshape(b, lp, h * p), a, Bm, Cm, chunk=chunk, nheads=nheads,
         headdim=headdim)
-
-    # inter-chunk recurrence over the per-chunk input states (linear, cheap)
-    cum_c = cum.reshape(b, nc, chunk, h)
-    total_decay = torch.exp(cum_c[:, :, -1, :])[..., None, None]  # (b,c,h,1,1)
-    states = states.reshape(b, nc, h, p, n)
-    carry = (initial_state.float() if initial_state is not None else
-             states.new_zeros((b, h, p, n)))
-    entering = []                     # the state entering each chunk
-    for c in range(nc):
-        entering.append(carry)
-        carry = carry * total_decay[:, c] + states[:, c]
-    entering = torch.stack(entering, 1)                     # (b, c, h, p, n)
-
-    # read-out: y_inter[t] = exp(cum_t) · C_t · state_entering(chunk of t)
-    Cc = Cm.reshape(b, nc, chunk, n).float()
-    readout = torch.einsum("bctn,bchpn->bcthp", Cc, entering)
-    y_inter = (readout * torch.exp(cum_c)[..., None]).reshape(
-        b, lp, h, p).to(xdt.dtype)
-    y = y_intra.reshape(b, lp, h, p) + y_inter
-    return y[:, :length], carry.to(xdt.dtype)
+    y, final = ssd_pass_plain(y_intra, states, cum, Cm, chunk=chunk,
+                              nheads=nheads, headdim=headdim,
+                              initial_state=initial_state)
+    return y[:, :length], final
 
 
-__all__ = ["ssd_scan", "ssd_intra_chunk"]
+def ssd_scan(xdt, a, Bm, Cm, *, chunk: int, nheads: int, headdim: int,
+             initial_state=None):
+    """Full SSD scan = K8 (intra-chunk) + the SSD pass (inter-chunk).
+
+    xdt (B, L, H, P); a (B, L, H); Bm/Cm (B, L, N); ``initial_state`` (B,
+    H, P, N) or None.  Returns (y (B, L, H, P), final_state (B, H, P, N)),
+    both in xdt's dtype.  ``y_intra`` is rounded to xdt's dtype before
+    ``y_inter`` is added, as the JAX glue does (``ssd_chunked`` rounds
+    once).  L need not divide by ``chunk``.
+
+    CPU tensors take :func:`ssd_scan_plain`.  CUDA tensors make two
+    launches, K8 then the pass kernel, on the unpadded tensors (B and C may
+    be slices of a wider projection), or raise."""
+    b, length, h, p = xdt.shape
+    check_shapes(xdt.reshape(b, length, h * p), a, Bm, Cm, chunk, nheads,
+                 headdim)
+    ins = (xdt, a, Bm, Cm) + (
+        () if initial_state is None else (initial_state,))
+    if not _common.on_device(*ins):
+        return ssd_scan_plain(xdt, a, Bm, Cm, chunk=chunk, nheads=nheads,
+                              headdim=headdim, initial_state=initial_state)
+    refuse_grad("the SSD scan", *ins)
+    y_intra, states, cum = launch_intra_chunk(
+        xdt.reshape(b, length, h * p), a, Bm, Cm, chunk=chunk, nheads=nheads,
+        headdim=headdim)
+    return launch_pass(y_intra, states, cum, Cm, chunk=chunk, nheads=nheads,
+                       headdim=headdim, initial_state=initial_state)
+
+
+__all__ = ["ssd_scan", "ssd_scan_plain"]
