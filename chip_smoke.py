@@ -35,12 +35,30 @@
    design; K1's, K5's, K8's and the pass's ``ptxas -v`` registers and
    spills;
    K7's achieved TFLOP/s and its ratio to ``scaled_dot_product_attention``.
+   K3 and K2 also with their address from device memory (per-origin
+   displacements, one past the row and one negative; fresh and stale memory
+   handles under the lifetime guard), each against its plain version, and
+   at the P5 tour's shapes beside ``index_copy_`` / ``index_add_``; an empty kernel (the
+   launch floor, plain and programmatic, from ``csrc/probes.cu``); the
+   put -> wait pair with and without programmatic launch, 0 stalls; stream
+   order across a thread flush that does not own the put before it (the
+   put's source overwritten right after the flush, what landed intact).
 2. Drives each path with every launch counter at 0 just before it and
    reads the counters just after: the window layer (allocate →
    dup_with_info → ring put with a thread-scope flush → declared
    accumulates below and above the crossover → an undeclared one →
    put_signal on an ordered and an unordered window), each phase-ledger
-   count held to the reference cost model; a data-parallel ``qwen3-4b``
+   count held to the reference cost model; the P5 tour (``[p5]``): a
+   dynamic window over 4 ranks' 2^24-float pools, handle puts, accumulates
+   (intrinsic, tiled), gets, a stale handle dropped, zeroed and counted,
+   the query and active-message slow paths, a plan's handle ops and an
+   allocated window at per-rank tensor displacements — the same tour on the
+   CPU's plain versions equal bit for bit, the ledger at the reference's
+   38 phases; a handle put one K3 launch like an allocated put; no host
+   synchronization under ``set_sync_debug_mode("error")``; a captured
+   handle put + flush replayed; paper Fig. 12 (put + thread flush at 8,
+   2^10, 2^20 floats: allocated, handle, handle per op, query, AM) by graph
+   replay and by calls; a data-parallel ``qwen3-4b``
    train step at full width (depth cut to 2 layers) over 4 stacked ranks
    with the one-sided ring gradient sync; the planned all-to-all at the MoE
    exchange's shape, held bit for bit to the same plan run op by op; and an
@@ -66,6 +84,7 @@ so it does without a CUDA device, or without the repository around it.
 """
 import dataclasses
 import gc
+import inspect
 import json
 import os
 import random
@@ -85,6 +104,10 @@ N_RANKS = 4
 WINDOW_ELEMS = 1 << 20        # one rank's window shard: 4 MiB of float32
 K1_PAST_L2 = 1 << 23          # K1's second timed shape: 403 MB, past L2
 ATOMIC_COUNT = 8              # at the default crossover: the intrinsic path
+# the P5 tour: each rank's dynamic pool 2^24 float32 (64 MiB, 256 MiB in
+# all); puts of 8, 2^10 and 2^20 floats (paper Fig. 12's axis)
+P5_POOL = 1 << 24
+P5_SIZES = (8, 1 << 10, 1 << 20)
 STEPS = 4
 GLOBAL_BATCH, SEQ_LEN = 8, 512
 N_LAYERS = 2                  # depth cut for one card; every width is full
@@ -178,6 +201,17 @@ def graph_ms(torch, fn, reps: int = 20, replays: int = 5) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / (reps * replays)
+
+
+def empty_launch(torch, *, programmatic: bool) -> None:
+    """Launch a kernel that does nothing (``csrc/probes.cu``), the way the
+    flush wait (``True``) or a plain launch such as K2 (``False``) is
+    launched: the launch floor beside their byte bounds.  Counts nowhere."""
+    from repro_torch import _build
+    from repro_torch.kernels import common
+
+    common.check_launch("empty", _build.lib("probes", "rt_empty")(
+        int(programmatic), common.stream_ptr(torch.device("cuda"))))
 
 
 def check(cond: bool, what: str) -> None:
@@ -496,6 +530,204 @@ def main() -> int:
     record["put_wait"]["bound_ms"], record["put_wait"]["bound_by"] = \
         bound_ms(4 * n + 4, n)
     check(stalls[0].item() == 2, "K3 wait stalled on met counts")
+
+    # stream order across a flush that does not own the put before it: a
+    # window puts a little on flush stream 0, then 2^24 floats a rank on
+    # stream 1, flushes stream 0 (its wait, launched programmatically right
+    # behind the big put, finds its counts met at once) and overwrites the
+    # big put's source with an ordinary kernel; what landed must be the
+    # source as it was
+    from repro_torch.core.rma.substrate import Substrate
+    ring = [(r, (r + 1) % n) for r in range(n)]
+    order_sub = Substrate.allocate(
+        torch.zeros((n, P5_POOL), dtype=torch.float32, device=dev), "x", n,
+        n_streams=2)
+    for _ in range(3):
+        big_src = rand((n, P5_POOL), torch.float32)
+        want = torch.roll(big_src, 1, 0)
+        order_sub.put(big_src[:, :8], ring, stream=0)
+        order_sub.put(big_src, ring, stream=1)
+        order_sub.flush(scope="thread", stream=0)
+        big_src.fill_(-1.0)
+        torch.cuda.synchronize()
+        check(torch.equal(order_sub.buffer, want),
+              "a put overlapped the kernel queued after another stream's "
+              "flush")
+        order_sub.flush(scope="thread", stream=1)
+    check(order_sub.completion_ok(), "the ordering check's puts stalled")
+    del order_sub, big_src, want
+    print("[kernel] stream order holds across a thread flush of another "
+          "stream: 3 of 3 (4, 2^24) float32 puts landed intact", flush=True)
+
+    # ---- K3's and K2's P5 variants: the address from device memory ------
+    # each against its plain version on the same card tensors: per-origin
+    # displacements (one past the row, one negative: placed as lax places
+    # them), fresh and stale memory handles (the guard drops a put, zeroes a
+    # read, and counts either at the target), every K2 op and dtype
+    regs_c = torch.zeros((n, 3, 3), dtype=torch.int32, device=dev)
+    regs_c[:, 1, 0] = 5
+    regs_c[2, 1, 0] = 6                  # rank 2 re-registered: stale there
+    hnd_c = torch.tensor([[5, 2, 0, 1]] * n, dtype=torch.int32, device=dev)
+    variants = 0
+    for dtype in (torch.float32, torch.int32, torch.bfloat16):
+        for L, m in ((64, 5), (1 << 16, 1000), (M, M // 4)):
+            big, small = rand((n, L), dtype), rand((n, m), dtype)
+            disp = torch.tensor([0, 3, L - m + 7, -5], dtype=torch.int32,
+                                device=dev)
+            for kw in (dict(disp=disp), dict(disp=disp, handles=hnd_c),
+                       dict(disp=disp, handles=hnd_c, regs=regs_c),
+                       dict(handles=hnd_c, regs=regs_c, offset=4)):
+                for read in (False, True):
+                    src, dst0 = (big, small) if read else (small, big)
+                    outs = []
+                    for fn in (k3.put_rows, k3.put_rows_plain):
+                        d = dst0.clone()
+                        e = (torch.zeros(n, dtype=torch.int32, device=dev)
+                             if "regs" in kw else None)
+                        fn(src, d, ring_t, read=read, err=e, **kw)
+                        outs.append((d, e))
+                    check(torch.equal(outs[0][0], outs[1][0]) and (
+                        outs[0][1] is None
+                        or torch.equal(outs[0][1], outs[1][1])),
+                        f"K3 {'read' if read else 'put'} {dtype} ({L}, {m}) "
+                        f"{sorted(kw)}")
+                    check("regs" not in kw or outs[0][1].sum().item() == 1,
+                          "K3's guard counted wrong")
+                    variants += 1
+    for dtype in (torch.float32, torch.float64, torch.int32, torch.int64):
+        for op in k2.ATOMIC_KERNEL_OPS:
+            if op in k1.BITWISE_OPS and dtype.is_floating_point:
+                continue
+            for m in (1, ATOMIC_COUNT, 13):
+                b, u = rand((n, 64), dtype), rand((n, m), dtype)
+                disp = torch.tensor([0, 4, 60, -3], dtype=torch.int32,
+                                    device=dev)
+                for kw in (dict(offset=3), dict(disp=disp),
+                           dict(disp=disp, handles=hnd_c, regs=regs_c)):
+                    outs = []
+                    for fn in (k2.accumulate_rows_atomic,
+                               k2.accumulate_rows_atomic_plain):
+                        e = torch.zeros(n, dtype=torch.int32, device=dev)
+                        if "regs" in kw:
+                            kw["err"] = e
+                        outs.append((fn(u, b.clone(), ring_t, op=op, **kw), e))
+                    check(torch.equal(outs[0][0], outs[1][0])
+                          and torch.equal(outs[0][1], outs[1][1]),
+                          f"K2 {op} {dtype} m={m} {sorted(kw)}")
+                    variants += 1
+    print(f"[kernels] K3 and K2 with device displacements and the handle "
+          f"guard equal their plain versions: {variants} cases (clamped and "
+          f"negative rows, stale puts dropped, stale reads zeroed, counts "
+          f"equal)", flush=True)
+
+    # the variants at the [p5] tour's shapes: a (4, 2^20) float32 put into
+    # the (4, 2^24) dynamic pool, and K2's (4, 8) float32 sum, at per-rank
+    # displacements (device) and through fresh handles (guarded)
+    pool_t = rand((n, P5_POOL), torch.float32)
+    offs_host = [0, P5_POOL // 4 + 4, P5_POOL // 2 + 8, P5_POOL - M]
+    disp_t = torch.tensor(offs_host, dtype=torch.int32, device=dev)
+    regs_t = torch.zeros((n, 2, 3), dtype=torch.int32, device=dev)
+    regs_t[:, 0, 0] = 1
+    hnd_t = torch.zeros((n, 4), dtype=torch.int32, device=dev)
+    hnd_t[:, 0] = 1
+    hnd_t[:, 1] = disp_t
+    err_t = torch.zeros(n, dtype=torch.int32, device=dev)
+    upd = rand((n, M), torch.float32)
+    small = rand((n, ATOMIC_COUNT), torch.float32)
+    rows = tgt.long()                    # the receiver of each origin
+    for name, addr, payload, kernel in (
+            ("ring_put_device", dict(disp=disp_t), upd, "put"),
+            ("ring_put_guarded", dict(handles=hnd_t, regs=regs_t, err=err_t),
+             upd, "put"),
+            ("ring_accumulate_device", dict(disp=disp_t), small, "acc"),
+            ("ring_accumulate_guarded",
+             dict(handles=hnd_t, regs=regs_t, err=err_t), small, "acc")):
+        m = payload.shape[1]
+        # the library call's flat index: receiver row, origin's displacement
+        flat = (rows[:, None] * P5_POOL + disp_t.long()[:, None]
+                + torch.arange(m, device=dev)).reshape(-1)
+        if kernel == "put":
+            def call(d, payload=payload, addr=addr):
+                k3.put_rows(payload, d, tgt, **addr)
+
+            def plain(d, payload=payload, addr=addr):
+                k3.put_rows_plain(payload, d, ring_t, **addr)
+
+            def lib(d, payload=payload, flat=flat):
+                d.view(-1).index_copy_(0, flat, payload.reshape(-1))
+            nbytes = 2 * n * m * 4
+        else:
+            def call(d, payload=payload, addr=addr):
+                k2.accumulate_rows_atomic(payload, d, tgt, op="sum", **addr)
+
+            def plain(d, payload=payload, addr=addr):
+                k2.accumulate_rows_atomic_plain(payload, d, ring_t, op="sum",
+                                                **addr)
+
+            def lib(d, payload=payload, flat=flat):
+                d.view(-1).index_add_(0, flat, payload.reshape(-1))
+            nbytes = 3 * n * m * 4
+        got, plain_got, lib_got = (pool_t.clone() for _ in range(3))
+        call(got)
+        plain(plain_got)
+        lib(lib_got)
+        check(torch.equal(got, plain_got), f"{name} at the tour's shape")
+        check(torch.equal(lib_got, plain_got),
+              f"{name}: the library call computes another function")
+        check(err_t.sum().item() == 0, f"{name}: fresh handles counted")
+        err = (got - plain_got).abs().max().item()
+        record[name] = dict(
+            ms=graph_ms(torch, lambda: call(got)),
+            call_ms=time_ms(torch, lambda: call(got), reps=50),
+            plain_ms=time_ms(torch, lambda: plain(plain_got), reps=5),
+            library_ms=graph_ms(torch, lambda: lib(lib_got)),
+            max_abs_err=err, shape=[n, m], dtype="float32")
+        # the bytes moved, plus the per-origin words read (displacement, or
+        # handle and the live registration entry)
+        extra = 4 * n if "disp" in addr else 20 * n
+        record[name]["bound_ms"], record[name]["bound_by"] = bound_ms(
+            nbytes + extra, n * m if kernel == "acc" else 0.0)
+    del pool_t, plain_got, lib_got
+
+    # the launch floor beside K2's and the wait's byte bounds: an empty
+    # kernel launched as each is (plainly, and programmatically serialized)
+    floor = graph_ms(torch, lambda: empty_launch(torch, programmatic=False))
+    floor_pdl = graph_ms(torch, lambda: empty_launch(torch,
+                                                     programmatic=True))
+    for name in ("ring_accumulate", "ring_accumulate_device",
+                 "ring_accumulate_guarded"):
+        record[name]["floor_ms"] = floor
+    record["put_wait"]["floor_ms"] = floor_pdl
+    # the put -> wait pair (the thread flush of one put), with the wait
+    # launched programmatically or after the put ends; the counters reset in
+    # each pair, so every replayed wait is a real completion test
+    cnt_p = torch.zeros((n, 1), dtype=torch.int32, device=dev)
+    stall_p = torch.zeros(1, dtype=torch.int32, device=dev)
+    pair = {}
+    for size in P5_SIZES:
+        x = upd[:, :size].contiguous()
+        y = torch.empty_like(x)
+        ticks = k3.put_rows(x, y, tgt, counters=cnt_p)
+        row = {}
+        for mode, prog in (("programmatic", True), ("serial", False)):
+            def put_wait_pair(prog=prog):
+                cnt_p.zero_()
+                k3.put_rows(x, y, tgt, counters=cnt_p)
+                k3.wait_counters(cnt_p, [ticks] * n, stream=0,
+                                 stalls=stall_p, programmatic=prog)
+            row[mode] = graph_ms(torch, put_wait_pair)
+        row["put"] = graph_ms(torch, lambda: (
+            cnt_p.zero_(), k3.put_rows(x, y, tgt, counters=cnt_p)))
+        pair[size] = row
+    check(stall_p.item() == 0, f"the put -> wait pairs stalled "
+          f"{stall_p.item()} times")
+    record["put_wait"]["pair_ms"] = pair
+    record["put_wait"]["floor_serial_ms"] = floor
+    print(f"[kernel] empty launch {floor:.4f} ms, programmatic {floor_pdl:.4f};"
+          f" put -> wait pairs (ms, programmatic / serial / put alone): "
+          + "; ".join(f"{s}: {r['programmatic']:.4f} / {r['serial']:.4f} / "
+                      f"{r['put']:.4f}" for s, r in pair.items())
+          + f"; stalls {stall_p.item()}", flush=True)
     del win_buf, upd, got, dst, landed, region
 
     # K4 at the dispatch's per-peer block, K6 at the combine's: (n, Cp,
@@ -903,6 +1135,9 @@ def main() -> int:
     from repro_torch.launch.train import train
 
     launches = {name: 0 for name in K.COUNTERS}
+    #: launches by variant (K3: static / device / guarded; K2 the same;
+    #: the wait: programmatic)
+    variant_launches: dict[tuple, int] = {}
 
     def path_counts(what: str, must) -> dict:
         """Read the counters after a path: each of its kernels launched,
@@ -912,6 +1147,9 @@ def main() -> int:
             check(got[name] > 0, f"{what}: kernel {name} never launched")
         for name, c in got.items():
             launches[name] += c
+            for v, cv in K.COUNTERS[name].by_variant.items():
+                variant_launches[(name, v)] = \
+                    variant_launches.get((name, v), 0) + cv
         print(f"[launches] {what}: {got}", flush=True)
         return got
 
@@ -978,6 +1216,258 @@ def main() -> int:
     path_counts("window tour", ("accumulate", "ring_accumulate", "ring_put",
                                 "put_wait", "put_signal"))
     del buf, win, sumwin, data, expect, sw, payload
+    torch.cuda.empty_cache()
+
+    # ---- [p5] memory handles and dynamic windows ------------------------
+    # a dynamic window over each rank's 2^24-float pool, slots attached in
+    # it; handle windows put, accumulate (intrinsic: K2; tiled: K3, K1, K3)
+    # and get through fresh handles and a stale one; the query and AM slow
+    # paths; an allocated window at per-rank tensor displacements; a plan's
+    # handle ops.  Run once on the card (the path, its counters) and once
+    # on the CPU (the plain versions), and held equal bit for bit.
+    from repro_torch.core.rma import (DynamicWindow, RmaPlan,
+                                      memhandle_create, memhandle_release,
+                                      win_from_memhandle)
+    seg = P5_POOL // 4                   # slot 0 at [seg, seg + 2^22)
+    shift2 = [(r, (r + 2) % n) for r in range(n)]
+    p5_cfg = WindowConfig(scope="thread", same_op="sum",
+                          max_atomic_elems=ATOMIC_COUNT)
+    p5_plan = RmaPlan("p5")
+    p5_plan.window("w", scope="thread", same_op="sum",
+                   max_atomic_elems=ATOMIC_COUNT, exit_epoch=True)
+    p5_plan.bind("x", (ATOMIC_COUNT,), "float32")
+    p5_plan.bind("h", (4,), "int32")
+    put_h = p5_plan.put_handle("w", "x", "h", ring, slot=0, offset=13)
+    p5_plan.output("read", p5_plan.get_handle("w", "h", shift2, offset=13,
+                                              size=ATOMIC_COUNT,
+                                              after=(put_h,)))
+    p5_compiled = p5_plan.compile()
+    check(p5_compiled.phases == 6, "plan: handle put 2 + get 2 + exit 2")
+
+    def p5_tour(device, pool, big, small, mid):
+        """The P5 path once on ``device``; returns what it produced and the
+        windows it ran on."""
+        pool = pool.to(device, copy=True)
+        big, small, mid = (t.to(device) for t in (big, small, mid))
+        # per-rank displacements: one past the pool, one negative through
+        # the handle's offset (counts from the end, then clamps)
+        disp = torch.tensor([0, 5, P5_POOL, -(seg + 3)], dtype=torch.int32,
+                            device=device)
+        dyn = DynamicWindow.create_dynamic(pool, "x", n, p5_cfg,
+                                           max_attach=4, am_slots=1,
+                                           am_msg=M)
+        dyn.attach(0, seg, 1 << 22).attach(1, 3 * seg, 1 << 22)
+        h0, h1 = memhandle_create(dyn, 0), memhandle_create(dyn, 1)
+        mh = win_from_memhandle(dyn, h0, slot=0)
+        mh.put(big, ring)                                   # K3 guarded
+        mh.accumulate(small, ring, offset=disp)             # K2 guarded
+        mh.accumulate(mid, shift2, offset=7)                # K3, K1, K3
+        _, got = mh.get(shift2, offset=3, size=1 << 12)     # K3 read
+        mh.flush(0)
+        memhandle_release(dyn, 1)
+        dyn.attach(1, 3 * seg, 1 << 22)                     # h1 is stale
+        stale = win_from_memhandle(dyn, h1)
+        stale.put(big, ring)                                # dropped
+        _, zeros = stale.get(ring, size=64)                 # zeroed
+        stale.flush(0)
+        dyn.put_query(small, ring, slot=1, seg_offset=11)
+        _, queried = dyn.get_query(shift2, slot=1, seg_offset=11,
+                                   size=ATOMIC_COUNT)
+        dyn.put_am(mid, ring, slot=0, seg_offset=1 << 21)
+        dyn.progress()
+        dyn.flush_am(ring)
+        dyn.flush(0)
+        res = p5_compiled.execute({"w": dyn}, {"x": small, "h": h0})
+        aw = Window.allocate(torch.zeros((n, 1 << 22), device=device), "x",
+                             n, p5_cfg)
+        adisp = torch.tensor([0, 1 << 20, (3 << 20) - 5, (1 << 22) - M],
+                             dtype=torch.int32, device=device)
+        aw.put(big, ring, offset=adisp)                     # K3 device
+        aw.accumulate(small, shift2, offset=adisp)          # K2 device
+        aw.flush(0)
+        out = dict(pool=dyn.buffer, got=got, zeros=zeros, queried=queried,
+                   allocated=aw.buffer, errs=mh.err_count,
+                   stale_errs=stale.err_count, plan_read=res.outputs["read"],
+                   plan_errs=res.err_count)
+        ledgers = (dict(dyn.ledger.by_kind), dict(aw.ledger.by_kind))
+        return out, ledgers, (dyn, mh, aw, h0)
+
+    p5_in = (rand((n, P5_POOL), torch.float32), rand((n, M), torch.float32),
+             rand((n, ATOMIC_COUNT), torch.float32),
+             rand((n, 1 << 12), torch.float32))
+    K.reset_launch_counts()
+    on_card, card_ledgers, (dyn, mh, aw, h0) = p5_tour(dev, *p5_in)
+    torch.cuda.synchronize()
+    p5_counts = path_counts("p5 tour", ("ring_put", "put_wait",
+                                        "ring_accumulate", "accumulate"))
+    check(dyn.substrate.completion_ok() and aw.substrate.completion_ok(),
+          "[p5] completion counters short or stalled")
+    on_cpu, cpu_ledgers, _ = p5_tour(torch.device("cpu"),
+                                     *(t.cpu() for t in p5_in))
+    for key, want in on_cpu.items():
+        check(torch.equal(on_card[key].cpu(), want),
+              f"[p5] {key}: the card's tour differs from the plain versions'")
+    check(card_ledgers == cpu_ledgers, "[p5] ledgers differ")
+    check(on_cpu["errs"].tolist() == [0] * n
+          and on_cpu["stale_errs"].tolist() == [2] * n
+          and not on_cpu["zeros"].any()
+          and on_cpu["plan_errs"].tolist() == [0] * n,
+          "[p5] stale-handle counts")
+    check(sum(card_ledgers[0].values()) == 38,
+          f"[p5] dynamic window ledger {card_ledgers[0]} != 38 phases "
+          "(handle put/acc/acc/get 2 each, flushes 2, stale put/get 2 each, "
+          "put_query 5, get_query 4, put_am 3, flush_am 2, plan 6)")
+    print(f"[p5] tour on the card equals the plain versions bit for bit "
+          f"(pool {P5_POOL} float32 x {n}); ledgers {card_ledgers}; stale "
+          f"handle counted {on_card['stale_errs'].tolist()}; launches "
+          f"{p5_counts}", flush=True)
+    del on_cpu, p5_in
+
+    # one K3 launch for a handle put, as for an allocated put
+    big = on_card["got"].new_ones((n, M))
+    K.reset_launch_counts()
+    aw.put(big, ring)
+    alloc_k3 = K.COUNTERS["ring_put"].count
+    K.reset_launch_counts()
+    mh.put(big, ring)
+    handle_k3 = K.COUNTERS["ring_put"].count
+    check(alloc_k3 == handle_k3 == 1, f"K3 launches: allocated put "
+          f"{alloc_k3}, handle put {handle_k3}")
+    mh.flush(0)
+    aw.flush(0)
+    # no host read: every operation below raises if it synchronizes
+    small = on_card["got"].new_ones((n, ATOMIC_COUNT))
+    mid = on_card["got"].new_ones((n, 1 << 12))
+    rank_disp = torch.tensor([0, 3, 5, 9], dtype=torch.int32, device=dev)
+    sync_ops = {
+        "handle put": lambda: mh.put(big, ring),
+        "handle get": lambda: mh.get(shift2, size=1 << 12),
+        "handle intrinsic accumulate": lambda: mh.accumulate(small, ring),
+        "handle tiled accumulate": lambda: mh.accumulate(mid, ring),
+        "thread flush": lambda: mh.flush(0),
+        "put_query": lambda: dyn.put_query(small, ring, slot=0),
+        "get_query": lambda: dyn.get_query(shift2, slot=0, size=64),
+        "put_am and progress": lambda: (dyn.put_am(small, ring, slot=0),
+                                        dyn.progress()),
+        "put at a per-rank tensor displacement": lambda: aw.put(
+            big, ring, offset=rank_disp),
+    }
+    for op in sync_ops.values():          # build what they cache first
+        op()
+    aw.flush(0)
+    dyn.flush(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for op in sync_ops.values():
+            op()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"[p5] no host synchronization under set_sync_debug_mode('error'): "
+          f"{', '.join(sync_ops)}; K3 launches for a put: allocated "
+          f"{alloc_k3}, memory handle {handle_k3}", flush=True)
+    aw.flush(0)
+    dyn.flush(0)
+
+    def fresh_epoch(sub):
+        """Zero the completion counters and what the host says they owe, so
+        a captured put + flush waits for its own put on every replay."""
+        sub.counters.zero_()
+        sub.expected = [[0] * sub.n_streams for _ in range(sub.axis_size)]
+
+    # a handle put and its flush captured in a CUDA graph and replayed
+    sent = rand((n, M), torch.float32)
+
+    def handle_put_flush():
+        fresh_epoch(dyn.substrate)
+        mh.put(sent, ring)
+        mh.flush(0)
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        handle_put_flush()
+    landed = dyn.buffer[:, seg:seg + M]
+    landed.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(landed, torch.roll(sent, 1, 0)),
+          "[p5] the replayed handle put did not land")
+    check(dyn.substrate.stalls.item() == 0 and not mh.err_count.any(),
+          "[p5] the replayed flush stalled or the handle went stale")
+    edges = None
+    if "keep_graph" in inspect.signature(torch.cuda.CUDAGraph.__new__
+                                         ).parameters:
+        kept = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(kept):
+            handle_put_flush()
+        edges = _build.lib("probes", "rt_graph_programmatic_edges")(
+            kept.raw_cuda_graph())
+        del kept
+    print(f"[p5] a captured handle put + flush replays: landed, 0 stalls; "
+          f"programmatic edges kept by capture: "
+          f"{'not queryable' if edges is None else edges}", flush=True)
+
+    # paper Fig. 12 on the card: put + thread flush, by graph replay (card
+    # time) and by back-to-back calls (host included)
+    def per_op(x):
+        w = win_from_memhandle(dyn, h0)
+        w.put(x, ring)
+        w.flush(0)
+        w.free()
+
+    fig12 = {}
+    for size in P5_SIZES:
+        x = big[:, :size].contiguous()
+        ways = {
+            "allocated": (aw, lambda x=x: (aw.put(x, ring), aw.flush(0))),
+            "memhandle": (dyn, lambda x=x: (mh.put(x, ring), mh.flush(0))),
+            "memhandle per op": (dyn, lambda x=x: per_op(x)),
+            "dynamic query": (dyn, lambda x=x: (
+                dyn.put_query(x, ring, slot=0), dyn.flush(0))),
+            "dynamic AM": (dyn, lambda x=x: (
+                dyn.put_am(x, ring, slot=0), dyn.progress(),
+                dyn.flush_am(ring))),
+        }
+        fns = {}
+        for way, (w, op) in ways.items():
+            def fn(w=w, op=op):
+                fresh_epoch(w.substrate)
+                op()
+            fns[way] = fn
+        # by calls the host's noise dominates: three rounds over the ways
+        # in turn, the median of each way's three means
+        calls = {way: [] for way in fns}
+        for _ in range(3):
+            for way, fn in fns.items():
+                calls[way].append(time_ms(torch, fn, reps=20))
+        fig12[size] = {way: (graph_ms(torch, fn, reps=10),
+                             sorted(calls[way])[1])
+                       for way, fn in fns.items()}
+    check(dyn.substrate.stalls.item() == 0 and aw.substrate.stalls.item() == 0,
+          "[p5] a timed flush stalled")
+    for size, row in fig12.items():
+        base = row["allocated"]
+        print(f"[p5] Fig. 12, put + thread flush of {size} floats, ms by "
+              f"graph replay / by calls: " + "; ".join(
+                  f"{way} {g:.4f} / {c:.4f} ({g / base[0]:.2f} x / "
+                  f"{c / base[1]:.2f} x)" for way, (g, c) in row.items()),
+              flush=True)
+    # what a handle op's wrapper checks on the host beyond an allocated
+    # op's: its handle, registration and count tensors, every call
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        k3._check_address(n, h0.device, None, None, None, None)
+    t1 = time.perf_counter()
+    for _ in range(2000):
+        k3._check_address(n, h0.device, None, h0, dyn.regs, mh.err_count)
+    t2 = time.perf_counter()
+    print(f"[p5] host us per wrapper call checking the device address: none "
+          f"{(t1 - t0) / 2e-3:.2f}, handles + registrations + counts "
+          f"{(t2 - t1) / 2e-3:.2f}", flush=True)
+    record["put_wait"]["fig12_ms"] = {
+        str(size): {way: list(v) for way, v in row.items()}
+        for size, row in fig12.items()}
+    del dyn, mh, aw, h0, on_card, big, small, mid, landed, graph, sent
     torch.cuda.empty_cache()
 
     K.reset_launch_counts()
@@ -1307,7 +1797,12 @@ def main() -> int:
     replaces = {
         "accumulate": ("K1", "src/repro/kernels/accumulate.py:84"),
         "ring_accumulate": ("K2", "src/repro/kernels/intrinsic.py:90"),
+        "ring_accumulate_device": ("K2", "src/repro/kernels/intrinsic.py:90"),
+        "ring_accumulate_guarded": ("K2",
+                                    "src/repro/kernels/intrinsic.py:90"),
         "ring_put": ("K3", "src/repro/kernels/rma_put.py:47"),
+        "ring_put_device": ("K3", "src/repro/kernels/rma_put.py:47"),
+        "ring_put_guarded": ("K3", "src/repro/kernels/rma_put.py:47"),
         "put_wait": ("K3", "src/repro/kernels/rma_put.py:47"),
         "put_signal": ("K4", "src/repro/kernels/ordered_put_signal.py:72"),
         "ring_all_reduce": ("K5", "src/repro/kernels/ring_allreduce.py:108"),
@@ -1318,20 +1813,34 @@ def main() -> int:
         "ssd_pass": ("K8 glue", "src/repro/kernels/ops.py:24"),
     }
     sources = {"accumulate": "accumulate.cu", "ring_accumulate": "intrinsic.cu",
-               "ring_put": "rma_put.cu", "put_wait": "rma_put.cu",
+               "ring_accumulate_device": "intrinsic.cu",
+               "ring_accumulate_guarded": "intrinsic.cu",
+               "ring_put": "rma_put.cu", "ring_put_device": "rma_put.cu",
+               "ring_put_guarded": "rma_put.cu", "put_wait": "rma_put.cu",
                "put_signal": "put_signal.cu",
                "ring_all_reduce": "ring_allreduce.cu",
                "accumulate_signal": "put_signal.cu",
                "flash_attention": "flash_attention.cu",
                "ssd_intra_chunk": "ssd_scan.cu", "ssd_pass": "ssd_pass.cu"}
+    # a K2/K3 row counts the launches of its variant: static host offsets,
+    # a displacement from device memory, or the handle guard
+    variant_of = {"ring_put": ("ring_put", "static"),
+                  "ring_put_device": ("ring_put", "device"),
+                  "ring_put_guarded": ("ring_put", "guarded"),
+                  "ring_accumulate": ("ring_accumulate", "static"),
+                  "ring_accumulate_device": ("ring_accumulate", "device"),
+                  "ring_accumulate_guarded": ("ring_accumulate", "guarded")}
     rows = []
     for name in replaces:
         r = record[name]
         tag, where = replaces[name]
+        count = (variant_launches.get(variant_of[name], 0)
+                 if name in variant_of else launches[name])
+        check(count > 0, f"{name}: no launch on any path")
         rows.append({
             "name": f"{tag} {name}", "route": "cuda",
             "source": f"src/repro_torch/csrc/{sources[name]}",
-            "replaces": where, "launches": launches[name],
+            "replaces": where, "launches": count,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1339,7 +1848,9 @@ def main() -> int:
             **{key: r[key] for key in ("call_ms", "variant", "tflops",
                                        "vs_library", "prefill_views_ms",
                                        "past_l2", "design", "tbps_of_2x",
-                                       "first_ms", "library_first_ms")
+                                       "first_ms", "library_first_ms",
+                                       "floor_ms", "floor_serial_ms",
+                                       "pair_ms", "fig12_ms")
                if key in r}})
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -36,6 +36,8 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "ssd_scan": "ssd_scan.cu",
     "ssd_pass": "ssd_pass.cu",
+    # chip_smoke.py's launch-floor and graph probes; no port module loads it
+    "probes": "probes.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,10 +52,12 @@ SIGNATURES = {
     "accumulate": {"rt_accumulate":
                    (_P, _I64, _P, _I64, _I64, _I64, _I, _I, _P)},
     "intrinsic": {"rt_ring_accumulate":
-                  (_P, _I64, _I64, _P, _I64, _P, _I64, _I, _I, _P)},
-    "rma_put": {"rt_put": (_P, _I64, _P, _I64, _I64, _P, _I64, _I64, _I, _P,
-                           _I, _I, _I, _P),
-                "rt_put_wait": (_P, _I64, _I, _I, _U32P, _P, _P)},
+                  (_P, _I64, _I64, _I64, _I64, _P, _I64, _P, _I64, _I, _I,
+                   _P, _I64, _P, _P, _I, _P, _P)},
+    "rma_put": {"rt_put": (_P, _I64, _P, _I64, _I64, _I64, _I64, _I64, _P,
+                           _I64, _P, _I64, _P, _P, _I, _P, _I, _P, _I, _I,
+                           _I, _P),
+                "rt_put_wait": (_P, _I64, _I, _I, _U32P, _P, _I, _P)},
     "ring_allreduce": {"rt_ring_all_reduce":
                        (_P, _I64, _I64, _I64, _P, _I64, _P)},
     "put_signal": {
@@ -75,6 +79,7 @@ SIGNATURES = {
     "ssd_pass": {"rt_ssd_pass":
                  (_P, _P, _P, _P, _P, _I, _P, _P, _I64, _I64, _I64, _I64,
                   _I64, _I64, _I64, _I, _P)},
+    "probes": {"rt_empty": (_I, _P), "rt_graph_programmatic_edges": (_P,)},
 }
 
 _loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}

@@ -8,6 +8,9 @@ rows of stacked ``(n, ...)`` tensors):
   and the phase ledger that holds it to the reference cost model;
 * :class:`Window`, :class:`WindowConfig` — allocated windows and info keys
   (P1 scope, P2 order, P3 accumulate declarations, P4 ``dup_with_info``);
+* :class:`DynamicWindow` — dynamic windows with the query and AM slow paths;
+* P5 memory handles: :func:`memhandle_create`, :func:`memhandle_release`,
+  :func:`win_from_memhandle`, :class:`MemhandleWindow`;
 * :func:`win_op_intrinsic` and the accumulate engine (:func:`route_accumulate`,
   :func:`routed_accumulate`, :func:`crossover_elems`, :func:`accumulate_signal`);
 * :class:`Topology` and :func:`default_topology`;
@@ -21,6 +24,12 @@ from repro_torch.core.rma.substrate import (SCOPE_PROCESS, SCOPE_THREAD,
                                             FlushQueues, PhaseLedger,
                                             Substrate)
 from repro_torch.core.rma.window import KNOWN_ACC_OPS, Window, WindowConfig
+from repro_torch.core.rma.dynamic import DynamicWindow
+from repro_torch.core.rma.memhandle import (MAX_MEMHANDLE_SIZE,
+                                            MemhandleWindow,
+                                            memhandle_create,
+                                            memhandle_release,
+                                            win_from_memhandle)
 from repro_torch.core.rma.intrinsic import (INTRINSIC_DTYPES,
                                             INTRINSIC_MAX_COUNT,
                                             INTRINSIC_OPS, op_is_intrinsic,
@@ -42,7 +51,9 @@ from repro_torch.core.rma.alltoall import (AllToAllResult, all_to_all_plan,
 
 __all__ = [
     "Substrate", "FlushQueues", "PhaseLedger", "Window", "WindowConfig",
-    "SCOPE_PROCESS", "SCOPE_THREAD", "KNOWN_ACC_OPS", "win_op_intrinsic",
+    "SCOPE_PROCESS", "SCOPE_THREAD", "KNOWN_ACC_OPS", "DynamicWindow",
+    "MAX_MEMHANDLE_SIZE", "memhandle_create", "memhandle_release",
+    "win_from_memhandle", "MemhandleWindow", "win_op_intrinsic",
     "op_is_intrinsic", "INTRINSIC_OPS", "INTRINSIC_DTYPES",
     "INTRINSIC_MAX_COUNT", "PATH_INTRINSIC", "PATH_TILED", "PATH_SOFTWARE",
     "apply_op", "route_accumulate", "routed_accumulate", "accumulate_signal",

@@ -24,9 +24,11 @@ time (the paper's thesis lifted from windows to patterns):
    lowering of every macro and every such pair is in
    :attr:`CompiledPlan.lowering`.
 
-Only the ``rma`` backend is ported; the gspmd/interpret/auto backends, P5
-handle ops and prefetch edges raise ``NotImplementedError`` (ROADMAP
-queue 1).
+P5 handle ops (``put_handle``/``get_handle``) replay through
+:func:`~repro_torch.core.rma.memhandle.win_from_memhandle` on a dynamic
+window, and :attr:`PlanResult.err_count` sums their stale-handle counts.
+Only the ``rma`` backend is ported; the gspmd/interpret/auto backends and
+prefetch edges raise ``NotImplementedError`` (ROADMAP queue 1).
 
 Values in a plan are stacked: a binding or an op result is ``(n, ...)``,
 row r = rank r, and recorded closures see the rank vector as ``env.ranks``.
@@ -82,6 +84,8 @@ class _Op:
     shape: tuple | None = None     # declared payload spec (for routing)
     dtype: Any = None
     fuse: bool = False             # put: may join a gather-write group
+    slot: int | None = None        # put/get_handle: static registration slot
+    handle: Any = None             # put/get_handle: handle source
     value: Any = None              # signal: flag payload override
     fn: Callable | None = None     # compute
     label: str = ""
@@ -173,11 +177,13 @@ class PlanEnv:
 
 @dataclasses.dataclass
 class PlanResult:
-    """One replay's updated window views (caller configs restored) and its
-    declared outputs."""
+    """One replay's updated window views (caller configs restored), its
+    declared outputs, and the stale-handle drops its P5 handle ops counted,
+    per rank (``(n,)`` int32 on the windows' device)."""
 
     windows: dict[str, Any]
     outputs: dict[str, torch.Tensor]
+    err_count: torch.Tensor
 
 
 class RmaPlan:
@@ -305,11 +311,28 @@ class RmaPlan:
                             label=label)
 
 
-    def put_handle(self, *args, **kwargs):
-        raise _not_ported("RmaPlan.put_handle (P5 memory handles)", "item 7")
+    def put_handle(self, window: str, source, handle, perm, *, slot=None,
+                   offset=0, stream=None, after=(), shape=None, dtype=None,
+                   label: str = "") -> OpRef:
+        """Record a P5 memory-handle put: the payload and the handle's
+        ``[addr, epoch]`` header ride one packet (2 phases); stale handles
+        are dropped and counted into :attr:`PlanResult.err_count`.  ``slot``
+        (static) arms the call-time use-after-release check.  The window
+        must be a dynamic window at execute time."""
+        return self._record(kind="put_handle", window=window, source=source,
+                            handle=handle, perm=perm, slot=slot,
+                            offset=offset, stream=stream, after=tuple(after),
+                            shape=shape, dtype=dtype, label=label)
 
-    def get_handle(self, *args, **kwargs):
-        raise _not_ported("RmaPlan.get_handle (P5 memory handles)", "item 7")
+    def get_handle(self, window: str, handle, perm, *, slot=None, offset=0,
+                   size: int, stream=None, after=(), label: str = "") -> OpRef:
+        """Record a P5 memory-handle read: request + response (2 phases),
+        no registration query.  A stale handle's response is zeros, counted
+        into :attr:`PlanResult.err_count`; the fetched rows are this op's
+        value."""
+        return self._record(kind="get_handle", window=window, handle=handle,
+                            perm=perm, slot=slot, offset=offset, size=size,
+                            stream=stream, after=tuple(after), label=label)
 
     def prefetch(self, *args, **kwargs):
         raise _not_ported("RmaPlan.prefetch (planned prefetch edges)",
@@ -476,7 +499,8 @@ class RmaPlan:
             sync = {r.idx for r in o.after}
             deps = set(sync)
             deps.update(r.idx for r in o.reads)
-            deps.update(self._refs_in(o.source, o.cur, o.offset, o.value))
+            deps.update(self._refs_in(o.source, o.cur, o.offset, o.handle,
+                                      o.value))
             o.deps = frozenset(deps)
             o.sync_deps = frozenset(sync)
         succ: dict[int, set[int]] = {o.idx: set() for o in ops}
@@ -737,6 +761,8 @@ class RmaPlan:
             return 1 + addr
         if o.kind == "send":
             return 1
+        if o.kind in ("put_handle", "get_handle"):
+            return 2              # payload or request + the handle header
         if o.kind in ("get", "fetch_op"):
             return 2 + addr
         if o.kind in ("accumulate", "signal"):
@@ -850,6 +876,7 @@ class CompiledPlan:
             views[wname] = dataclasses.replace(win, config=cfg)
             n, device = win.axis_size, win.buffer.device
         env = PlanEnv(bindings, views, n, device)
+        errs = torch.zeros(n, dtype=torch.int32, device=device)
 
         macro_at = {mac.lo: mac for mac in self.kernel_macros}
         skip: set[int] = set()
@@ -886,13 +913,13 @@ class CompiledPlan:
             if pair is not None:
                 done.update(self._run_signal_pair(pair, by_idx, views, env))
                 continue
-            self._exec_comm(o, views, env)
+            self._exec_comm(o, views, env, errs)
 
         outputs = {name: self._resolve(spec, env) for name, spec in self.outputs}
         restored = {wname: dataclasses.replace(views[wname],
                                                config=windows[wname].config)
                     for wname in self.windows}
-        return PlanResult(windows=restored, outputs=outputs)
+        return PlanResult(windows=restored, outputs=outputs, err_count=errs)
 
     def _run_kernel_macro(self, mac: _Macro, views, env: PlanEnv,
                           donate) -> None:
@@ -969,7 +996,8 @@ class CompiledPlan:
         self._bill(by_idx[g_idx], fsub)
         return (g_idx,) if hoist is None else (g_idx, hoist)
 
-    def _exec_comm(self, o: _Op, views, env: PlanEnv) -> None:
+    def _exec_comm(self, o: _Op, views, env: PlanEnv,
+                   errs: torch.Tensor) -> None:
         decl = self.windows[o.window]
         sub = views[o.window].substrate
         shm = o.tier == "intra"
@@ -1009,6 +1037,23 @@ class CompiledPlan:
             _, env.values[o.idx] = sub.fetch_rmw(
                 self._resolve(o.source, env), o.perm, o.op, offset=offset,
                 stream=o.stream, shm=shm)
+        elif o.kind in ("put_handle", "get_handle"):
+            from repro_torch.core.rma.dynamic import DynamicWindow
+            from repro_torch.core.rma.memhandle import win_from_memhandle
+
+            view = views[o.window]
+            if not isinstance(view, DynamicWindow):
+                raise PlanError(f"{o.kind} needs a dynamic window for "
+                                f"{o.window!r}, got {type(view).__name__}")
+            mhw = win_from_memhandle(view, self._resolve(o.handle, env),
+                                     slot=o.slot)
+            if o.kind == "put_handle":
+                mhw.put(self._resolve(o.source, env), o.perm, offset=offset,
+                        stream=o.stream)
+            else:
+                _, env.values[o.idx] = mhw.get(o.perm, offset=offset,
+                                               size=o.size, stream=o.stream)
+            errs += mhw.err_count
         else:
             raise AssertionError(o.kind)
 

@@ -16,6 +16,13 @@ another rank's row, lowered to the port's kernels:
 * tiled-routed accumulates → K3 lands the update, K1 (``kernels.accumulate``)
   folds it into the target rows.
 
+A per-rank tensor displacement, a memory handle (``memhandle.py``) or a
+queried registration (``dynamic.py``) is an address in device memory: K3
+and K2 read it on the card (with the handle's lifetime guard), one launch
+per layer of the map, and the host reads nothing; such a displacement is
+placed as the reference's ``lax.dynamic_update_slice`` places a traced one
+(clamped), where a static int that overruns raises.
+
 :class:`FlushQueues` is the JAX package's scope-aware flush-queue state,
 unchanged: shared by a whole dup family, it decides which streams a flush
 drains (P1).  The JAX substrate proves its cost model in lowered HLO; here
@@ -53,6 +60,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.kernels.accumulate import accumulate_rows
 from repro_torch.kernels.intrinsic import accumulate_rows_atomic
 from repro_torch.kernels.ordered_put_signal import (accumulate_signal_rows,
                                                     put_signal_rows)
@@ -79,12 +87,15 @@ class FlushQueues:
     """Per-scope flush queues for one dup family.
 
     ``pending`` maps a stream id to the route (perm) of that stream's
-    in-flight operations.  One object per family, aliased by every view, so
+    in-flight operations; ``slot_releases`` counts ``memhandle_release``
+    calls per registration slot (the call-time half of the P5 lifetime
+    guarantee).  One object per family, aliased by every view, so
     synchronization through one handle completes operations issued through
     all of them."""
 
     def __init__(self):
         self.pending: dict[int, tuple] = {}
+        self.slot_releases: dict[int, int] = {}
 
     def note_op(self, stream: int, perm: Perm) -> None:
         self.pending[stream] = tuple(perm)
@@ -106,6 +117,25 @@ class FlushQueues:
             return out
         out, self.pending = self.pending, {}
         return out
+
+    def queued_streams(self, scope: str, stream: int | None) -> list[int]:
+        """Streams a local-completion point covers (no dequeue): thread
+        scope the named stream (and it must name one), process scope every
+        pending stream."""
+        if scope == SCOPE_THREAD:
+            if stream is None:
+                raise ValueError(
+                    "thread-scope flush_local must name the stream it "
+                    "orders (flush_local(stream=...)); a stream-less call "
+                    "would silently tie every pending stream together")
+            return [stream]
+        return list(self.pending)
+
+    def note_release(self, slot: int) -> None:
+        self.slot_releases[slot] = self.slot_releases.get(slot, 0) + 1
+
+    def release_count(self, slot: int) -> int:
+        return self.slot_releases.get(slot, 0)
 
 
 class PhaseLedger:
@@ -189,12 +219,33 @@ class Substrate:
                                device=buffer.device))
 
     # -- helpers ----------------------------------------------------------
+    def _launches(self, pairs) -> list:
+        """The layers of a map (each sends every origin once: one launch
+        each) with their origin lists and target maps on the device, worked
+        out once per map."""
+        key = ("layers",) + tuple(map(tuple, pairs))
+        out = self.targets.get(key)
+        if out is None:
+            out = self.targets[key] = [
+                ([s for s, _ in g], self._targets(g)) for g in _layers(pairs)]
+        return out
+
     def _targets(self, pairs) -> torch.Tensor:
         key = tuple(perm_targets(pairs, self.axis_size))
         t = self.targets.get(key)
         if t is None:
             t = targets_tensor(key, self.axis_size, self.buffer.device)
             self.targets[key] = t
+        return t
+
+    def index(self, ranks) -> torch.Tensor:
+        """A list of ranks as a long tensor on the device, built once per
+        list (a host-to-device copy) and reused."""
+        key = ("index",) + tuple(ranks)
+        t = self.targets.get(key)
+        if t is None:
+            t = self.targets[key] = torch.tensor(
+                key[1:], dtype=torch.long).to(self.buffer.device)
         return t
 
     def _payload(self, data: torch.Tensor) -> torch.Tensor:
@@ -206,43 +257,57 @@ class Substrate:
                        dtype=self.buffer.dtype).contiguous()
 
     def _offsets(self, offset, perm: Perm) -> dict[int, int]:
-        """origin → displacement (a per-rank tensor gives each origin its
-        own word, the analogue of a traced displacement)."""
+        """origin → displacement on the host (fetch-and-op, compare-and-swap
+        and the K4/K6 launches; reads a per-rank tensor back)."""
         if _is_static(offset):
             return {s: offset for s, _ in perm}
         offs = torch.as_tensor(offset).reshape(-1).tolist()
         return {s: int(offs[s]) for s, _ in perm}
 
-    def _write_rows(self, src: torch.Tensor, dst: torch.Tensor, perm: Perm,
-                    offsets: dict[int, int], stream: int) -> None:
-        """dst[t, off(s):] = src[s] for (s, t) in perm through K3, one
-        launch per distinct displacement (and per repeated origin)."""
-        n = self.axis_size
-        by_off: dict[int, list] = {}
-        for s, t in perm:
-            by_off.setdefault(offsets[s], []).append((s, t))
-        for off, pairs in by_off.items():
-            for group in _layers(pairs):
-                ticks = put_rows(src, dst, self._targets(group), offset=off,
-                                 counters=self.counters, stream=stream)
-                for s, _ in group:
-                    self.expected[s][stream] += ticks
+    def disp(self, offset) -> torch.Tensor:
+        """A per-rank displacement as the kernels read it: int32 ``(n,)``
+        on the window's device (no copy when it is already that)."""
+        d = torch.as_tensor(offset)
+        if d.shape != (self.axis_size,):
+            raise ValueError(f"a per-rank displacement has one entry per "
+                             f"rank ({self.axis_size},), got "
+                             f"{tuple(d.shape)}")
+        return d.to(device=self.buffer.device, dtype=torch.int32).contiguous()
 
-    def _read(self, perm: Perm, offs: dict[int, int], size: int,
-              stream: int) -> torch.Tensor:
-        """The response half of a read: row s of the result is ``size``
-        rows of target t's window at s's displacement (K3 from the target
-        rows); ranks that read nothing get zeros."""
+    def _address(self, offset) -> dict:
+        """K3's and K2's address of a window operation: a static int (the
+        wrappers check it), or a per-rank tensor read on the card."""
+        if _is_static(offset):
+            return dict(offset=offset)
+        return dict(disp=self.disp(offset))
+
+    def _write_rows(self, src: torch.Tensor, dst: torch.Tensor, perm: Perm,
+                    stream: int, **addr) -> None:
+        """dst[t] at the address of origin s ← src[s] for (s, t) in perm,
+        through K3: one launch per layer of the map (a layer sends each
+        origin once).  ``addr`` is K3's address: a static ``offset``, or a
+        ``disp`` vector and memory ``handles`` read on the card (the
+        guard's ``regs`` and ``err`` with them)."""
+        for senders, tmap in self._launches(perm):
+            ticks = put_rows(src, dst, tmap, counters=self.counters,
+                             stream=stream, **addr)
+            for s in senders:
+                self.expected[s][stream] += ticks
+
+    def _read_rows(self, perm: Perm, size: int, stream: int,
+                   **addr) -> torch.Tensor:
+        """The response half of a read at K3's address rule: row s of the
+        result is ``size`` rows of target t's window at origin s's address
+        (read on the card: a per-origin ``disp``, memory ``handles``, the
+        guard's zeros for a stale one); ranks that read nothing get zeros.
+        One launch per layer of the inverse map."""
         out = torch.zeros((self.axis_size, size) + tuple(self.buffer.shape[2:]),
                           dtype=self.buffer.dtype, device=self.buffer.device)
-        for s, t in perm:
-            if not 0 <= offs[s] <= self.buffer.shape[1] - size:
-                raise ValueError(f"read of {size} rows at offset {offs[s]} "
-                                 "overruns the window shard")
-        for off in sorted(set(offs.values())):
-            pairs = [(t, s) for s, t in perm if offs[s] == off]
-            self._write_rows(self.buffer[:, off:off + size], out, pairs,
-                             {t: 0 for t, _ in pairs}, stream)
+        for senders, tmap in self._launches([(t, s) for s, t in perm]):
+            ticks = put_rows(self.buffer, out, tmap, counters=self.counters,
+                             stream=stream, read=True, **addr)
+            for t in senders:
+                self.expected[t][stream] += ticks
         return out
 
     def _land(self, data: torch.Tensor, perm: Perm, stream: int
@@ -250,17 +315,43 @@ class Substrate:
         """Ship ``data`` along ``perm`` into a zeroed staging tensor: row t
         holds what its origin sent (non-targets read zeros)."""
         staged = torch.zeros(data.shape, dtype=data.dtype, device=data.device)
-        self._write_rows(data, staged, perm, {s: 0 for s, _ in perm}, stream)
+        self._write_rows(data, staged, perm, stream)
         return staged
+
+    def rmw_rows(self, data: torch.Tensor, perm: Perm, op: str, *,
+                 path: str, stream: int, **addr) -> None:
+        """Fold ``data[s]`` into target t's window at origin s's address,
+        read on the card (K3's address rule and guard).  ``intrinsic``: one
+        K2 launch per layer.  ``tiled``/``software``: K3 reads the target
+        regions into a staging tensor by origin, K1 folds the update into
+        it, K3 writes it back under the guard — three launches for a
+        permutation, and the host reads nothing."""
+        from repro_torch.core.rma import accumulate as _engine
+
+        if path == _engine.PATH_INTRINSIC:
+            for _, tmap in self._launches(perm):
+                accumulate_rows_atomic(data, self.buffer, tmap, op=op, **addr)
+            return
+        targets = [t for _, t in perm]
+        if len(set(targets)) != len(targets):
+            raise ValueError(f"perm {tuple(perm)} sends two origins to one "
+                             "target: a read-modify-write at a device "
+                             "address folds a permutation")
+        fetch = {k: v for k, v in addr.items() if k not in ("regs", "err")}
+        region = self._read_rows(perm, data.shape[1], stream, **fetch)
+        n = self.axis_size
+        accumulate_rows(region.view(n, -1), data.reshape(n, -1), op=op)
+        self._write_rows(region, self.buffer, perm, stream, **addr)
 
     # -- transport primitives ---------------------------------------------
     def put(self, data: torch.Tensor, perm: Perm, *, offset=0,
             stream: int = 0, shm: bool = False) -> "Substrate":
         """Origin-addressed write (``MPI_Put``): row t of the window gets
-        its origin's payload at the origin's displacement.  K3."""
-        data = self._payload(data)
-        self._write_rows(data, self.buffer, perm, self._offsets(offset, perm),
-                         stream)
+        its origin's payload at the origin's displacement — a static int
+        (checked), or a per-rank tensor read on the card and clamped to the
+        shard as the reference clamps a traced one.  K3."""
+        self._write_rows(self._payload(data), self.buffer, perm, stream,
+                         **self._address(offset))
         self.ledger.bill("put", 1 + (0 if _is_static(offset) else 1), shm=shm)
         if not shm:
             self.queues.note_op(stream, perm)
@@ -277,8 +368,8 @@ class Substrate:
                     "put_multi requires static (int) offsets; per-rank "
                     "displacements cannot share one gather-write packet")
         for d, off in zip(datas, offsets):
-            self._write_rows(self._payload(d), self.buffer, perm,
-                             {s: off for s, _ in perm}, stream)
+            self._write_rows(self._payload(d), self.buffer, perm, stream,
+                             offset=off)
         self.ledger.bill("put", 1, shm=shm)
         if not shm:
             self.queues.note_op(stream, perm)
@@ -289,7 +380,7 @@ class Substrate:
         """Read (``MPI_Get``): origin s receives ``size`` rows of target t's
         window at the origin's displacement; other ranks read zeros.  The
         response is a K3 put from the target rows."""
-        out = self._read(perm, self._offsets(offset, perm), size, stream)
+        out = self._read_rows(perm, size, stream, **self._address(offset))
         self.ledger.bill("get", 2 + (0 if _is_static(offset) else 1), shm=shm)
         if not shm:
             self.queues.note_op(stream, perm)
@@ -319,37 +410,31 @@ class Substrate:
         path: ``intrinsic`` issues K2 atomics from the origin (1 phase);
         ``tiled`` lands the update with K3 and folds it with K1 (1 phase);
         ``software`` lands it and has the target runtime fold it, then pays
-        a completion ack (2 phases)."""
+        a completion ack (2 phases).  A per-rank tensor displacement adds
+        its address phase and runs :meth:`rmw_rows` (read on the card,
+        clamped)."""
         from repro_torch.core.rma import accumulate as _engine
 
         data = self._payload(data)
         n, m = self.axis_size, data.shape[1]
-        offs = self._offsets(offset, perm)
-        for s, _ in perm:
-            if not 0 <= offs[s] <= self.buffer.shape[1] - m:
-                raise ValueError(f"accumulate of {m} rows at offset "
-                                 f"{offs[s]} overruns the window shard")
-        flat = self.buffer.reshape(n, -1)
-        inner = flat.shape[1] // self.buffer.shape[1]
-        if path == _engine.PATH_INTRINSIC:
-            for off in sorted(set(offs.values())):
-                pairs = [(s, t) for s, t in perm if offs[s] == off]
-                accumulate_rows_atomic(data.reshape(n, -1), flat,
-                                       self._targets(pairs), op=op,
-                                       offset=off * inner)
+        if path == _engine.PATH_INTRINSIC or not _is_static(offset):
+            self.rmw_rows(data, perm, op, path=path, stream=stream,
+                          **self._address(offset))
         else:
+            if not 0 <= offset <= self.buffer.shape[1] - m:
+                raise ValueError(f"accumulate of {m} rows at offset "
+                                 f"{offset} overruns the window shard")
+            flat = self.buffer.reshape(n, -1)
+            inner = flat.shape[1] // self.buffer.shape[1]
             staged = self._land(data, perm, stream)
             combine = _engine.path_combine(path, op)
-            targets = sorted(t for _, t in perm)
-            src_of = {t: s for s, t in perm}
-            if (_is_static(offset) and targets == list(range(n))
-                    and flat.stride(1) == 1):
+            targets = sorted({t for _, t in perm})
+            if targets == list(range(n)) and flat.stride(1) == 1:
                 region = flat[:, offset * inner:(offset + m) * inner]
                 combine(region, staged.reshape(n, -1))
             else:
                 for t in targets:
-                    off = offs[src_of[t]] * inner
-                    combine(flat[t:t + 1, off:off + m * inner],
+                    combine(flat[t:t + 1, offset * inner:(offset + m) * inner],
                             staged[t:t + 1].reshape(1, -1))
         software = path == _engine.PATH_SOFTWARE
         self.ledger.bill("accumulate", (2 if software else 1)
@@ -370,7 +455,11 @@ class Substrate:
         data = self._payload(data)
         offs = self._offsets(offset, perm)
         m = data.shape[1]
-        old = self._read(perm, offs, m, stream)
+        for s, _ in perm:
+            if not 0 <= offs[s] <= self.buffer.shape[1] - m:
+                raise ValueError(f"read of {m} rows at offset {offs[s]} "
+                                 "overruns the window shard")
+        old = self._read_rows(perm, m, stream, **self._address(offset))
         staged = self._land(data, perm, stream)
         for s, t in perm:
             region = self.buffer[t, offs[s]:offs[s] + m]
@@ -536,6 +625,24 @@ class Substrate:
         for s in pending:
             self._wait(s)
         self.ledger.bill("flush", 2 * len(pending))
+        return self
+
+    def flush_local(self, *, scope: str = SCOPE_PROCESS,
+                    stream: int | None = None) -> "Substrate":
+        """``MPI_Win_flush_local``: local completion only — no round trip,
+        no phase.  The origin's buffers are free to reuse once the launches
+        that read them are issued, and one CUDA stream orders them: nothing
+        to wait for.  Thread scope must name its stream."""
+        self.queues.queued_streams(scope, stream)
+        return self
+
+    def fence(self) -> "Substrate":
+        """Active-target fence: a collective barrier that completes every
+        stream (always process scope).  The reference's token all-reduce is
+        no collective-permute, so no phase is billed; on the card it is one
+        K3 wait per stream with ops in flight."""
+        for s in self.queues.take(SCOPE_PROCESS, None):
+            self._wait(s)
         return self
 
     def completion_ok(self) -> bool:

@@ -227,12 +227,28 @@ class Window:
                            stream=stream, shm=self._shm(perm))
         return self
 
+    def get_info(self) -> WindowConfig:
+        """``MPI_Win_get_info``: the configuration in effect."""
+        return self.config
+
     # -- synchronization -----------------------------------------------------
     def flush(self, stream: int | None = None) -> "Window":
         """``MPI_Win_flush`` through the shared epoch engine: process scope
         completes every stream of the dup family (the serialized walk);
         thread scope (P1) only the named stream."""
         self.substrate.flush(scope=self.config.scope, stream=stream)
+        return self
+
+    def flush_local(self, stream: int | None = None) -> "Window":
+        """``MPI_Win_flush_local``: local completion only (origin buffers
+        reusable; remote completion not implied) — no round trip."""
+        self.substrate.flush_local(scope=self.config.scope, stream=stream)
+        return self
+
+    def fence(self) -> "Window":
+        """Active-target ``MPI_Win_fence``: a collective barrier completing
+        every stream (process scope whatever the window's scope key)."""
+        self.substrate.fence()
         return self
 
 

@@ -9,9 +9,16 @@ accumulate.  Restricted the way NIC atomics are: ops from
 (a ``WindowConfig``) is checked against the router so a declaration that
 routes elsewhere cannot be lowered here by accident.
 
+The P5 path: the displacement may come from device memory (a per-origin
+vector, memory handles), with K3's lifetime guard (a stale handle's update
+is dropped and counted at the target), so a handle accumulate routed here
+is one launch and the host reads nothing.
+
 Replaces ``repro/kernels/intrinsic.py::ring_accumulate`` (the
-``pallas_call`` at ``intrinsic.py:90``).  CUDA source: ``csrc/intrinsic.cu``.
-Bound on an H100: launch and atomic latency (the path carries at most the
+``pallas_call`` at ``intrinsic.py:90``).  CUDA source: ``csrc/intrinsic.cu``:
+no-return reductions (``red``, four float32 sums in one
+``red.global.add.v4.f32`` where aligned), one block for every rank's few
+words.  Bound on an H100: one launch (the path carries at most the
 crossover's few elements).
 """
 from __future__ import annotations
@@ -23,7 +30,9 @@ from repro_torch.kernels import common as _common
 from repro_torch.kernels.common import (ATOMIC_KERNEL_OPS, DTYPE_CODES,
                                         OP_CODES, LaunchCounter,
                                         check_launch, combine_op, is_integer)
-from repro_torch.kernels.rma_put import targets_tensor
+from repro_torch.kernels.rma_put import (_check_address, _row_contiguous,
+                                         resolve_rows, shift_targets,
+                                         targets_tensor)
 
 COUNTER = LaunchCounter("ring_accumulate")
 
@@ -31,7 +40,7 @@ COUNTER = LaunchCounter("ring_accumulate")
 ATOMIC_DTYPES = (torch.int32, torch.int64, torch.float32, torch.float64)
 
 
-def _check(update, buffer, op, offset, config) -> None:
+def _check(update, buffer, op, offset, config, dynamic=False) -> None:
     if op not in ATOMIC_KERNEL_OPS:
         raise ValueError(f"op {op!r} not in {ATOMIC_KERNEL_OPS} (NIC "
                          "atomics; route other ops to repro_torch.kernels."
@@ -48,57 +57,87 @@ def _check(update, buffer, op, offset, config) -> None:
                 f"declared usage routes this accumulate to the {path!r} "
                 "path; the atomic kernel only lowers intrinsic-routed "
                 "configurations (declared single-op, count <= crossover)")
-    if update.dim() != 2 or buffer.dim() != 2 or \
-            update.shape[0] != buffer.shape[0]:
-        raise ValueError(f"ring_accumulate takes stacked (n, m) update and "
-                         f"(n, M) buffer, got {tuple(update.shape)} and "
+    if update.dim() < 2 or buffer.dim() != update.dim() or \
+            update.shape[0] != buffer.shape[0] or \
+            update.shape[2:] != buffer.shape[2:]:
+        raise ValueError(f"ring_accumulate takes stacked (n, m, ...) update "
+                         f"and (n, M, ...) buffer of equal trailing shape, "
+                         f"got {tuple(update.shape)} and "
                          f"{tuple(buffer.shape)}")
-    if update.shape[1] + offset > buffer.shape[1] or offset < 0:
+    m, rows = update.shape[1], buffer.shape[1]
+    if m > rows or (not dynamic and not 0 <= offset <= rows - m):
         raise ValueError(
-            f"accumulate of {update.shape[1]} elems at offset {offset} "
-            f"overruns the {buffer.shape[1]}-elem window buffer")
+            f"accumulate of {m} elems at offset {offset} "
+            f"overruns the {rows}-elem window buffer")
 
 
 def accumulate_rows_atomic_plain(update, buffer, targets, *, op: str = "sum",
-                                 offset: int = 0) -> torch.Tensor:
+                                 offset: int = 0, disp=None,
+                                 disp_unit: int = 1, handles=None, regs=None,
+                                 err=None) -> torch.Tensor:
     """The plain PyTorch version of K2: rank r folds ``update[r]`` into
-    ``buffer[targets[r], offset:]`` in place."""
-    m = update.shape[1]
+    ``buffer[targets[r], rows:]`` in place, at K3's address rule
+    (:func:`~repro_torch.kernels.rma_put.resolve_rows`)."""
+    n, m = update.shape[0], update.shape[1]
+    _check_address(n, buffer.device, disp, handles, regs, err)
     upd = update.to(buffer.dtype)
-    for r, t in enumerate(targets_tensor(targets, update.shape[0],
-                                         "cpu").tolist()):
-        if t >= 0:
-            region = buffer[t, offset:offset + m]
-            region.copy_(combine_op(region, upd[r], op))
+    for r, t in enumerate(targets_tensor(targets, n, "cpu").tolist()):
+        if t < 0:
+            continue
+        rows, fresh = resolve_rows(r, t, offset=offset, disp=disp,
+                                   disp_unit=disp_unit, handles=handles,
+                                   regs=regs, span=buffer.shape[1], m=m)
+        if not fresh:
+            if err is not None:
+                err[t] += 1
+            continue
+        region = buffer[t, rows:rows + m]
+        region.copy_(combine_op(region, upd[r], op))
     return buffer
 
 
 def accumulate_rows_atomic(update: torch.Tensor, buffer: torch.Tensor,
                            targets, *, op: str = "sum", offset: int = 0,
-                           config=None) -> torch.Tensor:
+                           config=None, disp: torch.Tensor | None = None,
+                           disp_unit: int = 1,
+                           handles: torch.Tensor | None = None,
+                           regs: torch.Tensor | None = None,
+                           err: torch.Tensor | None = None) -> torch.Tensor:
     """Rank r atomically folds ``update[r]`` into ``buffer[targets[r],
-    offset:offset+m]`` (in place; ``targets[r] == -1`` sends nothing).
-    Returns ``buffer``.  CPU tensors take the plain version; CUDA tensors
-    launch K2 or raise."""
-    _check(update, buffer, op, offset, config)
+    rows:rows+m]`` (in place; ``targets[r] == -1`` sends nothing).  Stacked
+    ``(n, m, ...)`` update into an ``(n, M, ...)`` buffer; ``rows`` follows
+    K3's address rule: ``offset`` (static, checked), plus ``disp[r] *
+    disp_unit`` and ``handles[r, 1]`` from device memory (clamped to the
+    row), and with ``regs`` a stale handle's update is dropped and counted
+    in ``err[targets[r]]``.  Returns ``buffer``.  CPU tensors take the plain
+    version; CUDA tensors launch K2 or raise."""
+    dynamic = disp is not None or handles is not None
+    _check(update, buffer, op, offset, config, dynamic)
     if not _common.on_device(update, buffer):
-        return accumulate_rows_atomic_plain(update, buffer, targets, op=op,
-                                            offset=offset)
+        return accumulate_rows_atomic_plain(
+            update, buffer, targets, op=op, offset=offset, disp=disp,
+            disp_unit=disp_unit, handles=handles, regs=regs, err=err)
     if buffer.dtype not in ATOMIC_DTYPES:
         raise TypeError(f"no {buffer.dtype} atomics in the envelope")
-    if buffer.stride(1) != 1:
+    if not _row_contiguous(buffer):
         raise ValueError("K2 needs a buffer with contiguous rows")
-    n, m = update.shape
+    n, m = update.shape[0], update.shape[1]
+    _check_address(n, buffer.device, disp, handles, regs, err)
     if m == 0:
         return buffer
     upd = update.to(buffer.dtype).contiguous()
+    inner = upd[0, 0].numel()
     tgt = targets_tensor(targets, n, buffer.device)
+    ptr = lambda t: 0 if t is None else t.data_ptr()   # noqa: E731
     fn = _build.lib("intrinsic")
-    rc = fn(buffer.data_ptr(), buffer.stride(0), offset, upd.data_ptr(), m,
-            tgt.data_ptr(), n, DTYPE_CODES[buffer.dtype], OP_CODES[op],
-            _common.stream_ptr(buffer.device))
+    rc = fn(buffer.data_ptr(), buffer.stride(0), buffer.shape[1], inner,
+            offset, upd.data_ptr(), m, tgt.data_ptr(), n,
+            DTYPE_CODES[buffer.dtype], OP_CODES[op], ptr(disp), disp_unit,
+            ptr(handles), ptr(regs), 0 if regs is None else regs.shape[1],
+            ptr(err), _common.stream_ptr(buffer.device))
     check_launch("ring_accumulate", rc)
-    COUNTER.bump()
+    COUNTER.bump("guarded" if regs is not None else
+                 "device" if dynamic else "static")
     return buffer
 
 
@@ -112,7 +151,7 @@ def ring_accumulate(update: torch.Tensor, buffer: torch.Tensor, *,
     n = axis_size
     _check(update, buffer, op, offset, config)
     return accumulate_rows_atomic(
-        update, buffer, [(r + shift) % n for r in range(n)], op=op,
+        update, buffer, shift_targets(n, shift, buffer.device), op=op,
         offset=offset)
 
 

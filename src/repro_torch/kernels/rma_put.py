@@ -1,17 +1,25 @@
 """K3 — one-sided put with thread-scope completion (P1).
 
-Every origin rank writes its shard into a target rank's row of a stacked
-``(n, ...)`` window; each write bumps the origin's per-(rank, stream)
+Every sending rank writes its rows into a receiving rank's row of a stacked
+``(n, ...)`` window; each write bumps the sender's per-(rank, stream)
 completion counter.  The substrate lowers put, send, ring hops and the
 response half of get to :func:`put_rows`.  Its flush of one stream is
 :func:`wait_counters`: a launch that waits, on the card, for that stream's
 counters to reach what its puts owe — one column of counters, never a
-device-wide synchronisation.
+device-wide synchronisation.  The wait is a programmatic dependent launch:
+it may start while the put before it still runs, and its acquire spin is
+the completion test.
+
+The P5 path: a displacement may be a per-origin int32 vector in device
+memory, and a memory handle table ``[epoch, offset, size, slot]`` with the
+registration tables it must match may guard the operation (a stale put is
+dropped, a stale read's response is zeros, each counted), so a handle put
+is one launch, as an allocated put is, and the host reads nothing.
 
 Replaces ``repro/kernels/rma_put.py::ring_put`` (the ``pallas_call`` at
 ``rma_put.py:47``; ``rdma.start()`` is the put, ``rdma.wait()`` the flush).
 CUDA source: ``csrc/rma_put.cu``.  Bound on an H100: bytes (one read and
-one write of the payload, in 16-byte words where the layout allows); the
+one write of the payload, in 16-byte words where the addresses allow); the
 wait reads 4 bytes per rank and is bound by its launch.
 """
 from __future__ import annotations
@@ -24,16 +32,24 @@ from repro_torch import _build
 from repro_torch.kernels import common as _common
 from repro_torch.kernels.common import LaunchCounter, cdiv, check_launch
 
+#: put launches by variant: "static" (host offsets), "device" (a
+#: displacement or handle from device memory), "guarded" (with the
+#: lifetime guard)
 COUNTER = LaunchCounter("ring_put")
+#: wait launches by variant: "programmatic" or "serial"
 WAIT_COUNTER = LaunchCounter("put_wait")
 
 #: ranks one wait launch can cover (RT_MAX_WAIT_RANKS in csrc/rma_put.cu)
 MAX_WAIT_RANKS = 256
 
+#: (n, device) -> completion counters for callers that keep none
+_SCRATCH_COUNTERS: dict = {}
+
 
 def targets_tensor(targets, n: int, device) -> torch.Tensor:
     """``targets`` as the kernel takes it: int32 of length n, -1 where a
-    rank sends nothing."""
+    rank sends nothing (a host sequence is copied to ``device``; callers on
+    a hot path keep the tensor, as the substrate does)."""
     if isinstance(targets, torch.Tensor):
         t = targets
     else:
@@ -41,6 +57,12 @@ def targets_tensor(targets, n: int, device) -> torch.Tensor:
     if t.shape != (n,):
         raise ValueError(f"targets must have length {n}, got {tuple(t.shape)}")
     return t.to(device=device, dtype=torch.int32)   # no copy if already there
+
+
+def shift_targets(n: int, shift: int, device) -> torch.Tensor:
+    """The ring map ``r -> (r + shift) % n``, made where the kernel reads
+    it (on the card, no host-to-device copy)."""
+    return (torch.arange(n, dtype=torch.int32, device=device) + shift) % n
 
 
 def perm_targets(perm, n: int) -> list[int]:
@@ -62,76 +84,168 @@ def _row_contiguous(x: torch.Tensor) -> bool:
     return True
 
 
-def _check(src, dst, offset: int) -> None:
+def _check(src, dst, offset: int, read: bool, dynamic: bool) -> None:
     if src.dim() < 2 or dst.dim() != src.dim() or src.shape[2:] != dst.shape[2:]:
         raise ValueError(f"put needs stacked (n, m, ...) operands of equal "
                          f"trailing shape, got {tuple(src.shape)} -> "
                          f"{tuple(dst.shape)}")
     if src.dtype != dst.dtype:
         raise TypeError(f"put payload {src.dtype} into a {dst.dtype} window")
-    if not 0 <= offset <= dst.shape[1] - src.shape[1]:
-        raise ValueError(f"put of {src.shape[1]} rows at offset {offset} "
-                         f"overruns the {dst.shape[1]}-row window shard")
+    m, span = (dst.shape[1], src.shape[1]) if read else (src.shape[1],
+                                                          dst.shape[1])
+    if m > span or (not dynamic and not 0 <= offset <= span - m):
+        raise ValueError(f"{'read' if read else 'put'} of {m} rows at "
+                         f"offset {offset} overruns the {span}-row window "
+                         "shard")
+
+
+def _check_address(n: int, device, disp, handles, regs, err) -> None:
+    """Device-memory address operands: int32, contiguous, on ``device``;
+    ``disp`` and ``err`` ``(n,)``, ``handles`` ``(n, 4)`` at a 16-byte
+    boundary (a block loads a row as one word), ``regs`` ``(n, slots, 3)``
+    and only with handles to guard."""
+    for name, t, shape in (("disp", disp, (n,)), ("handles", handles, (n, 4)),
+                           ("err", err, (n,)), ("regs", regs, None)):
+        if t is None:
+            continue
+        if t.dtype != torch.int32 or t.device != device or \
+                not t.is_contiguous() or (
+                    t.shape != shape if shape is not None else
+                    t.dim() != 3 or t.shape[0] != n or t.shape[2] != 3
+                    or t.shape[1] < 1):
+            raise ValueError(f"{name} must be a contiguous int32 "
+                             f"{shape or f'({n}, slots, 3)'} tensor on "
+                             f"{device}, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+    if handles is not None and handles.data_ptr() % 16:
+        raise ValueError("handles must start at a 16-byte boundary")
+    if regs is not None and handles is None:
+        raise ValueError("the lifetime guard (regs) checks memory handles; "
+                         "give handles too")
+
+
+def resolve_rows(o: int, w: int, *, offset: int, disp, disp_unit: int,
+                 handles, regs, span: int, m: int) -> tuple[int, bool]:
+    """The row an operation of origin ``o`` on rank ``w``'s window
+    addresses, and whether its handle is fresh — the kernels' address
+    rule, on host values (the plain versions' arithmetic).  A row with a
+    device part is placed as ``lax.dynamic_update_slice`` places it: a
+    negative row counts from the end of the ``span``-row window row once,
+    then it is clamped to ``[0, span - m]``."""
+    rows, fresh = offset, True
+    if disp is not None:
+        rows += int(disp[o]) * disp_unit
+    if handles is not None:
+        epoch, hoff, _, slot = (int(v) for v in handles[o])
+        rows += hoff
+        if regs is not None:
+            slot = min(max(slot, 0), regs.shape[1] - 1)
+            live = int(regs[w, slot, 0])
+            fresh = epoch == live and live > 0
+    if disp is not None or handles is not None:
+        rows = min(max(rows + span if rows < 0 else rows, 0), span - m)
+    return rows, fresh
 
 
 def put_rows_plain(src, dst, targets, *, offset: int = 0, counters=None,
-                   stream: int = 0) -> int:
+                   stream: int = 0, disp=None, disp_unit: int = 1,
+                   handles=None, regs=None, err=None,
+                   read: bool = False) -> int:
     """The plain PyTorch version of K3: same contract.  Returns the
     completion ticks each sending rank added to its counter (1)."""
-    _check(src, dst, offset)
-    m = src.shape[1]
+    dynamic = disp is not None or handles is not None
+    _check(src, dst, offset, read, dynamic)
+    _check_address(src.shape[0], src.device, disp, handles, regs, err)
+    m, span = (dst.shape[1], src.shape[1]) if read else (src.shape[1],
+                                                          dst.shape[1])
     for r, t in enumerate(targets_tensor(targets, src.shape[0], "cpu").tolist()):
-        if t >= 0:
-            dst[t, offset:offset + m] = src[r]
-            if counters is not None:
-                counters[r, stream] += 1
+        if t < 0:
+            continue
+        o, w = (t, r) if read else (r, t)
+        rows, fresh = resolve_rows(o, w, offset=offset, disp=disp,
+                                   disp_unit=disp_unit, handles=handles,
+                                   regs=regs, span=span, m=m)
+        if not fresh and err is not None:
+            err[w] += 1
+        if read:
+            dst[t, :m] = src[r, rows:rows + m] if fresh else 0
+        elif fresh:
+            dst[t, rows:rows + m] = src[r]
+        if counters is not None:
+            counters[r, stream] += 1
     return 1
+
+
+def _scratch_counters(n: int, device) -> torch.Tensor:
+    key = (n, str(device))
+    c = _SCRATCH_COUNTERS.get(key)
+    if c is None:
+        c = _SCRATCH_COUNTERS[key] = torch.zeros((n, 1), dtype=torch.int32,
+                                                 device=device)
+    return c
 
 
 def put_rows(src: torch.Tensor, dst: torch.Tensor, targets, *,
              offset: int = 0, counters: torch.Tensor | None = None,
-             stream: int = 0) -> int:
-    """For every rank r with ``targets[r] >= 0``: ``dst[targets[r],
-    offset:offset+m] = src[r]``, then add to ``counters[r, stream]``.
+             stream: int = 0, disp: torch.Tensor | None = None,
+             disp_unit: int = 1, handles: torch.Tensor | None = None,
+             regs: torch.Tensor | None = None, err: torch.Tensor | None = None,
+             read: bool = False) -> int:
+    """For every rank r with ``t = targets[r] >= 0``: a put writes
+    ``dst[t, rows:rows+m] = src[r]``; a read's response (``read=True``)
+    writes ``dst[t, :m] = src[r, rows:rows+m]``.  Then it adds to
+    ``counters[r, stream]``.
+
+    ``rows`` is ``offset + disp[o] * disp_unit + handles[o, 1]`` for the
+    operation's origin ``o`` (r for a put, t for a read), placed as
+    :func:`resolve_rows` says when a device part is given; a static
+    ``offset`` alone must fit or raises.  With ``regs`` (the (n, max_attach, 3) registration
+    tables) a handle whose epoch is not the live one of its slot on the
+    addressed rank ``w`` is stale: a put writes nothing, a read writes zeros,
+    and ``err[w]`` gains one.
 
     Returns the ticks each sending rank's counter gained (the number of
     blocks that wrote its row), so a caller can tell when a stream's puts
     have all completed.  CPU tensors take the plain version; CUDA tensors
     launch K3 or raise."""
-    _check(src, dst, offset)
+    dynamic = disp is not None or handles is not None
+    _check(src, dst, offset, read, dynamic)
     if not _common.on_device(src, dst):
         return put_rows_plain(src, dst, targets, offset=offset,
-                              counters=counters, stream=stream)
+                              counters=counters, stream=stream, disp=disp,
+                              disp_unit=disp_unit, handles=handles,
+                              regs=regs, err=err, read=read)
     if not (_row_contiguous(src) and _row_contiguous(dst)):
         raise ValueError("K3 needs operands whose rows are contiguous")
-    n, m = src.shape[0], src.shape[1]
+    n = src.shape[0]
+    _check_address(n, src.device, disp, handles, regs, err)
+    m, span = (dst.shape[1], src.shape[1]) if read else (src.shape[1],
+                                                          dst.shape[1])
     if m == 0:
         return 0
     if counters is None:
-        counters = torch.zeros((n, 1), dtype=torch.int32, device=src.device)
-        stream = 0
+        counters, stream = _scratch_counters(n, src.device), 0
     if counters.shape[0] != n or counters.dtype != torch.int32 or \
             not counters.is_contiguous() or counters.device != src.device:
         raise ValueError("counters must be a contiguous (n, streams) int32 "
                          "tensor on the payload's device")
     tgt = targets_tensor(targets, n, src.device)
     es = src.element_size()
-    inner = 1
+    row_b = es
     for d in src.shape[2:]:
-        inner *= d
-    row_b, off_b = m * inner * es, offset * inner * es
-    src_b, dst_b = src.stride(0) * es, dst.stride(0) * es
-    unit = next(u for u in (16, 8, 4, 2, 1)
-                if all(v % u == 0 for v in (src.data_ptr(), dst.data_ptr(),
-                                            row_b, off_b, src_b, dst_b)))
-    m_u = row_b // unit
-    blocks = max(1, min(cdiv(m_u, 1024), 512 // n))
+        row_b *= d
+    blocks = max(1, min(cdiv(m * row_b, 16 * 1024), 512 // n))
+    ptr = lambda t: 0 if t is None else t.data_ptr()   # noqa: E731
     fn = _build.lib("rma_put")
-    rc = fn(src.data_ptr(), src_b // unit, dst.data_ptr(), dst_b // unit,
-            off_b // unit, tgt.data_ptr(), n, m_u, unit, counters.data_ptr(),
-            counters.shape[1], stream, blocks, _common.stream_ptr(src.device))
+    rc = fn(src.data_ptr(), src.stride(0) * es, dst.data_ptr(),
+            dst.stride(0) * es, row_b, m, span, offset, tgt.data_ptr(), n,
+            ptr(disp), disp_unit, ptr(handles), ptr(regs),
+            0 if regs is None else regs.shape[1], ptr(err), int(read),
+            counters.data_ptr(), counters.shape[1], stream, blocks,
+            _common.stream_ptr(src.device))
     check_launch("ring_put", rc)
-    COUNTER.bump()
+    COUNTER.bump("guarded" if regs is not None else
+                 "device" if dynamic else "static")
     return blocks
 
 
@@ -160,13 +274,18 @@ def wait_counters_plain(counters, owed, *, stream: int, stalls) -> None:
 
 
 def wait_counters(counters: torch.Tensor, owed, *, stream: int,
-                  stalls: torch.Tensor) -> None:
+                  stalls: torch.Tensor, programmatic: bool = True) -> None:
     """Thread-scope completion of one stream: wait until every rank r's
     counter ``(r, stream)`` has reached ``owed[r]``, the ticks its issued
     puts owe.  On the card the wait is a launch on the current stream that
     spins on those counters only; a count still short after a bounded spin
-    adds one to ``stalls[0]`` instead of hanging.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    adds one to ``stalls[0]`` instead of hanging.  It is launched with
+    programmatic stream serialization: it may start while the put before it
+    runs, and it ends only after that put has ended, so stream order holds
+    across it.  ``programmatic=False`` (start after that put has ended)
+    exists only for ``chip_smoke.py``'s with/without comparison.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     _check_wait(counters, owed, stream, stalls)
     if not _common.on_device(counters, stalls):
         wait_counters_plain(counters, owed, stream=stream, stalls=stalls)
@@ -178,9 +297,10 @@ def wait_counters(counters: torch.Tensor, owed, *, stream: int,
     fn = _build.lib("rma_put", "rt_put_wait")
     words = (ctypes.c_uint32 * n)(*(o & 0xFFFFFFFF for o in owed))
     rc = fn(counters.data_ptr(), n, counters.shape[1], stream, words,
-            stalls.data_ptr(), _common.stream_ptr(counters.device))
+            stalls.data_ptr(), int(programmatic),
+            _common.stream_ptr(counters.device))
     check_launch("put_wait", rc)
-    WAIT_COUNTER.bump()
+    WAIT_COUNTER.bump("programmatic" if programmatic else "serial")
 
 
 def ring_put(x: torch.Tensor, *, axis_size: int, shift: int = 1
@@ -196,10 +316,10 @@ def ring_put(x: torch.Tensor, *, axis_size: int, shift: int = 1
         return ring_put(x.view(n, 1), axis_size=n, shift=shift).view(n)
     x = x.contiguous()
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    put_rows(x, out, [(r + shift) % n for r in range(n)])
+    put_rows(x, out, shift_targets(n, shift, x.device))
     return out
 
 
 __all__ = ["ring_put", "put_rows", "put_rows_plain", "wait_counters",
-           "wait_counters_plain", "perm_targets", "targets_tensor", "COUNTER",
-           "WAIT_COUNTER", "MAX_WAIT_RANKS"]
+           "wait_counters_plain", "perm_targets", "targets_tensor",
+           "shift_targets", "resolve_rows", "COUNTER", "WAIT_COUNTER", "MAX_WAIT_RANKS"]

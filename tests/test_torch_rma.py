@@ -435,7 +435,6 @@ def test_unported_surface_raises_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         p.compile(backend="gspmd")
     for call in (lambda: p.prefetch(None, None),
-                 lambda: p.put_handle("w", "g", None, [(0, 1)]),
                  lambda: T.all_to_all_plan("x", 2, (2,), "float32",
                                            backend="gspmd")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
