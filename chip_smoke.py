@@ -43,6 +43,14 @@
    put -> wait pair with and without programmatic launch, 0 stalls; stream
    order across a thread flush that does not own the put before it (the
    put's source overwritten right after the flush, what landed intact).
+   K3 on a pinned host window (the tiered KV pool's cold tier): a guarded
+   put into pinned host memory and a guarded read out of it at one
+   ``qwen3-4b`` page payload, a ragged size at an odd offset and a stale
+   handle (put dropped, read zeroed, each counted), bit for bit against its
+   plain version; an unpinned CPU buffer beside card tensors raises; one
+   page each way by graph replay beside ``copy_`` to and from pinned
+   memory, its bound the bytes over the host link's nominal rate (PCIe
+   generation and width from ``nvidia-smi``).
 2. Drives each path with every launch counter at 0 just before it and
    reads the counters just after: the window layer (allocate →
    dup_with_info → ring put with a thread-scope flush → declared
@@ -70,7 +78,16 @@
    one request set each, every prefill's attention on K7 — greedy tokens
    equal bit for bit, the page pool conserved, K7 launched 36 times per
    prefill, and one prefill's logits held to the same prefill on K7's
-   plain version; and ``mamba2-370m`` at all 48 layers and published
+   plain version; the tiered pool (``[serve-tier]``): the same model,
+   parameters and requests behind ``kv_pages=(2 x 128, 4 x 128)`` with
+   prefix sharing — two sequences in HBM, four in a ``HostKVTier`` in
+   pinned host memory — greedy tokens equal dense bit for bit, pages
+   demoted and promoted, no stale drop, ``max_live`` at least twice the
+   all-HBM paged engine's at 2 x 128 pages, both tiers drained and
+   conserved, every page moved by one guarded K3 launch on the host window,
+   no host synchronization inside ``HostKVTier.step``, and one sequence's
+   demote and promote timed beside ``copy_``; and ``mamba2-370m`` at all
+   48 layers and published
    widths behind a dense engine, 8 requests of 2040-token prompts, every
    prefill's SSD scan on K8 and the pass — each launched 48 times per
    prefill, every request's 32 tokens in the vocabulary, one prefill's
@@ -124,6 +141,12 @@ A2A_PHASES = 16               # the JAX planner's count at n = 4 (CPU tests)
 # are the same prompt (their boundary page is shared copy-on-write).
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_PAGE = 4, 2048, 16
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_PREFIX, SERVE_NEW = 8, 1016, 512, 32
+# the tiered pool: the [serve] phase's model, parameters and requests, with
+# kv_pages=(2 x 128, 4 x 128) pages of 16 tokens: two sequences in HBM, four
+# in the pinned host tier; the all-HBM paged engine it is held to runs the
+# first 4 requests at the same HBM pool (enough to fill it)
+TIER_SEQS = (2, 4)
+TIER_HBM_REQUESTS = 4
 #: K7 against its plain version: the JAX kernel test's tolerances
 K7_TOL = {"float32": dict(atol=2e-5, rtol=1e-2),
           "bfloat16": dict(atol=2e-2, rtol=1e-2)}
@@ -729,6 +752,158 @@ def main() -> int:
                       f"{r['put']:.4f}" for s, r in pair.items())
           + f"; stalls {stall_p.item()}", flush=True)
     del win_buf, upd, got, dst, landed, region
+
+    # K3 on a pinned host window (the tiered KV pool's cold tier): a guarded
+    # put into pinned host memory and a guarded read out of it, at one
+    # qwen3-4b page payload (16 tokens x 8 KV heads x 128 x K,V x 36
+    # layers, bf16), a ragged size at an odd offset and a stale handle,
+    # each against its plain version bit for bit; timed beside copy_ of the
+    # same bytes between the card and pinned memory
+    from repro_torch.core import rma as rma_layer
+
+    cfg_q = get_config("qwen3-4b")
+    page_e = (SERVE_PAGE * cfg_q.n_kv_heads * cfg_q.head_dim * 2
+              * cfg_q.n_layers)
+    host_pool = torch.zeros((1, 4 * page_e), dtype=torch.bfloat16,
+                            pin_memory=True)
+    check(host_pool.is_pinned() and not host_pool.is_cuda,
+          "the host pool is not pinned host memory")
+    regs_h = torch.zeros((1, 4, 3), dtype=torch.int32, device=dev)
+    regs_h[0, :, 0] = torch.tensor([1, 2, 4, 0], dtype=torch.int32)
+    tgt_self = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def handle_at(epoch, offset, slot):
+        return torch.tensor([[epoch, offset, page_e, slot]],
+                            dtype=torch.int32, device=dev)
+
+    host_cases = (("one page", page_e, handle_at(2, page_e, 1), 0),
+                  ("ragged", page_e - 7, handle_at(1, 0, 0), 3),
+                  ("stale", page_e, handle_at(3, 2 * page_e, 2), 0))
+    for what, m, hnd, off in host_cases:
+        stale = what == "stale"
+        payload = rand((1, m), torch.bfloat16)
+        seed_pool = rand((1, 4 * page_e), torch.bfloat16).cpu()
+        for read in (False, True):
+            outs = []
+            for fn in (k3.put_rows, k3.put_rows_plain):
+                e = torch.zeros(1, dtype=torch.int32, device=dev)
+                hp = torch.empty(host_pool.shape, dtype=torch.bfloat16,
+                                 pin_memory=True).copy_(seed_pool)
+                if read:
+                    got = torch.full((1, m), 7, dtype=torch.bfloat16,
+                                     device=dev)
+                    fn(hp, got, tgt_self, offset=off, handles=hnd,
+                       regs=regs_h, err=e, read=True)
+                else:
+                    fn(payload, hp, tgt_self, offset=off, handles=hnd,
+                       regs=regs_h, err=e)
+                    got = hp
+                torch.cuda.synchronize()     # the card wrote host memory
+                outs.append((got.cpu(), e.cpu()))
+            check(torch.equal(outs[0][0], outs[1][0])
+                  and torch.equal(outs[0][1], outs[1][1]),
+                  f"K3 {'read' if read else 'put'} on a pinned host window "
+                  f"({what}) differs from its plain version")
+            check(outs[0][1].item() == int(stale),
+                  f"K3 host {what}: counted {outs[0][1].item()}")
+            if stale and read:
+                check(not outs[0][0].any(), "a stale host read not zeroed")
+            if stale and not read:
+                check(torch.equal(outs[0][0], seed_pool),
+                      "a stale put into host memory landed")
+    check(K.COUNTERS["ring_put"].by_variant.get("guarded-host", 0) >= 6,
+          "K3 did not launch on the pinned host window")
+    unpinned = torch.zeros((1, 4 * page_e), dtype=torch.bfloat16)
+    for what, call in (
+            ("put", lambda: k3.put_rows(payload, unpinned, tgt_self,
+                                        handles=handle_at(1, 0, 0),
+                                        regs=regs_h)),
+            ("window", lambda: rma_layer.Window.allocate(
+                unpinned, "x", 1, device="cuda"))):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"an unpinned CPU buffer beside card tensors "
+                             f"did not raise ({what})")
+    # one page each way, by graph replay, beside copy_ of the same bytes
+    hnd = handle_at(2, page_e, 1)
+    e_h = torch.zeros(1, dtype=torch.int32, device=dev)
+    page = rand((1, page_e), torch.bfloat16)
+    back = torch.empty_like(page)
+    region_h = host_pool[:, page_e:2 * page_e]
+
+    def host_put():
+        k3.put_rows(page, host_pool, tgt_self, handles=hnd, regs=regs_h,
+                    err=e_h)
+
+    def host_read():
+        k3.put_rows(host_pool, back, tgt_self, handles=hnd, regs=regs_h,
+                    err=e_h, read=True)
+
+    host_put()
+    host_read()
+    torch.cuda.synchronize()
+    check(torch.equal(back, page) and e_h.item() == 0,
+          "a page did not round-trip through the pinned host window")
+    page_plain = host_pool.clone()
+    k3.put_rows_plain(page, page_plain, tgt_self, handles=hnd, regs=regs_h)
+    check(torch.equal(page_plain, host_pool), "K3 host put vs plain")
+    def pcie_link() -> list:
+        """The link's current generation and width, then the maximum ones,
+        as nvidia-smi reads them (None where it says [N/A])."""
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=pcie.link.gen.current,"
+             "pcie.link.width.current,pcie.link.gen.max,"
+             "pcie.link.width.max", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout
+        return [int(x) if x.strip().isdigit() else None
+                for x in out.strip().splitlines()[0].split(",")]
+
+    link_before = pcie_link()
+    host_ms = dict(
+        put=graph_ms(torch, host_put), read=graph_ms(torch, host_read),
+        put_copy=graph_ms(torch, lambda: region_h.copy_(page,
+                                                        non_blocking=True)),
+        read_copy=graph_ms(torch, lambda: back.copy_(region_h,
+                                                     non_blocking=True)))
+    link_after = pcie_link()
+    #: nominal GB/s a lane carries each way, by PCIe generation (encoding
+    #: included: 8b/10b to gen 2, 128b/130b from gen 3)
+    lane_gbs = {1: 0.25, 2: 0.5, 3: 0.985, 4: 1.969, 5: 3.938, 6: 7.563}
+    gens = [g for g in (link_before[0], link_after[0]) if g]
+    if gens and link_before[1]:
+        link_gen, link_width = max(gens), link_before[1]
+        link_src = (f"nvidia-smi: current gen {link_before[0]} before the "
+                    f"timing, {link_after[0]} after; max gen {link_before[2]}"
+                    f" x{link_before[3]}")
+    else:           # the card's host interface, H100 SXM data sheet
+        link_gen, link_width = 5, 16
+        link_src = ("nvidia-smi reads the link as [N/A]; the H100 SXM data "
+                    "sheet's host interface, PCIe gen5 x16")
+    link_rate = lane_gbs[link_gen] * link_width * 1e9
+    nbytes = page_e * 2
+    record["ring_put_host"] = dict(
+        ms=host_ms["put"], read_ms=host_ms["read"],
+        plain_ms=time_ms(torch, lambda: k3.put_rows_plain(
+            page, page_plain, tgt_self, handles=hnd, regs=regs_h), reps=3),
+        library_ms=host_ms["put_copy"], read_library_ms=host_ms["read_copy"],
+        max_abs_err=0.0, shape=[1, page_e], dtype="bfloat16",
+        bound_ms=nbytes / link_rate * 1e3, bound_by="bytes",
+        link=f"PCIe gen{link_gen} x{link_width}, {link_rate / 1e9:.2f} "
+             f"GB/s nominal each way ({link_src})")
+    rh = record["ring_put_host"]
+    print(f"[kernels] K3 on a pinned host window equals its plain version "
+          f"bit for bit: put and read of one qwen3-4b page ({page_e} bf16), "
+          f"a ragged {page_e - 7} at offset 3, a stale handle (put dropped, "
+          f"read zeroed, each counted once); an unpinned CPU buffer beside "
+          f"card tensors raises.  One page by graph replay: put "
+          f"{rh['ms']:.4f} ms ({nbytes / rh['ms'] / 1e6:.2f} GB/s), copy_ "
+          f"to pinned {rh['library_ms']:.4f}; read {rh['read_ms']:.4f} ms "
+          f"({nbytes / rh['read_ms'] / 1e6:.2f} GB/s), copy_ from pinned "
+          f"{rh['read_library_ms']:.4f}; bound {rh['bound_ms']:.4f} ms on "
+          f"{rh['link']}", flush=True)
+    del host_pool, page, back, region_h, page_plain, unpinned, seed_pool
 
     # K4 at the dispatch's per-peer block, K6 at the combine's: (n, Cp,
     # d+1) and (n, Cp, d) bfloat16, the doorbell an int32 header word
@@ -1695,7 +1870,205 @@ def main() -> int:
     print(f"[serve] one prefill's last logits, K7 vs its plain version: max "
           f"|d| {diff:.4g} of max |logit| {scale:.4g} (bound "
           f"{PREFILL_LOGIT_RTOL} x)", flush=True)
-    del serve_params, logits
+    del logits
+
+    # ---- [serve-tier] the tiered KV pool on the card ----------------------
+    # the [serve] phase's parameters and prompts; every page that moves
+    # between HBM and the pinned host tier is one guarded K3 launch at the
+    # pool's device-mapped address, every tier flush and prefetch-wait one
+    # K3 wait, and HostKVTier.step makes no host synchronization
+    # PagedKVWindow on the card against the same scenario on the CPU's
+    # plain versions, bit for bit: 4 ranks' pools of qwen3-4b layer pages
+    # (16 tokens x 8 KV heads x 128, K and V) in float32; a local fill, a
+    # handle push, a planned batch push, accumulates on the intrinsic and
+    # the tiled route, a handle read, a freed page's stale put and read
+    from repro_torch.serve import paged as paged_mod
+
+    def paged_tour(device, kvs, small, big):
+        spec = paged_mod.PageSpec(SERVE_PAGE, cfg_serve.n_kv_heads,
+                                  cfg_serve.head_dim, 3)
+        ring4 = [(r, (r + 1) % 4) for r in range(4)]
+        shift4 = [(r, (r + 2) % 4) for r in range(4)]
+        kvs, small, big = ([x.to(device) for x in kvs], small.to(device),
+                           big.to(device))
+        pool = paged_mod.PagedKVWindow.create(spec, "x", 4, torch.float32,
+                                              device=device)
+        pool.alloc_page(0).alloc_page(1)
+        pool.write_page_local(0, kvs[0])
+        pool.put_page_remote(1, kvs[1], ring4)
+        pool.alloc_page(2)
+        pool.push_pages([0, 2], kvs[2:], shift4)
+        pool.accumulate_page(1, small, ring4, offset=3)
+        pool.accumulate_page(2, big, shift4)
+        _, got = pool.get_page_remote(1, ring4)
+        stale = pool.handles[:, 1].clone()
+        pool.free_page(1)
+        mhw = rma_layer.win_from_memhandle(pool.window, stale).put(
+            kvs[0].reshape(4, -1)[:, :64], ring4)
+        pool.err_count += mhw.err_count
+        _, freed = pool.get_page_remote(1, shift4)
+        return [t.cpu() for t in (pool.window.buffer, pool.handles,
+                                  pool.err_count, got, freed)]
+
+    page_shape = (4, 2, SERVE_PAGE, cfg_serve.n_kv_heads, cfg_serve.head_dim)
+    tour_in = ([torch.randn(page_shape) for _ in range(4)],
+               torch.randn((4, ATOMIC_COUNT)),
+               torch.randn((4, 2 * SERVE_PAGE * cfg_serve.n_kv_heads
+                            * cfg_serve.head_dim)))
+    on_card_pw = paged_tour(dev, *tour_in)
+    on_cpu_pw = paged_tour(torch.device("cpu"), *tour_in)
+    check(all(torch.equal(a, b) for a, b in zip(on_card_pw, on_cpu_pw)),
+          "PagedKVWindow on the card differs from its plain versions")
+    check(on_card_pw[2].tolist() == [2, 2, 2, 2] and not on_card_pw[4].any(),
+          "PagedKVWindow: stale operations not dropped, zeroed and counted")
+    print("[serve-tier] PagedKVWindow on the card equals the CPU's plain "
+          "versions bit for bit (4 ranks x 3 qwen3-4b layer pages, float32):"
+          " local fill, handle push, planned batch push, intrinsic and "
+          "tiled accumulates, handle read, a freed page's stale put dropped "
+          "and read zeroed, 2 counted per rank", flush=True)
+    del on_card_pw, on_cpu_pw, tour_in
+
+    pps = SERVE_MAX_SEQ // SERVE_PAGE
+    tier_pages = tuple(k * pps for k in TIER_SEQS)
+    tier_kw = dict(paged_kv=True, page_tokens=SERVE_PAGE, prefix_share=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hbm_eng = ServeEngine(serve_model, serve_params, n_slots=SERVE_SLOTS,
+                          max_seq=SERVE_MAX_SEQ, kv_pages=tier_pages[0],
+                          **tier_kw)
+    for rid in range(TIER_HBM_REQUESTS):
+        hbm_eng.submit(Request(rid, prompts[rid], SERVE_NEW))
+    hbm_tokens = {c.rid: c.tokens for c in hbm_eng.run(strict=True)}
+    check(all(hbm_tokens[r] == serve_out["dense"][r] for r in hbm_tokens),
+          "all-HBM paged (kv_pages=256) tokens differ from dense")
+    hbm_live = hbm_eng.stats()["max_live"]
+    del hbm_eng
+    eng = ServeEngine(serve_model, serve_params, n_slots=SERVE_SLOTS,
+                      max_seq=SERVE_MAX_SEQ, kv_pages=tier_pages, **tier_kw)
+    tier = eng.tier
+    host_buf = tier.pool.window.buffer
+    check(host_buf.is_pinned() and not host_buf.is_cuda
+          and tier.pool.handles.is_cuda and tier.pool.window.regs.is_cuda
+          and tier.pool.window.substrate.counters.is_cuda,
+          "the host tier's pool is not pinned host memory under control "
+          "state on the card")
+    for rid, prompt in enumerate(prompts):
+        eng.submit(Request(rid, prompt, SERVE_NEW))
+    spent = {"prefill": [], "decode": []}
+    for part in spent:                # both calls end in a host read
+        def timed(*a, _fn=getattr(eng.executor, part), _t=spent[part]):
+            t = time.perf_counter()
+            out = _fn(*a)
+            _t.append((time.perf_counter() - t) * 1e3)
+            return out
+        setattr(eng.executor, part, timed)
+    tier_steps = []
+    plain_step = tier.step
+
+    def checked_step(promote, demote, payloads=None):
+        """The engine's tier step under set_sync_debug_mode('error'): any
+        host synchronization inside it raises; CUDA events around it."""
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = plain_step(promote, demote, payloads)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        b.record()
+        tier_steps.append((a, b, len(promote), len(demote)))
+        return out
+
+    tier.step = checked_step
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    done = eng.run(strict=True)
+    wall = time.perf_counter() - t0
+    tier.step = plain_step
+    k3_variants = dict(K.COUNTERS["ring_put"].by_variant)
+    counts = path_counts("serve tier", ("ring_put", "put_wait",
+                                        "flash_attention"))
+    st = eng.stats()
+    moved = st["demotions"] + st["promotions"]
+    tokens = {c.rid: c.tokens for c in done}
+    check(tokens == serve_out["dense"],
+          "tiered greedy tokens differ from the dense engine's")
+    check(st["demotions"] > 0 and st["promotions"] > 0,
+          f"the tiers never moved a page: {st}")
+    check(st["tier_stale_drops"] == 0, f"stale tier reads: {st}")
+    check(st["max_live"] >= 2 * hbm_live,
+          f"max_live {st['max_live']} < 2 x the all-HBM engine's {hbm_live}")
+    check(k3_variants == {"guarded-host": moved},
+          f"K3 launches {k3_variants}, want {moved} guarded host ones (the "
+          f"pages demoted plus the pages promoted)")
+    check(counts["flash_attention"] == cfg_serve.n_layers * SERVE_REQUESTS,
+          f"serve tier: K7 launched {counts['flash_attention']} times")
+    eng.pool.check_conservation()
+    check(eng.pool.n_free == eng.pool.n_pages
+          and eng.pool.host.n_free == eng.pool.host.capacity
+          and not tier.pool.live.any(),
+          f"the tiers did not drain: {st}")
+    torch.cuda.synchronize()
+    step_ms = sorted(a.elapsed_time(b) for a, b, _, _ in tier_steps)
+    n_tok = sum(len(t) for t in tokens.values())
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # one sequence each way on the drained tier, by CUDA events, beside
+    # copy_ of the same pages between the card and the pinned pool
+    e_page = tier.spec.page_elems
+    seq_slots = list(range(pps))
+    tier.alloc(seq_slots)
+    seq_pay = rand((pps, e_page), torch.bfloat16)
+    tier.step((), seq_slots, seq_pay)
+    check(torch.equal(tier.step(seq_slots, ()), seq_pay),
+          "one sequence did not round-trip through the host tier")
+    host_seq = host_buf[0, :pps * e_page].view(pps, e_page)
+    landed = torch.empty_like(seq_pay)
+    seq_ms = dict(
+        demote=time_ms(torch, lambda: tier.step((), seq_slots, seq_pay),
+                       reps=3),
+        promote=time_ms(torch, lambda: tier.step(seq_slots, ()), reps=3),
+        demote_copy=time_ms(torch, lambda: host_seq.copy_(
+            seq_pay, non_blocking=True), reps=3),
+        promote_copy=time_ms(torch, lambda: landed.copy_(
+            host_seq, non_blocking=True), reps=3))
+    check(int(tier.err_count.sum()) == 0, "the timed tier steps went stale")
+    tier.free(seq_slots)
+    seq_bytes = pps * e_page * 2
+    gbs = {k: seq_bytes / v / 1e6 for k, v in seq_ms.items()}
+    pre, dec = spent["prefill"], spent["decode"]
+    record["ring_put_host"]["tier_seq_ms"] = seq_ms
+    print(f"[serve-tier] {cfg_serve.name} x{cfg_serve.n_layers}, "
+          f"{SERVE_REQUESTS} requests x {SERVE_PROMPT} prompt tokens, "
+          f"{SERVE_NEW} new each, {SERVE_SLOTS} slots, kv_pages="
+          f"{tier_pages} of {SERVE_PAGE} tokens, prefix sharing, bf16: greedy "
+          f"tokens equal dense bit for bit; {st['demotions']} pages demoted, "
+          f"{st['promotions']} promoted, {moved} guarded K3 launches on the "
+          f"pinned host window ({counts['put_wait']} waits), 0 stale; "
+          f"max_live {st['max_live']} (all-HBM at {tier_pages[0]} pages: "
+          f"{hbm_live}); no host synchronization in {len(tier_steps)} "
+          f"HostKVTier.step calls; {n_tok} tokens in {wall:.2f} s "
+          f"({n_tok / wall:.1f} tok/s), {st['ticks']} ticks; decode ms per "
+          f"tick median {sorted(dec)[len(dec) // 2]:.2f} (min {min(dec):.2f},"
+          f" max {max(dec):.2f}); tier step ms median "
+          f"{step_ms[len(step_ms) // 2]:.2f} (max {step_ms[-1]:.2f}); prefill "
+          f"ms per request {[round(x, 1) for x in pre]}; peak device memory "
+          f"{peak_gib:.1f} GiB; pinned host pool "
+          f"{host_buf.numel() * 2 / 2**30:.2f} GiB ({host_buf.numel() * 2} "
+          f"bytes)", flush=True)
+    print(f"[serve-tier] one sequence ({pps} pages, "
+          f"{seq_bytes / 2**20:.0f} MiB) by CUDA events: demote "
+          f"{seq_ms['demote']:.2f} ms ({gbs['demote']:.1f} GB/s), copy_ to "
+          f"pinned {seq_ms['demote_copy']:.2f} ms ({gbs['demote_copy']:.1f} "
+          f"GB/s); promote {seq_ms['promote']:.2f} ms ({gbs['promote']:.1f} "
+          f"GB/s), copy_ from pinned {seq_ms['promote_copy']:.2f} ms "
+          f"({gbs['promote_copy']:.1f} GB/s)", flush=True)
+    del eng, tier, host_buf, host_seq, seq_pay, landed, timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    del serve_params
     torch.cuda.empty_cache()
 
     # serving a Mamba2 stack: mamba2-370m at all 48 layers, a dense engine
@@ -1803,6 +2176,7 @@ def main() -> int:
         "ring_put": ("K3", "src/repro/kernels/rma_put.py:47"),
         "ring_put_device": ("K3", "src/repro/kernels/rma_put.py:47"),
         "ring_put_guarded": ("K3", "src/repro/kernels/rma_put.py:47"),
+        "ring_put_host": ("K3", "src/repro/kernels/rma_put.py:47"),
         "put_wait": ("K3", "src/repro/kernels/rma_put.py:47"),
         "put_signal": ("K4", "src/repro/kernels/ordered_put_signal.py:72"),
         "ring_all_reduce": ("K5", "src/repro/kernels/ring_allreduce.py:108"),
@@ -1816,7 +2190,8 @@ def main() -> int:
                "ring_accumulate_device": "intrinsic.cu",
                "ring_accumulate_guarded": "intrinsic.cu",
                "ring_put": "rma_put.cu", "ring_put_device": "rma_put.cu",
-               "ring_put_guarded": "rma_put.cu", "put_wait": "rma_put.cu",
+               "ring_put_guarded": "rma_put.cu",
+               "ring_put_host": "rma_put.cu", "put_wait": "rma_put.cu",
                "put_signal": "put_signal.cu",
                "ring_all_reduce": "ring_allreduce.cu",
                "accumulate_signal": "put_signal.cu",
@@ -1827,6 +2202,7 @@ def main() -> int:
     variant_of = {"ring_put": ("ring_put", "static"),
                   "ring_put_device": ("ring_put", "device"),
                   "ring_put_guarded": ("ring_put", "guarded"),
+                  "ring_put_host": ("ring_put", "guarded-host"),
                   "ring_accumulate": ("ring_accumulate", "static"),
                   "ring_accumulate_device": ("ring_accumulate", "device"),
                   "ring_accumulate_guarded": ("ring_accumulate", "guarded")}
@@ -1850,7 +2226,9 @@ def main() -> int:
                                        "past_l2", "design", "tbps_of_2x",
                                        "first_ms", "library_first_ms",
                                        "floor_ms", "floor_serial_ms",
-                                       "pair_ms", "fig12_ms")
+                                       "pair_ms", "fig12_ms", "read_ms",
+                                       "read_library_ms", "link",
+                                       "tier_seq_ms")
                if key in r}})
     print(json.dumps({"kernels": rows}))
     print(smi)

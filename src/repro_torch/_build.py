@@ -57,7 +57,8 @@ SIGNATURES = {
     "rma_put": {"rt_put": (_P, _I64, _P, _I64, _I64, _I64, _I64, _I64, _P,
                            _I64, _P, _I64, _P, _P, _I, _P, _I, _P, _I, _I,
                            _I, _P),
-                "rt_put_wait": (_P, _I64, _I, _I, _U32P, _P, _I, _P)},
+                "rt_put_wait": (_P, _I64, _I, _I, _U32P, _P, _I, _P),
+                "rt_host_device_pointer": (_P, _P)},
     "ring_allreduce": {"rt_ring_all_reduce":
                        (_P, _I64, _I64, _I64, _P, _I64, _P)},
     "put_signal": {

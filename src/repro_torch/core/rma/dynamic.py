@@ -65,10 +65,14 @@ class DynamicWindow(Window):
     def create_dynamic(cls, pool: torch.Tensor, axis: str, axis_size: int,
                        config: WindowConfig | None = None, *,
                        max_attach: int = 8, am_slots: int = 16,
-                       am_msg: int | None = None) -> "DynamicWindow":
+                       am_msg: int | None = None,
+                       device=None) -> "DynamicWindow":
         """A dynamic window over ``pool``, the stacked ``(n, P)`` attachable
         memory of every rank.  ``am_msg`` (default P) is one AM message's
-        capacity."""
+        capacity.  ``device``: where the registration tables, epochs, AM
+        queue and counters live (default the pool's).  A pool in pinned
+        host memory under tables on the card is reached by K3 alone:
+        handle puts and gets, and their flushes."""
         if pool.dim() != 2:
             raise ValueError(f"a dynamic window's pool is the stacked (n, P) "
                              f"memory of every rank, got {tuple(pool.shape)}")
@@ -76,8 +80,8 @@ class DynamicWindow(Window):
         if not 1 <= am_msg <= pool.shape[1] or max_attach < 1 or am_slots < 1:
             raise ValueError(f"need 1 <= am_msg <= {pool.shape[1]}, "
                              "max_attach >= 1 and am_slots >= 1")
-        base = Window.allocate(pool, axis, axis_size, config)
-        n, dev = axis_size, pool.device
+        base = Window.allocate(pool, axis, axis_size, config, device=device)
+        n, dev = axis_size, base.device
         i32 = dict(dtype=torch.int32, device=dev)
         return cls(base.substrate, base.config,
                    regs=torch.zeros((n, max_attach, 3), **i32),

@@ -27,8 +27,13 @@ time (the paper's thesis lifted from windows to patterns):
 P5 handle ops (``put_handle``/``get_handle``) replay through
 :func:`~repro_torch.core.rma.memhandle.win_from_memhandle` on a dynamic
 window, and :attr:`PlanResult.err_count` sums their stale-handle counts.
-Only the ``rma`` backend is ported; the gspmd/interpret/auto backends and
-prefetch edges raise ``NotImplementedError`` (ROADMAP queue 1).
+A prefetch edge (:meth:`RmaPlan.prefetch`) issues a transport op early on
+the window's last declared stream and places its completion epoch, the
+``prefetch-wait``, right before its consumer; on the card that stream is a
+column of the completion counters, and the wait one K3 wait on it (all
+launches still share one CUDA stream).  Only the ``rma`` backend is ported;
+the gspmd/interpret/auto backends raise ``NotImplementedError`` (ROADMAP
+queue 1).
 
 Values in a plan are stacked: a binding or an op result is ``(n, ...)``,
 row r = rank r, and recorded closures see the rank vector as ``env.ranks``.
@@ -36,6 +41,7 @@ row r = rank r, and recorded closures see the rank vector as ``env.ranks``.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, Sequence
 
 import torch
@@ -88,6 +94,7 @@ class _Op:
     handle: Any = None             # put/get_handle: handle source
     value: Any = None              # signal: flag payload override
     fn: Callable | None = None     # compute
+    prefetch: bool = False         # planned early issue (plan.prefetch edge)
     label: str = ""
     # -- filled by the compiler --
     deps: frozenset = frozenset()
@@ -134,6 +141,8 @@ class _Step:
     group: tuple = ()
     phases: int = 0
     tier: str = "inter"
+    pwait: bool = False  # flush placed by a prefetch edge (the late wait
+                         # right before the consumer)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,6 +211,7 @@ class RmaPlan:
         self._edges: list[tuple[int, int]] = []
         self._outputs: list[tuple[str, Any]] = []
         self._macros: list[_Macro] = []
+        self._prefetch: list[tuple[int, int]] = []  # prefetch(op, before)
 
     # -- declarations ---------------------------------------------------------
     def window(self, name: str, **decl) -> str:
@@ -334,9 +344,18 @@ class RmaPlan:
                             perm=perm, slot=slot, offset=offset, size=size,
                             stream=stream, after=tuple(after), label=label)
 
-    def prefetch(self, *args, **kwargs):
-        raise _not_ported("RmaPlan.prefetch (planned prefetch edges)",
-                          "item 8")
+    def prefetch(self, op: OpRef, before: OpRef) -> None:
+        """Declare ``op`` (a transport op, typically a :meth:`get_handle`)
+        a planned **prefetch** for ``before``: it issues as early as the
+        schedule allows on the stream the planner dedicates to prefetch
+        traffic (the window's last declared one), and its completion epoch
+        lands *late*, immediately before ``before``'s step, instead of at
+        the next ordinary flush point, so everything scheduled in between
+        overlaps it.  The phase table shows the op as ``prefetch:<label>``
+        and the epoch as ``prefetch-wait[window/stream]``.  A plan with no
+        prefetch edge compiles exactly as before."""
+        self._edges.append((op.idx, before.idx))
+        self._prefetch.append((op.idx, before.idx))
 
     def all_to_all(self, data_window: str, hdr_window: str, source, counts,
                    axis: str, n: int, *, shape, dtype, op: str | None = None,
@@ -494,6 +513,19 @@ class RmaPlan:
                 "'rma', 'gspmd', 'interpret'")
         ops = [dataclasses.replace(o) for o in self._ops]
 
+        # prefetch edges: tag the early-issued ops and index the late waits
+        # by consumer (pass 3 dedicates a stream, pass 6 places each wait
+        # right before its consumer's step)
+        pf_by_consumer: dict[int, list[int]] = {}
+        for p, c in self._prefetch:
+            if ops[p].kind == "compute":
+                raise PlanError(
+                    f"plan.prefetch: op {p} is a compute — only transport "
+                    "ops can be prefetched (their completion is what the "
+                    "late wait covers)")
+            ops[p].prefetch = True
+            pf_by_consumer.setdefault(c, []).append(p)
+
         # pass 0 — dependency graph + cycle check (value vs completion edges)
         for o in ops:
             sync = {r.idx for r in o.after}
@@ -588,22 +620,32 @@ class RmaPlan:
                       and tdecl.perm_is_intra(o.perm) else "inter")
 
         # pass 3 — stream assignment: chains inherit, independent chains
-        # spread round-robin over the declared streams (max P1 concurrency)
+        # spread round-robin over the declared streams (max P1 concurrency).
+        # A window with prefetch ops dedicates its last declared stream to
+        # them, so the late prefetch-wait drains prefetch traffic only
         pos = {idx: k for k, idx in enumerate(topo)}
         next_stream: dict[str, int] = {}
+        pf_windows = {ops[p].window for ps in pf_by_consumer.values()
+                      for p in ps}
         for idx in topo:
             o = ops[idx]
             if o.kind == "compute" or o.stream is not None:
                 continue
             w = self._windows[o.window]
+            if o.prefetch:
+                o.stream = w.max_streams - 1
+                continue
             same_win = [d for d in self._comm_ancestors(ops, o)
                         if ops[d].window == o.window
                         and ops[d].stream is not None]
             if same_win:
                 o.stream = ops[max(same_win, key=lambda d: pos[d])].stream
             else:
+                lanes = w.max_streams
+                if o.window in pf_windows and w.max_streams > 1:
+                    lanes = w.max_streams - 1   # keep the prefetch lane clear
                 nxt = next_stream.get(o.window, 0)
-                o.stream = nxt % w.max_streams
+                o.stream = nxt % lanes
                 next_stream[o.window] = nxt + 1
 
         # pass 4 — comm frontiers of all edges and of completion edges
@@ -654,7 +696,7 @@ class RmaPlan:
         used_streams: dict[str, set] = {w: set() for w in self._windows}
         inter_streams: dict[str, set] = {w: set() for w in self._windows}
 
-        def emit_flush(wname: str, stream: int | None):
+        def emit_flush(wname: str, stream: int | None, pwait: bool = False):
             w = self._windows[wname]
             if w.scope == SCOPE_THREAD:
                 keys = [(wname, stream)]
@@ -663,7 +705,7 @@ class RmaPlan:
                 stream = None
             ph = sum(2 for k in keys if pending.get(k))
             steps.append(_Step(kind="flush", window=wname, stream=stream,
-                               phases=ph))
+                               phases=ph, pwait=pwait))
             for k in keys:
                 flushed.update(pending.pop(k, ()))
 
@@ -678,6 +720,11 @@ class RmaPlan:
 
         for idx in topo:
             o = ops[idx]
+            # late prefetch waits: a prefetched op's epoch lands here, right
+            # before its consumer's step
+            for p in pf_by_consumer.get(idx, ()):
+                if p not in flushed:
+                    emit_flush(ops[p].window, ops[p].stream, pwait=True)
             if o.kind == "compute":
                 steps.append(_Step(kind="op", op=o))
                 continue
@@ -814,7 +861,8 @@ class CompiledPlan:
         for s in self.steps:
             tag = " [intra]" if s.tier == "intra" else ""
             if s.kind == "flush":
-                rows.append((f"flush[{s.window}/{s.stream}]", s.phases))
+                word = "prefetch-wait" if s.pwait else "flush"
+                rows.append((f"{word}[{s.window}/{s.stream}]", s.phases))
             elif s.kind == "entry":
                 rows.append((f"entry[{s.window}/{s.stream}]", s.phases))
             elif s.kind == "fused":
@@ -824,6 +872,8 @@ class CompiledPlan:
                 continue
             else:
                 name = s.op.label or f"{s.op.kind}#{s.op.idx}"
+                if s.op.prefetch:
+                    name = f"prefetch:{name}"
                 rows.append((f"{name}{tag}", s.phases))
         return rows
 
@@ -874,7 +924,7 @@ class CompiledPlan:
             cfg = decl.config().replace(max_streams=win.substrate.n_streams,
                                         topology=self.topology)
             views[wname] = dataclasses.replace(win, config=cfg)
-            n, device = win.axis_size, win.buffer.device
+            n, device = win.axis_size, win.device
         env = PlanEnv(bindings, views, n, device)
         errs = torch.zeros(n, dtype=torch.int32, device=device)
 
@@ -970,7 +1020,7 @@ class CompiledPlan:
         flag = self._resolve(sig.value, env)
         if flag is None:
             one = acc_engine.default_flag_value(flag_op, fsub.buffer.dtype)
-            flag = one.to(fsub.buffer.device).expand(fsub.axis_size, 1)
+            flag = one.to(fsub.device).expand(fsub.axis_size, 1)
         common = dict(flag=flag, flag_offset=sig.offset, flag_op=flag_op,
                       flag_sub=fsub, stream=d.stream)
         if d.kind == "send":
@@ -1028,7 +1078,7 @@ class CompiledPlan:
                 if data is None:
                     one = acc_engine.default_flag_value(op_name,
                                                         sub.buffer.dtype)
-                    data = one.to(sub.buffer.device).expand(sub.axis_size, 1)
+                    data = one.to(sub.device).expand(sub.axis_size, 1)
             else:
                 op_name, data = o.op, self._resolve(o.source, env)
             sub.rmw(data, o.perm, op_name, path=o.path, offset=offset,
@@ -1105,8 +1155,29 @@ def invalidate_topology(fingerprint: tuple) -> dict[str, list]:
         lambda key: any(el == fingerprint for el in key))
 
 
+# ---------------------------------------------------------------------------
+# Legacy-wrapper deprecation bookkeeping
+# ---------------------------------------------------------------------------
+
+_LEGACY_WARNED: set[str] = set()
+
+
+def warn_legacy_once(entry: str, replacement: str) -> None:
+    """Emit the legacy entry point's ``DeprecationWarning`` once per process
+    per entry point.  The wrappers stay supported and numerically identical
+    (they build and execute the same plan); the warning points callers at
+    the plan-native surface."""
+    if entry in _LEGACY_WARNED:
+        return
+    _LEGACY_WARNED.add(entry)
+    warnings.warn(
+        f"{entry} is a legacy imperative entry point kept as a thin wrapper "
+        f"over the declarative plan API; build the pattern once with "
+        f"{replacement} and replay it", DeprecationWarning, stacklevel=3)
+
+
 __all__ = [
     "RmaPlan", "CompiledPlan", "PlanEnv", "PlanResult", "PlanError", "OpRef",
     "register_plan_cache", "plan_cache_stats", "invalidate_plan_caches",
-    "invalidate_topology",
+    "invalidate_topology", "warn_legacy_once",
 ]

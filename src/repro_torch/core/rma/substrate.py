@@ -64,7 +64,7 @@ from repro_torch.kernels.accumulate import accumulate_rows
 from repro_torch.kernels.intrinsic import accumulate_rows_atomic
 from repro_torch.kernels.ordered_put_signal import (accumulate_signal_rows,
                                                     put_signal_rows)
-from repro_torch.kernels.rma_put import (perm_targets, put_rows,
+from repro_torch.kernels.rma_put import (map_host, perm_targets, put_rows,
                                          targets_tensor, wait_counters)
 
 Perm = Sequence[tuple[int, int]]
@@ -204,19 +204,40 @@ class Substrate:
 
     @classmethod
     def allocate(cls, buffer: torch.Tensor, axis: str, axis_size: int,
-                 n_streams: int = 1) -> "Substrate":
+                 n_streams: int = 1, device=None) -> "Substrate":
+        """``device``: where the control state (counters, target maps)
+        lives, default the buffer's.  A buffer in pinned host memory may
+        sit under control state on the card: K3 then puts into it and reads
+        from it at its device-mapped address (checked here, once)."""
         if buffer.dim() < 2 or buffer.shape[0] != axis_size:
             raise ValueError(
                 f"a window buffer is the stacked (axis_size={axis_size}, "
                 f"...) shards of every rank, got {tuple(buffer.shape)}")
+        dev = buffer.device if device is None else torch.device(device)
+        if dev.type == buffer.device.type and dev.index in (
+                None, buffer.device.index):
+            dev = buffer.device
+        elif dev.type == "cuda" and buffer.device.type == "cpu" and \
+                buffer.is_pinned():
+            map_host(buffer)
+        else:
+            raise ValueError(
+                f"a window buffer on {buffer.device} (pinned: "
+                f"{buffer.is_pinned()}) cannot sit under control state on "
+                f"{dev}: only pinned host memory beside the card")
         counters = torch.zeros((axis_size, n_streams), dtype=torch.int32,
-                               device=buffer.device)
+                               device=dev)
         return cls(buffer, axis, axis_size, FlushQueues(), n_streams,
                    counters, [[0] * n_streams for _ in range(axis_size)],
-                   torch.zeros(1, dtype=torch.int32, device=buffer.device),
+                   torch.zeros(1, dtype=torch.int32, device=dev),
                    PhaseLedger(),
-                   torch.zeros(axis_size + 2, dtype=torch.int32,
-                               device=buffer.device))
+                   torch.zeros(axis_size + 2, dtype=torch.int32, device=dev))
+
+    @property
+    def device(self) -> torch.device:
+        """Where the control state lives and the operations' results land:
+        the buffer's device, or the card under a pinned host buffer."""
+        return self.counters.device
 
     # -- helpers ----------------------------------------------------------
     def _launches(self, pairs) -> list:
@@ -230,11 +251,18 @@ class Substrate:
                 ([s for s, _ in g], self._targets(g)) for g in _layers(pairs)]
         return out
 
+    def prepare(self, perm: Perm) -> None:
+        """Put ``perm``'s target maps, and its inverse's (a read's
+        response), on the device now, so that later operations along it
+        copy nothing to the card."""
+        self._launches(perm)
+        self._launches([(t, s) for s, t in perm])
+
     def _targets(self, pairs) -> torch.Tensor:
         key = tuple(perm_targets(pairs, self.axis_size))
         t = self.targets.get(key)
         if t is None:
-            t = targets_tensor(key, self.axis_size, self.buffer.device)
+            t = targets_tensor(key, self.axis_size, self.device)
             self.targets[key] = t
         return t
 
@@ -245,7 +273,7 @@ class Substrate:
         t = self.targets.get(key)
         if t is None:
             t = self.targets[key] = torch.tensor(
-                key[1:], dtype=torch.long).to(self.buffer.device)
+                key[1:], dtype=torch.long).to(self.device)
         return t
 
     def _payload(self, data: torch.Tensor) -> torch.Tensor:
@@ -253,7 +281,7 @@ class Substrate:
             raise ValueError(
                 f"payloads are stacked per rank: leading dim must be "
                 f"{self.axis_size}, got {tuple(data.shape)}")
-        return data.to(device=self.buffer.device,
+        return data.to(device=self.device,
                        dtype=self.buffer.dtype).contiguous()
 
     def _offsets(self, offset, perm: Perm) -> dict[int, int]:
@@ -272,7 +300,7 @@ class Substrate:
             raise ValueError(f"a per-rank displacement has one entry per "
                              f"rank ({self.axis_size},), got "
                              f"{tuple(d.shape)}")
-        return d.to(device=self.buffer.device, dtype=torch.int32).contiguous()
+        return d.to(device=self.device, dtype=torch.int32).contiguous()
 
     def _address(self, offset) -> dict:
         """K3's and K2's address of a window operation: a static int (the
@@ -302,7 +330,7 @@ class Substrate:
         guard's zeros for a stale one); ranks that read nothing get zeros.
         One launch per layer of the inverse map."""
         out = torch.zeros((self.axis_size, size) + tuple(self.buffer.shape[2:]),
-                          dtype=self.buffer.dtype, device=self.buffer.device)
+                          dtype=self.buffer.dtype, device=self.device)
         for senders, tmap in self._launches([(t, s) for s, t in perm]):
             ticks = put_rows(self.buffer, out, tmap, counters=self.counters,
                              stream=stream, read=True, **addr)
@@ -480,7 +508,7 @@ class Substrate:
         if self.buffer.dim() != 2:
             raise ValueError("compare_swap works on windows of 1-D shards")
         offs = self._offsets(offset, perm)
-        dev, dt = self.buffer.device, self.buffer.dtype
+        dev, dt = self.device, self.buffer.dtype
         for s, _ in perm:
             if not 0 <= offs[s] < self.buffer.shape[1]:
                 raise ValueError(f"compare_swap at offset {offs[s]} is "

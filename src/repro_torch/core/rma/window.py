@@ -125,16 +125,25 @@ class Window:
         """The dup family's phase ledger."""
         return self.substrate.ledger
 
+    @property
+    def device(self) -> torch.device:
+        """Where the window's control state lives (:attr:`Substrate.device`)."""
+        return self.substrate.device
+
     @classmethod
     def allocate(cls, buffer: torch.Tensor, axis: str, axis_size: int,
-                 config: WindowConfig | None = None) -> "Window":
+                 config: WindowConfig | None = None, *,
+                 device=None) -> "Window":
         """``MPI_Win_allocate``: expose ``buffer``, the stacked ``(axis_size,
-        ...)`` shards of every rank.  The window aliases it (no copy)."""
+        ...)`` shards of every rank.  The window aliases it (no copy).
+        ``device``: where its control state lives (default the buffer's;
+        the card under a pinned host buffer, which only K3's puts and reads
+        reach)."""
         if not buffer.is_contiguous():
             raise ValueError("a window exposes a contiguous stacked buffer")
         config = config or WindowConfig()
         return cls(Substrate.allocate(buffer, axis, axis_size,
-                                      config.max_streams), config)
+                                      config.max_streams, device), config)
 
     def dup_with_info(self, **info) -> "Window":
         """``MPIX_Win_dup_with_info`` (paper §3): a new view over the same

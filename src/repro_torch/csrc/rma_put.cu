@@ -36,6 +36,13 @@
 // zeros, and either adds one to err[w] — the target's count, as the JAX
 // memory-handle window counts it (repro/core/rma/memhandle.py:168-179).
 //
+// A window row may also lie in pinned host memory (the tiered KV pool's
+// cold tier): src or dst is then the device-mapped address of that memory,
+// which rt_host_device_pointer below gives once per buffer, and each copy
+// unit crosses the host link.  Nothing else changes: the control words
+// (targets, handles, regs, err, counters) stay in device memory, and every
+// byte offset is 64-bit (a 512-page qwen3-4b host pool is 1.2e9 bytes).
+//
 // Layout: sender row r at src + r * src_stride, receiver row t = targets[r]
 // at dst + t * dst_stride (bytes).  A put writes m rows of row_bytes at the
 // resolved row of dst; a read's response reads them at the resolved row of
@@ -218,4 +225,11 @@ RT_EXPORT int rt_put_wait(const void* counters, int64_t n, int n_streams, int st
   const cudaError_t e = cudaLaunchKernelEx(&cfg, put_wait_kernel, (const unsigned*)counters,
                                            (int)n, n_streams, stream, o, (unsigned*)stalls);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// The device-visible address of pinned host memory (cudaHostAlloc'd by
+// PyTorch's pinned allocator): K3's wrapper asks once per buffer, when a
+// window over it is made, and passes the result as src or dst.
+RT_EXPORT int rt_host_device_pointer(void* host, void** device) {
+  return (int)cudaHostGetDevicePointer(device, host, 0);
 }

@@ -118,7 +118,8 @@ class LaunchCounter:
 def on_device(*tensors: torch.Tensor) -> bool:
     """True when the tensors lie on a CUDA device (the wrapper must launch
     its kernel), False when they lie on the CPU (the wrapper computes its
-    plain version).  Mixed placements raise."""
+    plain version).  Mixed placements raise (K3's one exception:
+    :func:`host_window`)."""
     kinds = {t.device.type for t in tensors}
     if len(kinds) != 1:
         raise ValueError(f"tensors on mixed devices: {sorted(kinds)}")
@@ -128,6 +129,41 @@ def on_device(*tensors: torch.Tensor) -> bool:
     if kind == "cpu":
         return False
     raise ValueError(f"unsupported device type {kind!r}")
+
+
+#: pinned host storages K3 reaches at a device-mapped address: storage
+#: base -> that address (``kernels.rma_put.map_host`` fills it, once each)
+MAPPED_HOST: dict[int, int] = {}
+
+
+def pinned_host(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies in pinned host memory.  Inside a CUDA graph
+    capture, which may forbid the pointer query, only a storage already
+    mapped for K3 counts."""
+    if t.device.type != "cpu":
+        return False
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return t.untyped_storage().data_ptr() in MAPPED_HOST
+    return t.is_pinned()
+
+
+def host_window(operands, control) -> bool:
+    """K3's exception to :func:`on_device`: True when an operand (a window
+    buffer) lies in pinned host memory beside CUDA tensors — the kernel
+    then reaches it at its device-mapped address — and every other tensor
+    is on the card (else raises).  False when no pinned host operand sits
+    beside a CUDA tensor: :func:`on_device` decides, and an unpinned CPU
+    operand beside CUDA tensors raises there."""
+    everything = (*operands, *control)
+    if not any(t.is_cuda for t in everything) or not any(
+            pinned_host(t) for t in operands):
+        return False
+    if not all(t.is_cuda for t in control) or not all(
+            t.is_cuda or pinned_host(t) for t in operands):
+        raise ValueError(
+            "a pinned host window buffer needs every other operand on the "
+            f"card, got {[str(t.device) for t in everything]}")
+    return True
 
 
 def check_launch(name: str, rc: int) -> None:
@@ -145,5 +181,7 @@ def stream_ptr(device: torch.device) -> int:
 __all__ = [
     "ATOMIC_KERNEL_OPS", "ACC_OPS", "BITWISE_OPS", "OP_CODES", "DTYPE_CODES",
     "as_dtype", "is_integer", "combine_op", "cdiv", "round_up",
-    "LaunchCounter", "on_device", "check_launch", "stream_ptr",
+    "LaunchCounter", "on_device", "host_window", "pinned_host",
+    "MAPPED_HOST", "check_launch",
+    "stream_ptr",
 ]

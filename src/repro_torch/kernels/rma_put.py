@@ -16,6 +16,11 @@ registration tables it must match may guard the operation (a stale put is
 dropped, a stale read's response is zeros, each counted), so a handle put
 is one launch, as an allocated put is, and the host reads nothing.
 
+A window buffer (``src`` of a read, ``dst`` of a put) may also lie in pinned
+host memory beside control tensors on the card — the tiered KV pool's cold
+tier: K3 then reads or writes it at its device-mapped address
+(:func:`map_host`), and the launch counts as a ``-host`` variant.
+
 Replaces ``repro/kernels/rma_put.py::ring_put`` (the ``pallas_call`` at
 ``rma_put.py:47``; ``rdma.start()`` is the put, ``rdma.wait()`` the flush).
 CUDA source: ``csrc/rma_put.cu``.  Bound on an H100: bytes (one read and
@@ -34,7 +39,8 @@ from repro_torch.kernels.common import LaunchCounter, cdiv, check_launch
 
 #: put launches by variant: "static" (host offsets), "device" (a
 #: displacement or handle from device memory), "guarded" (with the
-#: lifetime guard)
+#: lifetime guard); "-host" appended when an operand is a pinned host
+#: window buffer
 COUNTER = LaunchCounter("ring_put")
 #: wait launches by variant: "programmatic" or "serial"
 WAIT_COUNTER = LaunchCounter("put_wait")
@@ -44,6 +50,7 @@ MAX_WAIT_RANKS = 256
 
 #: (n, device) -> completion counters for callers that keep none
 _SCRATCH_COUNTERS: dict = {}
+
 
 
 def targets_tensor(targets, n: int, device) -> torch.Tensor:
@@ -155,7 +162,9 @@ def put_rows_plain(src, dst, targets, *, offset: int = 0, counters=None,
     completion ticks each sending rank added to its counter (1)."""
     dynamic = disp is not None or handles is not None
     _check(src, dst, offset, read, dynamic)
-    _check_address(src.shape[0], src.device, disp, handles, regs, err)
+    control = [t for t in (disp, handles, regs, err) if t is not None]
+    _check_address(src.shape[0], control[0].device if control else None,
+                   disp, handles, regs, err)
     m, span = (dst.shape[1], src.shape[1]) if read else (src.shape[1],
                                                           dst.shape[1])
     for r, t in enumerate(targets_tensor(targets, src.shape[0], "cpu").tolist()):
@@ -174,6 +183,33 @@ def put_rows_plain(src, dst, targets, *, offset: int = 0, counters=None,
         if counters is not None:
             counters[r, stream] += 1
     return 1
+
+
+def map_host(t: torch.Tensor) -> int:
+    """The device-visible address of the pinned host tensor ``t``: the one
+    ``cudaHostGetDevicePointer`` gives for its storage (asked once per
+    storage, when a window over it is made; raises if the card cannot map
+    it) plus ``t``'s offset in it."""
+    if not _common.pinned_host(t):
+        raise ValueError("only pinned host memory has a device-mapped "
+                         f"address, got a tensor on {t.device} that is not")
+    base = t.untyped_storage().data_ptr()
+    mapped = _common.MAPPED_HOST.get(base)
+    if mapped is None:
+        out = ctypes.c_void_p()
+        rc = _build.lib("rma_put", "rt_host_device_pointer")(
+            base, ctypes.byref(out))
+        if rc != 0 or not out.value:
+            raise RuntimeError(f"cudaHostGetDevicePointer refused the pinned "
+                               f"buffer at {base:#x} (code {rc})")
+        mapped = _common.MAPPED_HOST[base] = out.value
+    return mapped + (t.data_ptr() - base)
+
+
+def device_pointer(t: torch.Tensor) -> int:
+    """The address K3 is given for an operand: a CUDA tensor's own, a
+    pinned host tensor's device-mapped one (:func:`map_host`)."""
+    return t.data_ptr() if t.is_cuda else map_host(t)
 
 
 def _scratch_counters(n: int, device) -> torch.Tensor:
@@ -207,10 +243,16 @@ def put_rows(src: torch.Tensor, dst: torch.Tensor, targets, *,
     Returns the ticks each sending rank's counter gained (the number of
     blocks that wrote its row), so a caller can tell when a stream's puts
     have all completed.  CPU tensors take the plain version; CUDA tensors
-    launch K3 or raise."""
+    launch K3 or raise.  ``src`` or ``dst`` (a window buffer) may be pinned
+    host memory beside CUDA tensors: K3 then reads or writes it at its
+    device-mapped address (the ``-host`` variants of the launch count); an
+    unpinned CPU operand beside CUDA tensors raises."""
     dynamic = disp is not None or handles is not None
     _check(src, dst, offset, read, dynamic)
-    if not _common.on_device(src, dst):
+    control = [t for t in (counters, disp, handles, regs, err)
+               if t is not None]
+    if not (_common.host_window((src, dst), control)
+            or _common.on_device(src, dst, *control)):
         return put_rows_plain(src, dst, targets, offset=offset,
                               counters=counters, stream=stream, disp=disp,
                               disp_unit=disp_unit, handles=handles,
@@ -218,18 +260,20 @@ def put_rows(src: torch.Tensor, dst: torch.Tensor, targets, *,
     if not (_row_contiguous(src) and _row_contiguous(dst)):
         raise ValueError("K3 needs operands whose rows are contiguous")
     n = src.shape[0]
-    _check_address(n, src.device, disp, handles, regs, err)
+    device = next((t.device for t in (*control, src, dst) if t.is_cuda),
+                  src.device)
+    _check_address(n, device, disp, handles, regs, err)
     m, span = (dst.shape[1], src.shape[1]) if read else (src.shape[1],
                                                           dst.shape[1])
     if m == 0:
         return 0
     if counters is None:
-        counters, stream = _scratch_counters(n, src.device), 0
+        counters, stream = _scratch_counters(n, device), 0
     if counters.shape[0] != n or counters.dtype != torch.int32 or \
-            not counters.is_contiguous() or counters.device != src.device:
+            not counters.is_contiguous() or counters.device != device:
         raise ValueError("counters must be a contiguous (n, streams) int32 "
-                         "tensor on the payload's device")
-    tgt = targets_tensor(targets, n, src.device)
+                         f"tensor on {device}")
+    tgt = targets_tensor(targets, n, device)
     es = src.element_size()
     row_b = es
     for d in src.shape[2:]:
@@ -237,15 +281,17 @@ def put_rows(src: torch.Tensor, dst: torch.Tensor, targets, *,
     blocks = max(1, min(cdiv(m * row_b, 16 * 1024), 512 // n))
     ptr = lambda t: 0 if t is None else t.data_ptr()   # noqa: E731
     fn = _build.lib("rma_put")
-    rc = fn(src.data_ptr(), src.stride(0) * es, dst.data_ptr(),
+    rc = fn(device_pointer(src), src.stride(0) * es, device_pointer(dst),
             dst.stride(0) * es, row_b, m, span, offset, tgt.data_ptr(), n,
             ptr(disp), disp_unit, ptr(handles), ptr(regs),
             0 if regs is None else regs.shape[1], ptr(err), int(read),
             counters.data_ptr(), counters.shape[1], stream, blocks,
-            _common.stream_ptr(src.device))
+            _common.stream_ptr(device))
     check_launch("ring_put", rc)
-    COUNTER.bump("guarded" if regs is not None else
-                 "device" if dynamic else "static")
+    variant = ("guarded" if regs is not None else
+               "device" if dynamic else "static")
+    COUNTER.bump(variant if src.is_cuda and dst.is_cuda else
+                 f"{variant}-host")
     return blocks
 
 
@@ -322,4 +368,5 @@ def ring_put(x: torch.Tensor, *, axis_size: int, shift: int = 1
 
 __all__ = ["ring_put", "put_rows", "put_rows_plain", "wait_counters",
            "wait_counters_plain", "perm_targets", "targets_tensor",
-           "shift_targets", "resolve_rows", "COUNTER", "WAIT_COUNTER", "MAX_WAIT_RANKS"]
+           "shift_targets", "resolve_rows", "map_host", "device_pointer",
+           "COUNTER", "WAIT_COUNTER", "MAX_WAIT_RANKS"]

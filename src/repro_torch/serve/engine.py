@@ -34,8 +34,18 @@ kernel K7, or K8 for Mamba2 blocks) and inserts it into the slot; in paged
 mode the prompt's KV is re-paged into the slot's physical pages, and pages
 it shares land on the parking page.
 
-``kv_pages=(hbm_pages, host_pages)``, the tiered pool with a host-memory
-cold tier, is not ported yet (ROADMAP item 8) and raises.
+``kv_pages=(hbm_pages, host_pages)`` turns the pool into a tiered memory
+hierarchy: admission is priced against HBM + host capacity (so more
+sequences are live than HBM alone could back) while the per-tick decode set
+is priced against HBM only.  Live slots rotate through the tiers: inactive
+slots' pages are demoted to a :class:`~repro_torch.serve.paged.HostKVTier`
+(pinned host memory on the card's side) by planned handle puts, and
+promotions are scheduled a tick ahead so their planned handle reads ride
+prefetch edges beside the demote traffic
+(:func:`~repro_torch.serve.paged.tier_step_plan`); kernel K3 moves every
+page.  Only active slots commit tokens each tick; greedy decode is
+row-independent and a promotion restores the slot's pages, table row and
+position exactly, so the committed tokens equal the all-HBM engine's.
 """
 from __future__ import annotations
 
@@ -46,7 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.serve import disagg
-from repro_torch.serve.paged import KVPoolManager
+from repro_torch.serve.paged import HostKVTier, KVPoolManager
 from repro_torch.serve.scheduler import Scheduler
 
 
@@ -171,6 +181,107 @@ class Executor:
         for d in _paged_dicts(self.cache):
             d["page_ro"][..., idx] = value
 
+    def set_pages_hot(self, pages, value: bool) -> None:
+        """Flip physical pages' device-side residency bit.  The tiered
+        engine clears it when a page's bytes leave for the host tier and
+        sets it when fresh pages are wired (admission, promotion, COW
+        fork); the paged attention reroutes any gather or scatter still
+        aimed at a non-hot page to the parking page."""
+        idx = torch.as_tensor(list(pages), dtype=torch.int64,
+                              device=self.device)
+        for d in _paged_dicts(self.cache):
+            d["page_hot"][..., idx] = value
+
+    # -- tiered payload migration -------------------------------------------
+    @property
+    def page_payload_dtype(self) -> torch.dtype:
+        """Dtype of the concatenated per-page payload (the pools' dtype)."""
+        for d in _paged_dicts(self.cache):
+            return d["k_pages"].dtype
+        raise ValueError("no paged pools in this cache")
+
+    @property
+    def page_payload_elems(self) -> int:
+        """Elements in one page's full payload: every paged pool's K and V
+        for that page concatenated (a scan-stacked pool contributes all its
+        layers), so one host-tier slot round-trips one logical KV page."""
+        n = 0
+        for d in _paged_dicts(self.cache):
+            for key in ("k_pages", "v_pages"):
+                leaf = d[key]
+                n += leaf[..., 0, :, :, :].numel()
+        if not n:
+            raise ValueError("no paged pools in this cache")
+        return n
+
+    def gather_page_payloads(self, pages) -> torch.Tensor:
+        """Read physical pages' full payloads ``(len(pages),
+        page_payload_elems)`` in the fixed pool walk order
+        :meth:`scatter_page_payloads` writes them back in — the demotion
+        snapshot (shared pages are never written: the pool forks first)."""
+        pages = list(pages)
+        idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
+        dt = self.page_payload_dtype
+        parts = []
+        for d in _paged_dicts(self.cache):
+            for key in ("k_pages", "v_pages"):
+                leaf = d[key]
+                part = (leaf[idx] if leaf.dim() == 4
+                        else leaf[:, idx].movedim(0, 1))
+                parts.append(part.reshape(len(pages), -1).to(dt))
+        return torch.cat(parts, dim=1)
+
+    def scatter_page_payloads(self, pages, payloads: torch.Tensor) -> None:
+        """Write payloads back into physical pages in place — the exact
+        inverse of :meth:`gather_page_payloads` (same walk order, each
+        leaf's dtype restored), so a demote → promote round trip is
+        bit-identical."""
+        pages = list(pages)
+        idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
+        payloads = payloads.reshape(len(pages), -1)
+        cur = 0
+        for d in _paged_dicts(self.cache):
+            for key in ("k_pages", "v_pages"):
+                leaf = d[key]
+                if leaf.dim() == 4:
+                    shape = (len(pages),) + tuple(leaf.shape[1:])
+                    take = shape[1] * shape[2] * shape[3]
+                    leaf[idx] = payloads[:, cur:cur + take].reshape(
+                        shape).to(leaf.dtype)
+                else:                               # leading layer axis
+                    shape = (len(pages), leaf.shape[0]) + tuple(
+                        leaf.shape[2:])
+                    take = shape[1] * shape[2] * shape[3] * shape[4]
+                    leaf[:, idx] = payloads[:, cur:cur + take].reshape(
+                        shape).to(leaf.dtype).movedim(1, 0)
+                cur += take
+
+    def map_slot(self, slot: int, phys_pages, pos: int) -> None:
+        """Point ``slot``'s page-table row at ``phys_pages`` and restore its
+        cache position — how a promoted sequence gets its device identity
+        back.  Restores both position counters: the paged dicts' per-row
+        ``pos`` (scatter target and causal mask) and the stack's top-level
+        ``step`` counter (rope positions), which kept advancing while the
+        slot sat cold, since parked rows still ride the batched decode."""
+        phys = torch.as_tensor(list(phys_pages), dtype=torch.int32,
+                               device=self.device)
+        for d in _paged_dicts(self.cache):
+            d["page_table"][..., slot, :] = phys
+            d["pos"][..., slot] = pos
+
+        def restep(tree):
+            if isinstance(tree, dict):
+                for k, v in tree.items():
+                    if k != "step":
+                        restep(v)
+                if "step" in tree and "k_pages" not in tree:
+                    tree["step"][slot] = pos
+            elif isinstance(tree, list):
+                for v in tree:
+                    restep(v)
+
+        restep(self.cache)
+
     def park(self, slot: int) -> None:
         """Point a released slot's table rows at the parking page (its idle
         decode writes must never land on pages a later admission owns)."""
@@ -225,20 +336,17 @@ class ServeEngine:
     def __init__(self, model, params, *, n_slots: int, max_seq: int,
                  paged_kv: bool = False, page_tokens: int = 16,
                  policy: str = "continuous", prefix_share: bool = False,
-                 kv_pages: int | tuple[int, int] | None = None):
+                 kv_pages: int | tuple[int, int] | None = None,
+                 tier_quantum: int = 2):
         self.model = model
         self.params = params
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.paged_kv = paged_kv
+        self.tiered = False
         if prefix_share and not paged_kv:
             raise ValueError("prefix_share=True requires paged_kv=True "
                              "(sharing happens on the physical page pool)")
-        if isinstance(kv_pages, tuple):
-            raise NotImplementedError(
-                "kv_pages=(hbm, host): the tiered KV pool (host-memory cold "
-                "tier, HostKVTier, tier_step_plan) is not ported to "
-                "repro_torch yet (ROADMAP queue 1, item 8)")
         self.prefix_share = prefix_share
         self.executor = Executor(model, params, n_slots=n_slots,
                                  max_seq=max_seq, paged_kv=paged_kv,
@@ -247,6 +355,13 @@ class ServeEngine:
             self.page_tokens = page_tokens
             self.pages_per_slot = max_seq // page_tokens
             n_pages = n_slots * self.pages_per_slot
+            host_pages = 0
+            if isinstance(kv_pages, tuple):
+                kv_pages, host_pages = kv_pages
+                if host_pages < 0:
+                    raise ValueError(
+                        f"kv_pages=(hbm, host): host pages must be >= 0, "
+                        f"got {host_pages}")
             if kv_pages is not None:
                 if not self.pages_per_slot <= kv_pages <= n_pages:
                     raise ValueError(
@@ -254,9 +369,25 @@ class ServeEngine:
                         f"={self.pages_per_slot} and the device pool size "
                         f"{n_pages}")
                 n_pages = kv_pages
-            self.pool = KVPoolManager(n_pages)
+            self.pool = KVPoolManager(n_pages, host_pages)
             self.slot_pages: dict[int, list[int]] = {}
             self._ro_pages: set[int] = set()
+            self.tiered = host_pages > 0
+            self.tier_quantum = max(int(tier_quantum), 1)
+            if self.tiered:
+                if host_pages < self.pages_per_slot:
+                    raise ValueError(
+                        f"kv_pages=({n_pages}, {host_pages}): the host tier "
+                        f"must hold at least one sequence "
+                        f"(pages_per_slot={self.pages_per_slot})")
+                ex = self.executor
+                self.tier = HostKVTier(host_pages, ex.page_payload_elems,
+                                       ex.page_payload_dtype,
+                                       device=ex.device)
+                self._cold: dict[int, dict] = {}   # slot -> {"host": [...]}
+                self._active: set[int] = set()
+                self._promote_next: list[int] = []
+                self._hot_since: dict[int, int] = {}
         self.scheduler = Scheduler(n_slots, policy)
         self.slot_free = [True] * n_slots
         self._offline: set[int] = set()
@@ -279,14 +410,24 @@ class ServeEngine:
                               t_submit=time.perf_counter())
 
     def step(self) -> None:
-        """One engine tick: admit per the policy, fork shared pages about
-        to be written, then one decode step over every slot."""
+        """One engine tick: migrate tiers, admit per the policy, fork shared
+        pages about to be written, then one decode step over every slot.
+        In tiered mode only active (HBM-resident) slots commit tokens: a
+        cold slot's row is parked and its output discarded."""
+        if self.tiered:
+            self._tier_tick()
         self._admit()
         if self.slot_req:
             if self.paged_kv and self.prefix_share:
                 self._cow_tick()
+            if self.tiered:
+                # every active slot's pages must be hot before decode
+                for slot in sorted(self._active):
+                    self.pool.assert_resident(self.slot_pages[slot])
             nxt = self.executor.decode(self._last_tokens)
             for slot in list(self.slot_req):
+                if self.tiered and slot not in self._active:
+                    continue
                 tok = int(nxt[slot])
                 self.slot_generated[slot].append(tok)
                 self.slot_pos[slot] += 1
@@ -384,6 +525,14 @@ class ServeEngine:
                        pages_shared=self.pool.shared_maps,
                        cow_copies=self.pool.cow_copies,
                        cow_debt=self.pool.cow_debt)
+            if self.tiered:
+                out.update(host_pages=self.pool.host.capacity,
+                           host_pages_free=self.pool.host.n_free,
+                           cold_slots=len(self._cold),
+                           active_slots=len(self._active),
+                           demotions=self.pool.demotions,
+                           promotions=self.pool.promotions,
+                           tier_stale_drops=int(self.tier.err_count.sum()))
         return out
 
     # -- internals --------------------------------------------------------------
@@ -406,8 +555,17 @@ class ServeEngine:
         """Admit what the scheduler selects, until it selects nothing (an
         admission-time completion frees its slot within the tick)."""
         while True:
-            entries = self.scheduler.select(sum(self.slot_free),
-                                            live=len(self.slot_req),
+            n_free = sum(self.slot_free)
+            if self.tiered:
+                # total-footprint pricing against the whole hierarchy: an
+                # admitted sequence may rotate through the cold tier, but
+                # never lands on capacity that does not exist
+                n_free = min(n_free, self.scheduler.price_admission(
+                    pages_per_seq=self.pages_per_slot,
+                    hbm_free=self.pool.n_free,
+                    host_free=self.pool.host.n_free,
+                    reserve=self.pool.cow_debt))
+            entries = self.scheduler.select(n_free, live=len(self.slot_req),
                                             tick=self._tick)
             if not entries:
                 return
@@ -452,6 +610,11 @@ class ServeEngine:
             if newly_ro:
                 self.executor.set_pages_ro(newly_ro, True)
                 self._ro_pages.update(newly_ro)
+            if self.tiered:
+                if fresh:
+                    self.executor.set_pages_hot(fresh, True)
+                self._active.add(slot)
+                self._hot_since[slot] = self._tick
         first = self.executor.prefill(tokens, slot, phys, write_ok)
         self.slot_free[slot] = False
         self.slot_req[slot] = req
@@ -522,6 +685,121 @@ class ServeEngine:
                 self.executor.set_pages_ro([p], False)
                 self._ro_pages.discard(p)
 
+    def _tier_tick(self) -> None:
+        """One tier-rotation step, at the top of every tick.
+
+        1. Demote the oldest-hot victims until the HBM free list can back
+           the scheduled promotions, one fresh admission (if a request is
+           pending and the hierarchy has room) and the COW fork reserve:
+           payload snapshot, host-slot alloc, planned puts, then release
+           (sharing dissolves on demotion).
+        2. Promote the scheduled slots that now fit: the planned reads land
+           in fresh hot pages, the table row and position are restored
+           (:meth:`Executor.map_slot`), and the cold copy is retired through
+           ``memhandle_release``.  Steps 1 and 2 are one
+           :func:`~repro_torch.serve.paged.tier_step_plan` replay.
+        3. Recompute the active set and schedule the next promotions
+           (oldest-cold first, every ``tier_quantum`` ticks or at once when
+           nothing is active)."""
+        pool, ex, tier = self.pool, self.executor, self.tier
+        pps = self.pages_per_slot
+        # promotions scheduled last tick (slots may have finished meanwhile)
+        enter = [s for s in self._promote_next if s in self._cold]
+        self._promote_next = []
+        # demotion headroom also covers one fresh admission this tick
+        admit_head = 0
+        if (self.scheduler.pending_count and any(self.slot_free)
+                and self.scheduler.price_admission(
+                    pages_per_seq=pps, hbm_free=pool.n_free,
+                    host_free=pool.host.n_free,
+                    reserve=pool.cow_debt) > 0):
+            admit_head = pps
+        target = pps * len(enter) + admit_head + pool.cow_debt
+        projected = pool.n_free
+        host_room = pool.host.n_free
+        leave: list[int] = []
+        hot_live = sorted(
+            (s for s in self.slot_req
+             if s in self._active and s in self.slot_pages),
+            key=lambda s: self._hot_since.get(s, 0))
+        for s in hot_live:
+            if projected >= target or host_room < pps:
+                break
+            # only sole-owner pages return to the free list; a shared
+            # page's co-holders keep it resident
+            projected += sum(1 for p in self.slot_pages[s]
+                             if pool.refcount_of(p) == 1)
+            host_room -= pps
+            leave.append(s)
+        demote_pages: list[int] = []
+        for s in leave:
+            demote_pages.extend(self.slot_pages[s])
+        payloads = (ex.gather_page_payloads(demote_pages)
+                    if demote_pages else None)
+        host_slots = pool.alloc_cold(len(demote_pages)) if demote_pages else []
+        for hp, hs in zip(demote_pages, host_slots):
+            pool.queue_demote(hp, hs)
+        # which scheduled promotions fit after this demotion round
+        avail = projected - admit_head - pool.cow_debt
+        promote: list[int] = []
+        for s in enter:
+            if avail >= pps:
+                promote.append(s)
+                avail -= pps
+            else:
+                self._promote_next.append(s)     # stays queued (in flight)
+        promote_hosts = [h for s in promote for h in self._cold[s]["host"]]
+        # one planned tier step: the promote reads (prefetch edges) issued
+        # ahead of the demote puts, one completion epoch each
+        tier.alloc(host_slots)
+        promoted = tier.step(promote_hosts, host_slots, payloads)
+        # commit demotions: park, release (COW machinery runs normally),
+        # clear the residency bits of pages that actually freed
+        cursor = 0
+        for s in leave:
+            pages = self.slot_pages.pop(s)
+            ex.park(s)
+            dropped = pool.release(pages)
+            ro_clear = [p for p in dropped if p in self._ro_pages]
+            if ro_clear:
+                ex.set_pages_ro(ro_clear, False)
+                self._ro_pages.difference_update(ro_clear)
+            freed = [p for p in dropped if pool.refcount_of(p) == 0]
+            if freed:
+                ex.set_pages_hot(freed, False)
+            self._cold[s] = {"host": host_slots[cursor:cursor + pps]}
+            cursor += pps
+            self._active.discard(s)
+            self._hot_since.pop(s, None)
+        pool.drain_demotes()
+        # commit promotions: payloads land in fresh hot pages, identity
+        # (table row and position) restored, cold copies retired
+        cursor = 0
+        for s in promote:
+            hs = self._cold.pop(s)["host"]
+            fresh = pool.alloc(pps)
+            ex.scatter_page_payloads(fresh, promoted[cursor:cursor + pps])
+            ex.set_pages_hot(fresh, True)
+            ex.map_slot(s, fresh, self.slot_pos[s] - 1)
+            self.slot_pages[s] = fresh
+            tier.free(hs)
+            pool.drain_promotes(hs)
+            pool.free_cold(hs)
+            self._hot_since[s] = self._tick
+            cursor += pps
+        self._active = {s for s in self.slot_req if s in self.slot_pages}
+        # schedule the next promotion round a tick ahead: oldest-cold
+        # first, on the rotation quantum (or at once when nothing is active)
+        if self._cold and (self._tick % self.tier_quantum == 0
+                           or not self._active):
+            k = max(1, (pool.n_pages // max(pps, 1)) // 2)
+            cand = [s for s in self._cold
+                    if s not in self._promote_next][:k]
+            if cand:
+                self._promote_next.extend(cand)
+                pool.queue_promote(
+                    [h for s in cand for h in self._cold[s]["host"]])
+
     def _release(self, slot: int) -> None:
         self.slot_free[slot] = slot not in self._offline
         del self.slot_req[slot]
@@ -538,6 +816,17 @@ class ServeEngine:
             if ro_clear:
                 self.executor.set_pages_ro(ro_clear, False)
                 self._ro_pages.difference_update(ro_clear)
+        if self.tiered:
+            self._active.discard(slot)
+            self._hot_since.pop(slot, None)
+            if slot in self._promote_next:
+                self._promote_next.remove(slot)
+            if slot in self._cold:
+                # a cold slot released outright: retire its host copy (the
+                # epoch bump makes any straggler handle stale)
+                hs = self._cold.pop(slot)["host"]
+                self.tier.free(hs)
+                self.pool.free_cold(hs)
 
 
 __all__ = ["ServeEngine", "Executor", "Request", "Completion"]

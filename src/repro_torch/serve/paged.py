@@ -1,14 +1,306 @@
-"""The KV page pool's host-side bookkeeping: a tier-generic refcounted page
-core with copy-on-write sharing (:class:`PageTier`) and the tiered pool
-manager composing an HBM hot tier and a host-memory cold tier
-(:class:`KVPoolManager`) — pure Python, ported from the JAX package's
-``serve/paged.py``.
+"""The paged KV cache as a dynamic RMA window (the serving-side use of P5),
+and the KV page pool's host-side bookkeeping — ported from the JAX
+package's ``serve/paged.py``.
 
-The device side of the tiered pool (``PagedKVWindow``, ``HostKVTier`` in
-pinned memory, ``transfer_plan``, ``tier_step_plan``) is not ported yet
-(ROADMAP item 8); the serving engine uses the hot tier alone.
+The device side: :class:`PagedKVWindow` is a fixed-capacity page pool
+exposed as a dynamic window (pages are attached segments, each with a
+memory handle, freed through ``memhandle_release``), :func:`transfer_plan`
+the planned page push, and the tiered pool's cold tier: :class:`HostKVTier`
+keeps its pages in pinned host memory behind the same window and handle
+machinery, and :func:`tier_step_plan` is one tick's tier traffic — promote
+reads as prefetch edges, demote writes, one replay.  On the card every page
+moves by kernel K3 (a guarded handle put or read at the pool's
+device-mapped address), and every flush or prefetch-wait is K3's wait.
+
+The host side: a tier-generic refcounted page core with copy-on-write
+sharing (:class:`PageTier`) and the tiered pool manager composing an HBM
+hot tier and a host-memory cold tier (:class:`KVPoolManager`), pure Python.
+
+Ranks are the rows of stacked tensors: the pool is ``(n, n_pages ·
+page_elems)``, ``handles`` ``(n, n_pages, 4)``; page lifecycle (alloc,
+free and their guards) reads a host-side mirror of which pages are live,
+never the card.
 """
 from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.rma import (DynamicWindow, WindowConfig,
+                                  memhandle_create, memhandle_release,
+                                  win_from_memhandle)
+from repro_torch.core.rma.plan import register_plan_cache
+from repro_torch.device import resolve_device
+from repro_torch.kernels.common import as_dtype
+
+#: the memory handle's offset word is int32: a pool of 2^31 elements or
+#: more would wrap page offsets (the JAX package wraps silently)
+MAX_POOL_ELEMS = 2**31 - 1
+
+_TRANSFER_PLANS: dict[tuple, object] = register_plan_cache("kv_transfer", {})
+
+
+def _dtype_name(dt: torch.dtype) -> str:
+    """A dtype's name as numpy and JAX spell it (``"bfloat16"``)."""
+    return str(dt).rsplit(".", 1)[-1]
+
+
+def transfer_plan(pool_pages: int, pages: tuple, page_elems: int, dtype,
+                  perm: tuple, stream: int = 0, *,
+                  naive_flush: bool = False, topology=None,
+                  backend: str = "rma"):
+    """Build (or fetch from the build-once cache) the compiled page push:
+    one :meth:`RmaPlan.put_handle` per page on the batch's ordered stream
+    and one exit flush epoch — 2 phases per page (payload + handle header)
+    and 2 for the epoch, never a per-page ack.  ``topology`` (part of the
+    cache key) classifies a push that stays on one host into the
+    shared-memory tier.  ``backend``: ``"auto"`` resolves to ``"rma"`` (a
+    page push records no collective macro); only ``"rma"`` is ported."""
+    from repro_torch.core.rma.plan import RmaPlan
+    from repro_torch.core.rma.topology import topology_fingerprint
+
+    if backend == "auto":
+        backend = "rma"        # no macro to ever pick gspmd for
+    dt = as_dtype(dtype)
+    key = (pool_pages, tuple(pages), page_elems, _dtype_name(dt), perm,
+           stream, naive_flush, topology_fingerprint(topology), backend)
+    if key in _TRANSFER_PLANS:
+        return _TRANSFER_PLANS[key]
+    plan = RmaPlan(f"transfer_pages[{len(pages)}]", topology=topology)
+    plan.window("pool", scope="thread", order=True, max_streams=stream + 1,
+                dtype=dt, exit_epoch=True)
+    plan.bind("handles", (pool_pages, 4), torch.int32)
+    for i, page in enumerate(pages):
+        plan.bind(f"kv{i}", (page_elems,), dt)
+        plan.put_handle("pool", f"kv{i}",
+                        lambda env, p=page: env["handles"][:, p], perm,
+                        slot=page, stream=stream, shape=(page_elems,),
+                        dtype=dt, label=f"page{page}")
+    compiled = plan.compile(naive_flush=naive_flush, backend=backend)
+    _TRANSFER_PLANS[key] = compiled
+    return compiled
+
+
+@dataclasses.dataclass(frozen=True)
+class PageSpec:
+    page_tokens: int          # tokens per page
+    kv_heads: int
+    head_dim: int
+    n_pages: int              # pool capacity
+
+    @property
+    def page_elems(self) -> int:
+        return self.page_tokens * self.kv_heads * self.head_dim * 2  # K and V
+
+
+@dataclasses.dataclass
+class PagedKVWindow:
+    """Fixed-capacity page pool exposed as a dynamic window.
+
+    ``window.buffer`` is the stacked pool ``(n, n_pages · page_elems)``;
+    page *p* occupies columns ``[p·page_elems, (p+1)·page_elems)`` of every
+    rank's row.  ``handles`` ``(n, n_pages, 4)`` holds each live page's
+    memory handle per rank (what a remote engine would receive); ``live``
+    is the host-side mirror of which pages are attached, so alloc and free
+    and their guards never read the card.
+
+    ``err_count`` ``(n,)`` aggregates the P5 stale-handle drops observed
+    across every handle-path transfer through this pool (put, get,
+    accumulate, batched pushes), by the rank that dropped them.  The
+    methods update the pool in place and return it."""
+
+    window: DynamicWindow
+    handles: torch.Tensor
+    live: torch.Tensor        # (n_pages,) bool, on the host
+    spec: PageSpec
+    err_count: torch.Tensor = None
+
+    def __post_init__(self):
+        if self.err_count is None:
+            self.err_count = torch.zeros(self.window.axis_size,
+                                         dtype=torch.int32,
+                                         device=self.window.device)
+
+    # -- construction ---------------------------------------------------------
+    @classmethod
+    def create(cls, spec: PageSpec, axis: str, axis_size: int,
+               dtype=torch.bfloat16, *, topology=None, device="cuda",
+               host: bool = False) -> "PagedKVWindow":
+        """A zeroed pool on ``device`` (the card unless the caller asks for
+        the CPU).  ``host=True`` keeps the pool itself in pinned host
+        memory, under registration tables, handles and counters on the
+        card: K3 reaches it at its device-mapped address.  A pool of 2^31
+        elements or more raises (the handle's offset word is int32)."""
+        dev = resolve_device(device)
+        elems = spec.n_pages * spec.page_elems
+        if elems > MAX_POOL_ELEMS:
+            raise ValueError(
+                f"a pool of {spec.n_pages} pages x {spec.page_elems} elements"
+                f" = {elems} >= 2^31: the memory handle's offset word is "
+                "int32 and would wrap")
+        dt = as_dtype(dtype)
+        if host:
+            if dev.type != "cuda":
+                raise ValueError("host=True keeps the pool in pinned host "
+                                 "memory beside the card; on the CPU every "
+                                 "pool is in host memory already")
+            pool = torch.zeros((axis_size, elems), dtype=dt, pin_memory=True)
+        else:
+            pool = torch.zeros((axis_size, elems), dtype=dt, device=dev)
+        win = DynamicWindow.create_dynamic(
+            pool, axis, axis_size,
+            WindowConfig(scope="thread", order=True, max_streams=4,
+                         topology=topology),
+            max_attach=spec.n_pages, am_slots=1, am_msg=1, device=dev)
+        return cls(
+            window=win,
+            handles=torch.zeros((axis_size, spec.n_pages, 4),
+                                dtype=torch.int32, device=dev),
+            live=torch.zeros(spec.n_pages, dtype=torch.bool),
+            spec=spec)
+
+    def _live(self, page: int) -> bool:
+        return 0 <= page < self.spec.n_pages and bool(self.live[page])
+
+    # -- page lifecycle ---------------------------------------------------------
+    def alloc_page(self, page: int) -> "PagedKVWindow":
+        """Attach page ``page`` and create its memory handle (P5): local,
+        no communication — the handle is what peers get.  Allocating a live
+        page raises with the page id: a second attach would mint a handle
+        at the epoch of the outstanding ones."""
+        if self._live(page):
+            raise ValueError(
+                f"alloc_page({page}): page is already allocated "
+                f"(double alloc — free_page it before re-attaching)")
+        s = self.spec
+        self.window.attach(page, offset=page * s.page_elems,
+                           size=s.page_elems)
+        self.handles[:, page] = memhandle_create(self.window, page)
+        self.live[page] = True
+        return self
+
+    def free_page(self, page: int) -> "PagedKVWindow":
+        """Release through ``memhandle_release``: the slot goes invalid,
+        the epoch advances (stale handle writes are dropped and counted,
+        stale reads come back zeroed and counted) and the release is
+        recorded, so handle windows made for this page with ``slot=`` raise
+        on a later use.  Freeing a page that is not live raises with the
+        page id."""
+        if not self._live(page):
+            raise ValueError(
+                f"free_page({page}): page is not allocated "
+                f"(double free, or never alloc_page'd)")
+        memhandle_release(self.window, page)
+        self.handles[:, page] = 0
+        self.live[page] = False
+        return self
+
+    # -- data paths ---------------------------------------------------------------
+    def _columns(self, page: int) -> slice:
+        if not 0 <= page < self.spec.n_pages:
+            raise ValueError(f"page {page} outside the pool's "
+                             f"{self.spec.n_pages}")
+        e = self.spec.page_elems
+        return slice(page * e, (page + 1) * e)
+
+    def write_page_local(self, page: int, kv: torch.Tensor
+                         ) -> "PagedKVWindow":
+        """Local fill (an engine writing its own pool): ``kv`` is stacked
+        per rank."""
+        buf = self.window.buffer
+        buf[:, self._columns(page)] = kv.reshape(buf.shape[0], -1).to(
+            buf.dtype)
+        return self
+
+    def read_page(self, page: int) -> torch.Tensor:
+        """Every rank's page ``(n, 2, page_tokens, kv_heads, head_dim)``."""
+        s = self.spec
+        return self.window.buffer[:, self._columns(page)].reshape(
+            -1, 2, s.page_tokens, s.kv_heads, s.head_dim)
+
+    def _handle_window(self, page: int, **info):
+        """A handle window for ``page`` on a dup'd view of the pool (paper
+        P4: the transfer's own config, the pool's substrate)."""
+        view = self.window.dup_with_info(scope="thread", **info)
+        return win_from_memhandle(view, self.handles[:, page], slot=page)
+
+    def put_page_remote(self, page: int, kv: torch.Tensor, perm,
+                        stream: int = 0, *, order: bool = True
+                        ) -> "PagedKVWindow":
+        """Push a filled page into a peer's pool through its memory handle:
+        one guarded K3 launch, then the stream's flush.  The transfer runs
+        on a dup'd view of the pool (ordered, thread-scope completion)."""
+        mhw = self._handle_window(page, order=order)
+        mhw.put(kv.reshape(self.window.axis_size, -1), perm, stream=stream)
+        mhw.flush(stream)
+        self.err_count += mhw.err_count
+        return self
+
+    def accumulate_page(self, page: int, update: torch.Tensor, perm, *,
+                        op: str = "sum", offset: int = 0, stream: int = 0
+                        ) -> "PagedKVWindow":
+        """In-place remote update of a live page through a dup'd view that
+        declares single-op usage (``same_op=op``, paper §2.3 hints × P4),
+        addressed by the page's memory handle: small updates on
+        atomic-capable dtypes take K2, large ones K3 read, K1 fold and K3
+        write-back."""
+        mhw = self._handle_window(page, order=True, same_op=op,
+                                  accumulate_ops=(op,))
+        mhw.accumulate(update.reshape(self.window.axis_size, -1), perm,
+                       op=op, offset=offset, stream=stream)
+        mhw.flush(stream)
+        self.err_count += mhw.err_count
+        return self
+
+    def push_pages(self, pages, kvs, perm, stream: int = 0, *,
+                   backend: str = "rma") -> "PagedKVWindow":
+        """Batched push as a plan replay (:func:`transfer_plan`): every page
+        back to back through its memory handle on one ordered stream, one
+        guarded K3 launch each, and one thread-scope flush epoch for the
+        batch.  ``pages`` are Python ints: the registration slots are part
+        of the plan."""
+        buf = self.window.buffer
+        compiled = transfer_plan(
+            self.spec.n_pages, tuple(pages), self.spec.page_elems, buf.dtype,
+            tuple(tuple(p) for p in perm), stream,
+            topology=self.window.config.topology, backend=backend)
+        bindings = {"handles": self.handles}
+        for i, kv in enumerate(kvs):
+            bindings[f"kv{i}"] = kv.reshape(buf.shape[0], -1).to(buf.dtype)
+        res = compiled.execute({"pool": self.window}, bindings)
+        self.window = res.windows["pool"]
+        self.err_count += res.err_count
+        return self
+
+    def transfer_pages(self, pages, kvs, perm, stream: int = 0
+                       ) -> "PagedKVWindow":
+        """Batched push, the legacy entry point: a thin wrapper over
+        :meth:`push_pages` (same numerics, same phases) that warns once per
+        process (``DeprecationWarning``)."""
+        from repro_torch.core.rma.plan import warn_legacy_once
+
+        warn_legacy_once("PagedKVWindow.transfer_pages",
+                         "PagedKVWindow.push_pages (plan replay)")
+        return self.push_pages(pages, kvs, perm, stream=stream)
+
+    def get_page_remote(self, page: int, perm, stream: int = 0
+                        ) -> tuple["PagedKVWindow", torch.Tensor]:
+        """Read a page from a peer's pool through its memory handle: one
+        guarded K3 launch (the response), then the stream's flush.  A stale
+        handle's response is zeros, counted into ``err_count``."""
+        s = self.spec
+        mhw = self._handle_window(page, order=True)
+        _, flat = mhw.get(perm, offset=0, size=s.page_elems, stream=stream)
+        mhw.flush(stream)
+        self.err_count += mhw.err_count
+        return self, flat.reshape(-1, 2, s.page_tokens, s.kv_heads,
+                                  s.head_dim)
+
+
+# ---------------------------------------------------------------------------
+# Host-side pool management: tier-generic refcounted core + the tiered manager
+# ---------------------------------------------------------------------------
 
 #: Residency states a physical page moves through in the tiered pool.
 RESIDENT_HOT = "hot"            # device-resident, decodable
@@ -204,8 +496,8 @@ class KVPoolManager:
     With ``host_pages > 0`` the pool becomes a **memory hierarchy**
     ("MPI Windows on Storage" applied to KV): two :class:`PageTier` cores —
     ``hbm`` (what decode reads) and ``host`` (cold spill, backed by a
-    host-memory window at the engine layer, not ported yet: ROADMAP item 8)
-    — plus per-page residency state and demotion/promotion queues.  Page naming is
+    host-memory :class:`HostKVTier` at the engine layer) — plus per-page
+    residency state and demotion/promotion queues.  Page naming is
     tier-scoped: ``("hbm", p)`` and ``("host", s)`` are different physical
     pages; a migration copies payload between them and retires one side.
     The refcount/COW machinery lives entirely in the hot tier — sharing
@@ -420,5 +712,147 @@ class KVPoolManager:
         return st
 
 
-__all__ = ["PageTier", "KVPoolManager", "RESIDENT_HOT", "RESIDENT_COLD",
-           "RESIDENT_IN_FLIGHT"]
+# ---------------------------------------------------------------------------
+# The cold tier's window: host-memory pages behind the same P5 machinery
+# ---------------------------------------------------------------------------
+
+_TIER_PLANS: dict[tuple, object] = register_plan_cache("kv_tier_step", {})
+
+
+def tier_step_plan(pool_pages: int, promote: tuple, demote: tuple,
+                   page_elems: int, dtype, perm: tuple = ((0, 0),), *,
+                   backend: str = "rma"):
+    """Build (or fetch from the build-once cache) one decode tick's tier
+    traffic as a compiled plan: the promote ``get_handle``\\ s first —
+    **prefetch edges** on the window's dedicated last stream (3) — then the
+    demote ``put_handle``\\ s on the migration stream (2), then the
+    ``attention-gather`` compute that consumes the promoted payloads.  The
+    planner places the promotes' completion epoch as a ``prefetch-wait``
+    right before the gather, so the phase table shows the overlap::
+
+        prefetch:promote[s]...   (dedicated stream, issued first)
+        demote[t]...             (migration stream)
+        prefetch-wait[host/3]    (the promotes complete only here)
+
+    A stale handle (a cold page freed after its demotion) reads zeros and
+    is counted (P5).  Output ``"promoted"`` stacks the fetched payloads
+    ``(n, len(promote), page_elems)``; omitted when nothing promotes."""
+    from repro_torch.core.rma.plan import RmaPlan
+
+    if backend == "auto":
+        backend = "rma"        # no macro to ever pick gspmd for
+    dt = as_dtype(dtype)
+    key = (pool_pages, tuple(promote), tuple(demote), page_elems,
+           _dtype_name(dt), tuple(tuple(p) for p in perm), backend)
+    if key in _TIER_PLANS:
+        return _TIER_PLANS[key]
+    plan = RmaPlan(f"kv-tier-step[p{len(promote)} d{len(demote)}]")
+    plan.window("host", scope="thread", order=True, max_streams=4,
+                dtype=dt, exit_epoch=True)
+    plan.bind("handles", (pool_pages, 4), torch.int32)
+    gets = []
+    for s in promote:
+        gets.append(plan.get_handle(
+            "host", lambda env, p=s: env["handles"][:, p], tuple(perm),
+            slot=s, size=page_elems, stream=3, label=f"promote[{s}]"))
+    for i, s in enumerate(demote):
+        plan.bind(f"cold{i}", (page_elems,), dt)
+        plan.put_handle("host", f"cold{i}",
+                        lambda env, p=s: env["handles"][:, p], tuple(perm),
+                        slot=s, stream=2, shape=(page_elems,), dtype=dt,
+                        label=f"demote[{s}]")
+    if gets:
+        gather = plan.compute(
+            lambda env: torch.stack([env[g] for g in gets], dim=1),
+            reads=tuple(gets), label="attention-gather")
+        for g in gets:
+            plan.prefetch(g, gather)
+        plan.output("promoted", gather)
+    compiled = plan.compile(backend=backend)
+    _TIER_PLANS[key] = compiled
+    return compiled
+
+
+class HostKVTier:
+    """The cold tier's storage: a host-memory page pool behind the same
+    dynamic-window and memory-handle machinery as the device pools.
+
+    Demoted pages are attached slots of a :class:`PagedKVWindow` whose pool
+    lies in **pinned host memory** (``device="cuda"``, the default: its
+    registration tables, epochs, handles, ``err_count`` and completion
+    counters stay on the card, and K3 reaches the pool at its device-mapped
+    address), or on the CPU with everything else (``device="cpu"``).  So the
+    P5 lifetime story applies unchanged: :meth:`free` releases through
+    ``memhandle_release``, and a later promote of that slot comes back
+    **zeroed and counted**, never as reused bytes.
+
+    The serving engine is one process, so a tier step replays the compiled
+    :func:`tier_step_plan` on a window of one rank with the self-map
+    ``((0, 0),)`` — where the JAX package runs it under ``vmap`` over one
+    rank.  A "page" here is one sequence page's full payload across every
+    pool the model keeps (``Executor.page_payload_elems``).  A pool of 2^31
+    elements or more raises (the handle's offset word is int32)."""
+
+    def __init__(self, n_pages: int, page_elems: int, dtype, *,
+                 axis: str = "x", device="cuda"):
+        if page_elems % 2:
+            raise ValueError(f"page_elems must be even, got {page_elems}")
+        dev = resolve_device(device)
+        self.axis = axis
+        self.perm = ((0, 0),)
+        # PageSpec models elems as tokens*heads*dim*2; the host tier stores
+        # opaque payload, so everything folds into the token factor
+        self.spec = PageSpec(page_tokens=page_elems // 2, kv_heads=1,
+                             head_dim=1, n_pages=n_pages)
+        self.pool = PagedKVWindow.create(self.spec, axis, 1, dtype,
+                                         device=dev, host=dev.type == "cuda")
+        self.dtype = as_dtype(dtype)
+        # the self-map on the device now, so a step copies nothing to it
+        self.pool.window.substrate.prepare(self.perm)
+
+    @property
+    def err_count(self) -> torch.Tensor:
+        """The stale-handle drops tier traffic observed, ``(1,)`` int32."""
+        return self.pool.err_count
+
+    def alloc(self, slots) -> None:
+        """Attach host slots (fresh handles) for incoming demotions."""
+        for s in slots:
+            self.pool.alloc_page(int(s))
+
+    def free(self, slots) -> None:
+        """Release host slots through ``memhandle_release``: the epoch bump
+        is the guarantee that a demoted-then-freed page is never read."""
+        for s in slots:
+            self.pool.free_page(int(s))
+
+    def step(self, promote_slots, demote_slots, demote_payloads=None):
+        """Run one planned tier step: promote reads (prefetch edges, one
+        guarded K3 read each) and demote writes (one guarded K3 put each),
+        one replay with no host read.  ``demote_payloads`` is
+        ``(len(demote_slots), page_elems)``; returns the promoted payloads
+        ``(len(promote_slots), page_elems)`` on the pool's control device,
+        or ``None``."""
+        promote_slots = tuple(int(s) for s in promote_slots)
+        demote_slots = tuple(int(s) for s in demote_slots)
+        if not promote_slots and not demote_slots:
+            return None
+        compiled = tier_step_plan(self.spec.n_pages, promote_slots,
+                                  demote_slots, self.spec.page_elems,
+                                  self.dtype, self.perm)
+        win = self.pool.window
+        bindings = {"handles": self.pool.handles}
+        for i in range(len(demote_slots)):
+            bindings[f"cold{i}"] = demote_payloads[i].reshape(1, -1).to(
+                device=win.device, dtype=self.dtype)
+        res = compiled.execute({"host": win}, bindings)
+        self.pool.window = res.windows["host"]
+        self.pool.err_count += res.err_count
+        return res.outputs["promoted"][0] if promote_slots else None
+
+
+__all__ = [
+    "PageSpec", "PagedKVWindow", "PageTier", "KVPoolManager", "HostKVTier",
+    "transfer_plan", "tier_step_plan", "MAX_POOL_ELEMS",
+    "RESIDENT_HOT", "RESIDENT_COLD", "RESIDENT_IN_FLIGHT",
+]

@@ -315,9 +315,9 @@ def test_engine_rejects_bad_configs(models):
     with pytest.raises(ValueError, match="not divisible"):
         ServeEngine(m, p, n_slots=1, max_seq=20, paged_kv=True,
                     page_tokens=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
+    with pytest.raises(ValueError, match="host"):
         ServeEngine(m, p, n_slots=2, max_seq=32, paged_kv=True,
-                    page_tokens=8, kv_pages=(4, 8))
+                    page_tokens=8, kv_pages=(4, 2))
 
 
 def test_engine_evict_requeue_and_offline_slots(models, reference_tokens):
