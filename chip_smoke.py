@@ -50,7 +50,10 @@
    plain version; an unpinned CPU buffer beside card tensors raises; one
    page each way by graph replay beside ``copy_`` to and from pinned
    memory, its bound the bytes over the host link's nominal rate (PCIe
-   generation and width from ``nvidia-smi``).
+   generation and width from ``nvidia-smi``).  K4 at the doorbell's shape
+   (8, 1) int32 and K3 at a pushed page's, (8, 1,179,648) bf16 through
+   memory handles, each against its plain version, timed beside the launch
+   floor and ``index_copy_``.
 2. Drives each path with every launch counter at 0 just before it and
    reads the counters just after: the window layer (allocate →
    dup_with_info → ring put with a thread-scope flush → declared
@@ -86,8 +89,24 @@
    all-HBM paged engine's at 2 x 128 pages, both tiers drained and
    conserved, every page moved by one guarded K3 launch on the host window,
    no host synchronization inside ``HostKVTier.step``, and one sequence's
-   demote and promote timed beside ``copy_``; and ``mamba2-370m`` at all
-   48 layers and published
+   demote and promote timed beside ``copy_``; disaggregated prefill ->
+   decode (``[serve-disagg]``): the 8 ``qwen3-4b`` prompts prefilled once,
+   cut into 64 pages each in the tier's format and pushed by 8 stacked
+   ranks on a ring (2 sequences each on 2 lanes) into a 193-page pool a
+   rank with ``serve/disagg.py``'s own functions — handle exchange,
+   ``push_sequence`` (the doorbell ``after=`` the pool's completion token),
+   lane flushes, ``claim_slots``, ``read_doorbell``, ``migrate_pages`` of
+   one sequence and a read through a freed page's handle — every page bit
+   for bit, bells, tickets, the stale read zeroed and counted, the ledger
+   at the reference cost model, no host synchronization from the first
+   push to the last claim, 0 stalls, one guarded K3 launch a page moved and
+   one K4 a doorbell, and the token's edge across CUDA streams (a push
+   held by a spin, its doorbell on another stream waits); the elastic
+   runtime (``[serve-elastic]``): the ``[serve]`` requests through
+   ``ElasticServing`` on the paged + COW engine with worker 1 dead at tick
+   4 — tokens equal dense bit for bit, worker 1 evicted, its slots
+   offline, the pool conserved, no claim outstanding; and ``mamba2-370m``
+   at all 48 layers and published
    widths behind a dense engine, 8 requests of 2040-token prompts, every
    prefill's SSD scan on K8 and the pass — each launched 48 times per
    prefill, every request's 32 tokens in the vocabulary, one prefill's
@@ -147,6 +166,14 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_PREFIX, SERVE_NEW = 8, 1016, 512, 32
 # first 4 requests at the same HBM pool (enough to fill it)
 TIER_SEQS = (2, 4)
 TIER_HBM_REQUESTS = 4
+# disaggregated prefill -> decode: the [serve] prompts' pages pushed over 8
+# stacked ranks on a ring, 2 sequences a rank on 2 lanes (the reference
+# demo's shape); the cross-stream check spins the push's stream this many
+# cycles (~0.2 s at the H100's 1.98 GHz boost) and probes after TOKEN_PROBE_S
+DISAGG_RANKS, DISAGG_SEQS = 8, 2
+TOKEN_SPIN_CYCLES, TOKEN_PROBE_S = 400_000_000, 0.05
+# the elastic runtime: worker 1 of 2 (slots 2 and 3) dies at tick 4
+ELASTIC_SCRIPT = "dead:1@4"
 #: K7 against its plain version: the JAX kernel test's tolerances
 K7_TOL = {"float32": dict(atol=2e-5, rtol=1e-2),
           "bfloat16": dict(atol=2e-2, rtol=1e-2)}
@@ -2068,6 +2095,385 @@ def main() -> int:
     del eng, tier, host_buf, host_seq, seq_pay, landed, timed
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- [serve-disagg] disaggregated prefill -> decode on the card ---------
+    # the [serve] phase's model and 8 prompts: each prefilled once, its KV
+    # cut into pages in the tier's format (16 tokens x 8 KV heads x 128 x
+    # K,V x 36 layers, bf16: 64 pages a prompt); 8 stacked ranks on a ring,
+    # 2 sequences each on 2 lanes (rank r pushes prompts r and (r + 4) mod 8)
+    # into a decode pool of 2 x 64 pushed + 64 migration + 1 spare pages a
+    # rank, through the module's own functions
+    from repro_torch.ft.elastic import migrate_pages
+    from repro_torch.serve import disagg as dis_mod
+    from repro_torch.serve.scheduler import Scheduler
+
+    engine_mod = sys.modules["repro_torch.serve.engine"]
+    d_pps = -(-SERVE_PROMPT // SERVE_PAGE)        # 64 pages a prompt
+    t0 = time.perf_counter()
+    seq_pages = []
+    for prompt in prompts:
+        tok = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
+        _, cache = serve_model.prefill(
+            serve_params, {"tokens": tok},
+            serve_model.init_cache(1, d_pps * SERVE_PAGE))
+        parts = []                      # Executor.gather_page_payloads' walk
+        for d in engine_mod._paged_dicts(dis_mod.paginate_cache(
+                cache, SERVE_PAGE)):
+            for key in ("k_pages", "v_pages"):
+                leaf = d[key][:, :d_pps] if d[key].dim() == 5 else \
+                    d[key][None, :d_pps]
+                parts.append(leaf.movedim(0, 1).reshape(d_pps, -1))
+        seq_pages.append(torch.cat(parts, 1))
+        del cache, parts
+    page_e = seq_pages[0].shape[1]
+    check(page_e == SERVE_PAGE * cfg_serve.n_kv_heads * cfg_serve.head_dim
+          * 2 * cfg_serve.n_layers and seq_pages[0].dtype == torch.bfloat16,
+          f"a prompt's pages are {tuple(seq_pages[0].shape)} "
+          f"{seq_pages[0].dtype}")
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    nr, n_seq_d, n_lanes_d = DISAGG_RANKS, DISAGG_SEQS, DISAGG_SEQS
+    ring8 = [(r, (r + 1) % nr) for r in range(nr)]
+
+    def prompt_of(rank, seq):
+        return (rank + (nr // 2) * seq) % nr
+
+    # the pages each sequence index pushes, stacked by rank: (nr, 64, page)
+    pushed = [torch.stack([seq_pages[prompt_of(r, s)] for r in range(nr)])
+              for s in range(n_seq_d)]
+    n_pool = n_seq_d * d_pps + d_pps + 1
+    spec_d = paged_mod.PageSpec(page_tokens=page_e // 2, kv_heads=1,
+                                head_dim=1, n_pages=n_pool)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool = paged_mod.PagedKVWindow.create(spec_d, "x", nr, torch.bfloat16,
+                                          device=dev)
+    ctrl = dis_mod.make_control_window(n_seq_d, "x", nr, n_lanes=n_lanes_d,
+                                       device=dev)
+    mig_src = list(range(d_pps))                    # sequence 0's pages
+    mig_dst = list(range(n_seq_d * d_pps, n_seq_d * d_pps + d_pps))
+    # timing taps around the doorbell (the module's put_signal) and the
+    # claims: CUDA events on the stream, no host read
+    taps: dict[str, list] = {"doorbell": [], "push": [], "claim": []}
+
+    def ev():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    plain_put_signal = dis_mod.put_signal
+
+    def tapped_put_signal(*a, **kw):
+        taps["push"][-1].append(ev())      # the pages' push ends here
+        start = ev()
+        out = plain_put_signal(*a, **kw)
+        taps["doorbell"].append((start, ev()))
+        return out
+
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    # 1. the once-only handle exchange: every target page allocated and
+    # registered, the ring's target maps put on the card
+    for p in range(n_seq_d * d_pps + d_pps):
+        pool.alloc_page(p)
+    pool.window.substrate.prepare(ring8)
+    ctrl.substrate.prepare(ring8)
+    sched_d = Scheduler(n_seq_d, "continuous")
+    tickets_d = []
+    dis_mod.put_signal = tapped_put_signal
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        # 2. push every sequence on its lane, its doorbell after the token
+        for s in range(n_seq_d):
+            taps["push"].append([ev()])
+            pool, ctrl = dis_mod.push_sequence(
+                pool, ctrl, s, list(range(s * d_pps, (s + 1) * d_pps)),
+                [pushed[s][:, i] for i in range(d_pps)], ring8,
+                lane=s % n_lanes_d)
+        # 3. one thread flush a lane
+        for lane in range(n_lanes_d):
+            ctrl.flush(stream=lane)
+        # 4. admission: one ticket a lane under the continuous policy
+        for lane in range(n_lanes_d):
+            start = ev()
+            ctrl, ts, _ = dis_mod.claim_slots(ctrl, ring8, sched_d, live=0,
+                                              lane=lane, max_claims=1)
+            ctrl.flush(stream=lane)
+            taps["claim"].append((start, ev()))
+            tickets_d += ts
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        dis_mod.put_signal = plain_put_signal
+    host_ms = (time.perf_counter() - t_path) * 1e3
+    # 5. the doorbells, then the pages they announce (read after the bell)
+    bells = [dis_mod.read_doorbell(ctrl, s) for s in range(n_seq_d)]
+    flags_d = torch.stack([b[0] for b in bells], 1).cpu()
+    metas_d = torch.stack([b[1] for b in bells], 1).cpu()
+    check(bool((flags_d == 1).all()) and bool((metas_d == d_pps).all()),
+          f"doorbells {flags_d.tolist()}, meta words {metas_d.tolist()}")
+    tickets_h = torch.stack(tickets_d, 1).cpu()
+    check(bool((tickets_h == torch.arange(n_lanes_d)).all()),
+          f"tickets {tickets_h.tolist()}")
+    pool_pages = pool.window.buffer.view(nr, n_pool, page_e)
+    for t in range(nr):
+        for s in range(n_seq_d):
+            check(torch.equal(pool_pages[t, s * d_pps:(s + 1) * d_pps],
+                              seq_pages[prompt_of((t - 1) % nr, s)]),
+                  f"rank {t}: sequence {s}'s landed pages differ from the "
+                  f"prefill's")
+    pool_push_phases = pool.window.ledger.total
+    # 6. migration of sequence 0's 64 pages to the spare pages (one push on
+    # the migration stream), then the sources freed
+    stale_handle = pool.handles[:, mig_src[0]].clone()
+    m0 = ev()
+    pool, n_moved = migrate_pages(pool, zip(mig_src, mig_dst), ring8)
+    m1 = ev()
+    pool_mig_phases = pool.window.ledger.total
+    for p in mig_src:
+        pool.free_page(p)
+    # 7. one read through a freed source's old handle
+    mhw = rma_layer.win_from_memhandle(pool.window, stale_handle)
+    mhw, stale = mhw.get(ring8, offset=0, size=page_e)
+    stats_d = dis_mod.pool_stats(pool)
+    torch.cuda.synchronize()
+    counts = path_counts("serve-disagg", ("ring_put", "put_wait",
+                                          "put_signal"))
+    k3_var = dict(K.COUNTERS["ring_put"].by_variant)
+    disagg_launches = {"put_signal_doorbell": counts["put_signal"],
+                       "ring_put_page": k3_var.get("guarded", 0)}
+    for t in range(nr):
+        check(torch.equal(pool_pages[t, mig_dst[0]:mig_dst[-1] + 1],
+                          seq_pages[prompt_of((t - 2) % nr, 0)]),
+              f"rank {t}: migrated pages differ from the prefill's")
+    errs_d = (stats_d["err_count"] + mhw.err_count).cpu()
+    check(n_moved == d_pps and not stale.any() and
+          errs_d.tolist() == [1] * nr,
+          f"stale read: moved {n_moved}, zeroed {not stale.any()}, counted "
+          f"{errs_d.tolist()}")
+    check(int(stats_d["live_pages"]) == n_seq_d * d_pps,
+          f"live pages {int(stats_d['live_pages'])}")
+    check(int(pool.window.substrate.stalls.item()) == 0
+          and int(ctrl.substrate.stalls.item()) == 0,
+          "a flush under a completion token stalled")
+    check(pool_push_phases == n_seq_d * (2 * d_pps + 2)
+          and pool_mig_phases - pool_push_phases == 2 * d_pps + 2,
+          f"the pushes billed {pool_push_phases} phases, the migration "
+          f"{pool_mig_phases - pool_push_phases}: want 2 a page + 2 each")
+    check(dict(ctrl.ledger.by_kind) == {
+        "put": n_seq_d, "accumulate": n_seq_d,
+        "flush": 2 * n_lanes_d + 2 * n_lanes_d, "fetch_op": 2 * n_lanes_d},
+        f"control window ledger {dict(ctrl.ledger.by_kind)}")
+    check(k3_var == {"guarded": n_seq_d * d_pps + d_pps + 1,
+                     "static": 2 * n_lanes_d}
+          and counts["put_signal"] == n_seq_d,
+          f"K3 launches {k3_var}, K4 {counts['put_signal']}: want one "
+          f"guarded K3 a page moved (+1 stale read), two a claim, one K4 a "
+          f"doorbell")
+    ms_d = dict(
+        push=[p[0].elapsed_time(p[1]) for p in taps["push"]],
+        doorbell=[a.elapsed_time(b) for a, b in taps["doorbell"]],
+        claim=[a.elapsed_time(b) for a, b in taps["claim"]],
+        migration=m0.elapsed_time(m1))
+
+    # the cross-window edge across CUDA streams: the pool's push on a side
+    # stream held by a spin, its doorbell on another stream after= the
+    # push's token; as the control, a doorbell with no token (on a window
+    # of its own, a third stream) rings while the spin still runs
+    xs_spec = dataclasses.replace(spec_d, n_pages=2)
+    xs_pool = paged_mod.PagedKVWindow.create(xs_spec, "x", nr,
+                                             torch.bfloat16, device=dev)
+    xs_pool.alloc_page(0).alloc_page(1)
+    xs_ctrl, xs_free = (dis_mod.make_control_window(1, "x", nr, n_lanes=1,
+                                                    device=dev)
+                        for _ in range(2))
+    for sub in (xs_pool.window.substrate, xs_ctrl.substrate,
+                xs_free.substrate):
+        sub.prepare(ring8)
+    xs_kvs = [pushed[1][:, i] for i in range(2)]
+    two = torch.full((nr, 1), 2, dtype=torch.int32, device=dev)
+    bell_at = dict(data_offset=dis_mod.ctrl_meta_offset(0),
+                   flag_offset=dis_mod.ctrl_flag_offset(0))
+    torch.cuda.synchronize()
+    s_push, s_bell, s_free = (torch.cuda.Stream() for _ in range(3))
+    with torch.cuda.stream(s_push):
+        torch.cuda._sleep(TOKEN_SPIN_CYCLES)
+        xs_pool.push_pages([0, 1], xs_kvs, ring8)
+        token = xs_pool.window.completion_token(0)
+        push_done = ev()
+    with torch.cuda.stream(s_bell):
+        put_signal(xs_ctrl, two, ring8, after=token, **bell_at)
+        bell_done = ev()
+    with torch.cuda.stream(s_free):
+        put_signal(xs_free, two, ring8, **bell_at)
+        free_done = ev()
+    time.sleep(TOKEN_PROBE_S)
+    spinning, held, rang = (not push_done.query(), not bell_done.query(),
+                            free_done.query())
+    torch.cuda.synchronize()
+    check(spinning, f"the spin of {TOKEN_SPIN_CYCLES} cycles ended within "
+          f"{TOKEN_PROBE_S} s: the cross-stream check proves nothing")
+    check(held and rang, f"a doorbell after= a token on another stream "
+          f"completed during the push's spin ({not held}), or one without a "
+          f"token did not ({rang})")
+    xs_pages = xs_pool.window.buffer.view(nr, 2, page_e)
+    check(xs_ctrl.buffer[:, 1:3].tolist() == [[2, 1]] * nr and all(
+        torch.equal(xs_pages[t], pushed[1][(t - 1) % nr, :2])
+        for t in range(nr)), "after the cross-stream push the bell and the "
+          "pages disagree")
+    check(int(xs_pool.window.substrate.stalls.item()) == 0
+          and int(xs_ctrl.substrate.stalls.item()) == 0,
+          "the cross-stream push's flush stalled")
+
+    # K4 at the doorbell's shape and K3 at a pushed page's, by graph replay,
+    # each against its plain version, beside the empty-kernel launch floor,
+    # index_copy_ and the byte bound
+    tgt8_list = [(r + 1) % nr for r in range(nr)]
+    tgt8 = torch.tensor(tgt8_list, dtype=torch.int32, device=dev)
+    tgt8_l = tgt8.long()
+    count_d = torch.full((nr, 1), d_pps, dtype=torch.int32, device=dev)
+    bell_kw = dict(flag=torch.ones((nr, 1), dtype=torch.int32, device=dev),
+                   offset=dis_mod.ctrl_meta_offset(0),
+                   flag_offset=dis_mod.ctrl_flag_offset(0))
+    scr8 = torch.zeros(nr + 2, dtype=torch.int32, device=dev)
+    rows_k, rows_p, rows_l = (torch.zeros_like(ctrl.buffer) for _ in range(3))
+    k46.put_signal_rows(count_d, rows_k, tgt8, flag_dst=rows_k, scratch=scr8,
+                        **bell_kw)
+    k46.put_signal_rows_plain(count_d, rows_p, tgt8_list, flag_dst=rows_p,
+                              **bell_kw)
+    check(torch.equal(rows_k, rows_p), "K4 at the doorbell's shape")
+    words = torch.cat([count_d, bell_kw["flag"]], 1)
+    floor_d = graph_ms(torch, lambda: empty_launch(torch, programmatic=False))
+    record["put_signal_doorbell"] = dict(
+        ms=graph_ms(torch, lambda: k46.put_signal_rows(
+            count_d, rows_k, tgt8, flag_dst=rows_k, scratch=scr8,
+            **bell_kw)),
+        plain_ms=graph_ms(torch, lambda: k46.put_signal_rows_plain(
+            count_d, rows_p, tgt8_list, flag_dst=rows_p, **bell_kw)),
+        library_ms=None, floor_ms=floor_d,
+        index_copy_ms=graph_ms(torch, lambda: rows_l[:, 1:3].index_copy_(
+            0, tgt8_l, words)),
+        path_ms=ms_d, max_abs_err=0.0, shape=[nr, 1], dtype="int32")
+    # payload and flag read, meta word written, flag word read and written
+    record["put_signal_doorbell"]["bound_ms"], \
+        record["put_signal_doorbell"]["bound_by"] = bound_ms(5 * nr * 4)
+    page_src = pushed[0][:, 0].contiguous()
+    hnd_d = xs_pool.handles[:, 1].contiguous()
+    regs_d = xs_pool.window.regs
+    xs_buf = xs_pool.window.buffer
+    got_k, got_p, got_l = (xs_buf.clone() for _ in range(3))
+    errs3 = [torch.zeros(nr, dtype=torch.int32, device=dev) for _ in range(2)]
+    k3.put_rows(page_src, got_k, tgt8, handles=hnd_d, regs=regs_d,
+                err=errs3[0])
+    k3.put_rows_plain(page_src, got_p, tgt8_list, handles=hnd_d,
+                      regs=regs_d, err=errs3[1])
+    lib_rows = got_l[:, page_e:]
+    lib_rows.index_copy_(0, tgt8_l, page_src)
+    check(torch.equal(got_k, got_p) and torch.equal(got_l, got_p)
+          and errs3[0].sum().item() == 0 == errs3[1].sum().item(),
+          "K3 at the page shape differs from its plain version or "
+          "index_copy_")
+    record["ring_put_page"] = dict(
+        ms=graph_ms(torch, lambda: k3.put_rows(
+            page_src, got_k, tgt8, handles=hnd_d, regs=regs_d,
+            err=errs3[0])),
+        plain_ms=time_ms(torch, lambda: k3.put_rows_plain(
+            page_src, got_p, tgt8_list, handles=hnd_d, regs=regs_d,
+            err=errs3[1]), reps=3),
+        library_ms=graph_ms(torch, lambda: lib_rows.index_copy_(
+            0, tgt8_l, page_src)),
+        copy_ms=graph_ms(torch, lambda: lib_rows.copy_(page_src)),
+        floor_ms=floor_d, max_abs_err=0.0, shape=[nr, page_e],
+        dtype="bfloat16")
+    # each page read once and written once, plus the handle and live
+    # registration words of every origin
+    record["ring_put_page"]["bound_ms"], record["ring_put_page"]["bound_by"] = \
+        bound_ms(2 * nr * page_e * 2 + 20 * nr)
+    rd, rp = record["put_signal_doorbell"], record["ring_put_page"]
+    print(f"[serve-disagg] {cfg_serve.name} x{cfg_serve.n_layers}: "
+          f"{SERVE_REQUESTS} prompts of {SERVE_PROMPT} tokens prefilled in "
+          f"{prefill_s:.2f} s and cut into {d_pps} pages of {page_e} bf16 "
+          f"({page_e * 2} bytes); {nr} stacked ranks on a ring, "
+          f"{n_seq_d} sequences each on {n_lanes_d} lanes, a pool of "
+          f"{n_pool} pages a rank ({n_pool * page_e} elements, "
+          f"{nr * n_pool * page_e * 2 / 2**30:.2f} GiB): every landed and "
+          f"migrated page equals the prefill's bit for bit; bells 1, meta "
+          f"words {d_pps}, tickets {tickets_h[0].tolist()} on every rank; "
+          f"the stale read zeroed and counted once a rank; live pages "
+          f"{int(stats_d['live_pages'])}; 0 stalls; ledger: pushes "
+          f"{pool_push_phases} phases (2 a page + 2 each), migration "
+          f"{pool_mig_phases - pool_push_phases}, control window "
+          f"{dict(ctrl.ledger.by_kind)}; no host synchronization from the "
+          f"first push to the last claim ({host_ms:.1f} ms of host clock); "
+          f"K3 {k3_var}, K4 {counts['put_signal']}", flush=True)
+    print(f"[serve-disagg] CUDA events: a sequence's push (64 pages) "
+          f"{[round(x, 3) for x in ms_d['push']]} ms, its doorbell "
+          f"{[round(x, 4) for x in ms_d['doorbell']]} ms, a claim + lane "
+          f"flush {[round(x, 4) for x in ms_d['claim']]} ms, the migration "
+          f"of 64 pages {ms_d['migration']:.3f} ms; the cross-window edge "
+          f"held across CUDA streams (the doorbell after= the token waited "
+          f"for a {TOKEN_SPIN_CYCLES}-cycle spin, the one without a token "
+          f"rang during it)", flush=True)
+    print(f"[serve-disagg] graph replay: K4 doorbell {list(rd['shape'])} "
+          f"int32 {rd['ms']:.4f} ms (plain {rd['plain_ms']:.4f}, index_copy_ "
+          f"of the two words {rd['index_copy_ms']:.4f}, empty launch "
+          f"{floor_d:.4f}, bound {rd['bound_ms']:.6f}); K3 guarded page put "
+          f"{list(rp['shape'])} bf16 {rp['ms']:.4f} ms (plain "
+          f"{rp['plain_ms']:.4f} by calls, index_copy_ "
+          f"{rp['library_ms']:.4f}, copy_ {rp['copy_ms']:.4f}, bound "
+          f"{rp['bound_ms']:.4f})", flush=True)
+    del pool, ctrl, xs_pool, xs_ctrl, xs_free, pushed, mhw, stale, got_k, \
+        got_p, got_l, lib_rows, xs_buf, xs_pages, page_src
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- [serve-elastic] the elastic runtime over the paged + COW engine --
+    # the [serve] requests through ElasticServing with worker 1 (slots 2,
+    # 3) dead at tick 4: its sequences requeue and re-prefill, its slots go
+    # offline, its tickets are released
+    from repro_torch.ft.elastic import EVICTED, ElasticServing
+    from repro_torch.ft.inject import FaultScript
+
+    eng = ServeEngine(serve_model, serve_params, n_slots=SERVE_SLOTS,
+                      max_seq=SERVE_MAX_SEQ, paged_kv=True,
+                      page_tokens=SERVE_PAGE, prefix_share=True)
+    for rid, prompt in enumerate(prompts):
+        eng.submit(Request(rid, prompt, SERVE_NEW))
+    es = ElasticServing(eng, FaultScript.parse(ELASTIC_SCRIPT), n_workers=2)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = es.run()
+    wall = time.perf_counter() - t0
+    counts = path_counts("serve elastic", ("flash_attention",))
+    tokens = {c.rid: c.tokens for c in done}
+    st = es.stats()
+    check(tokens == serve_out["dense"],
+          "elastic greedy tokens differ from the dense engine's")
+    check(st["elastic"]["workers"][1] == EVICTED and st["offline_slots"] == 2
+          and st["evictions"] >= 1, f"elastic stats {st}")
+    eng.pool.check_conservation()
+    check(eng.pool.n_free == eng.pool.n_pages
+          and eng.scheduler.outstanding_claims() == 0,
+          f"the pool did not drain or claims are outstanding: {st}")
+    rep = es.controller.reports[0]
+    n_tok = sum(len(t) for t in tokens.values())
+    print(f"[serve-elastic] {cfg_serve.name} x{cfg_serve.n_layers}, "
+          f"{SERVE_REQUESTS} requests x {SERVE_PROMPT} prompt tokens, "
+          f"{SERVE_NEW} new each, {SERVE_SLOTS} slots on 2 workers, paged + "
+          f"COW, script {ELASTIC_SCRIPT!r}: greedy tokens equal dense bit "
+          f"for bit; workers {st['elastic']['workers']}, evictions "
+          f"{st['evictions']}, offline slots {st['offline_slots']}, pool "
+          f"conserved, no claim outstanding; {st['ticks']} ticks, {n_tok} "
+          f"tokens in {wall:.2f} s ({n_tok / wall:.1f} tok/s), K7 launched "
+          f"{counts['flash_attention']} times ({counts['flash_attention'] // cfg_serve.n_layers} "
+          f"prefills); recovery at tick {rep.tick} ({rep.reason}): "
+          f"{rep.requeued} sequences requeued, {rep.dropped_count} plans "
+          f"dropped, topology {rep.old_topology} -> {rep.new_topology}, "
+          f"{rep.duration_s * 1e3:.2f} ms", flush=True)
+    del eng, es
+    gc.collect()
+    torch.cuda.empty_cache()
     del serve_params
     torch.cuda.empty_cache()
 
@@ -2177,8 +2583,11 @@ def main() -> int:
         "ring_put_device": ("K3", "src/repro/kernels/rma_put.py:47"),
         "ring_put_guarded": ("K3", "src/repro/kernels/rma_put.py:47"),
         "ring_put_host": ("K3", "src/repro/kernels/rma_put.py:47"),
+        "ring_put_page": ("K3", "src/repro/kernels/rma_put.py:47"),
         "put_wait": ("K3", "src/repro/kernels/rma_put.py:47"),
         "put_signal": ("K4", "src/repro/kernels/ordered_put_signal.py:72"),
+        "put_signal_doorbell": ("K4",
+                                "src/repro/kernels/ordered_put_signal.py:72"),
         "ring_all_reduce": ("K5", "src/repro/kernels/ring_allreduce.py:108"),
         "accumulate_signal": ("K6",
                               "src/repro/kernels/ordered_put_signal.py:144"),
@@ -2191,8 +2600,9 @@ def main() -> int:
                "ring_accumulate_guarded": "intrinsic.cu",
                "ring_put": "rma_put.cu", "ring_put_device": "rma_put.cu",
                "ring_put_guarded": "rma_put.cu",
-               "ring_put_host": "rma_put.cu", "put_wait": "rma_put.cu",
-               "put_signal": "put_signal.cu",
+               "ring_put_host": "rma_put.cu", "ring_put_page": "rma_put.cu",
+               "put_wait": "rma_put.cu", "put_signal": "put_signal.cu",
+               "put_signal_doorbell": "put_signal.cu",
                "ring_all_reduce": "ring_allreduce.cu",
                "accumulate_signal": "put_signal.cu",
                "flash_attention": "flash_attention.cu",
@@ -2210,7 +2620,10 @@ def main() -> int:
     for name in replaces:
         r = record[name]
         tag, where = replaces[name]
-        count = (variant_launches.get(variant_of[name], 0)
+        # the [serve-disagg] rows count that path's launches alone: K4's
+        # doorbells, K3's guarded page moves (and the stale read)
+        count = (disagg_launches[name] if name in disagg_launches
+                 else variant_launches.get(variant_of[name], 0)
                  if name in variant_of else launches[name])
         check(count > 0, f"{name}: no launch on any path")
         rows.append({
@@ -2228,7 +2641,8 @@ def main() -> int:
                                        "floor_ms", "floor_serial_ms",
                                        "pair_ms", "fig12_ms", "read_ms",
                                        "read_library_ms", "link",
-                                       "tier_seq_ms")
+                                       "tier_seq_ms", "index_copy_ms",
+                                       "copy_ms", "path_ms")
                if key in r}})
     print(json.dumps({"kernels": rows}))
     print(smi)

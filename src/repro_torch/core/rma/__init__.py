@@ -6,6 +6,7 @@ rows of stacked ``(n, ...)`` tensors):
 * :class:`Substrate`, :class:`FlushQueues`, :class:`PhaseLedger` — the
   substrate every window is a view over, with the scope-aware flush engine
   and the phase ledger that holds it to the reference cost model;
+  :class:`CompletionToken` — cross-window ordering (``put_signal(after=)``);
 * :class:`Window`, :class:`WindowConfig` — allocated windows and info keys
   (P1 scope, P2 order, P3 accumulate declarations, P4 ``dup_with_info``);
 * :class:`DynamicWindow` — dynamic windows with the query and AM slow paths;
@@ -21,8 +22,8 @@ rows of stacked ``(n, ...)`` tensors):
   all-to-all.
 """
 from repro_torch.core.rma.substrate import (SCOPE_PROCESS, SCOPE_THREAD,
-                                            FlushQueues, PhaseLedger,
-                                            Substrate)
+                                            CompletionToken, FlushQueues,
+                                            PhaseLedger, Substrate)
 from repro_torch.core.rma.window import KNOWN_ACC_OPS, Window, WindowConfig
 from repro_torch.core.rma.dynamic import DynamicWindow
 from repro_torch.core.rma.memhandle import (MAX_MEMHANDLE_SIZE,
@@ -50,7 +51,8 @@ from repro_torch.core.rma.alltoall import (AllToAllResult, all_to_all_plan,
                                            plan_all_to_all)
 
 __all__ = [
-    "Substrate", "FlushQueues", "PhaseLedger", "Window", "WindowConfig",
+    "Substrate", "CompletionToken", "FlushQueues", "PhaseLedger", "Window",
+    "WindowConfig",
     "SCOPE_PROCESS", "SCOPE_THREAD", "KNOWN_ACC_OPS", "DynamicWindow",
     "MAX_MEMHANDLE_SIZE", "memhandle_create", "memhandle_release",
     "win_from_memhandle", "MemhandleWindow", "win_op_intrinsic",

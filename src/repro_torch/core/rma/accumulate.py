@@ -24,6 +24,7 @@ another machine says nothing about this card.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 from pathlib import Path
@@ -51,13 +52,18 @@ def apply_op(current: torch.Tensor, update: torch.Tensor, op: str
     return combine_op(current, update.to(current.dtype), op)
 
 
-def _default_bench_json() -> str:
-    override = os.environ.get("RMA_TORCH_ACC_BENCH_JSON")
-    if override:
-        return override
+@functools.cache
+def _repo_bench_json() -> str:
+    """The calibration artifact's path in this checkout, resolved once (a
+    resolution is a few filesystem calls, which every routed accumulate and
+    doorbell would otherwise pay)."""
     root = Path(__file__).resolve().parents[4]
     return str(root / "benchmarks_torch" / "results"
                / "BENCH_acc_latency_h100.json")
+
+
+def _default_bench_json() -> str:
+    return os.environ.get("RMA_TORCH_ACC_BENCH_JSON") or _repo_bench_json()
 
 
 def calibrated_crossover(path: str | None = None) -> int | None:

@@ -26,7 +26,7 @@ import dataclasses
 
 from repro_torch.core.rma import accumulate as acc_engine
 from repro_torch.core.rma.plan import OpRef, RmaPlan, register_plan_cache
-from repro_torch.core.rma.substrate import SCOPE_THREAD
+from repro_torch.core.rma.substrate import SCOPE_THREAD, CompletionToken
 from repro_torch.core.rma.topology import (Topology, default_topology,
                                            topology_fingerprint)
 from repro_torch.core.rma.window import Window, WindowConfig
@@ -345,7 +345,9 @@ def _flag_payload(win: Window, flag_value):
     flag_op = win.config.same_op if win.config.same_op is not None else "sum"
     if flag_value is None:
         one = acc_engine.default_flag_value(flag_op, win.buffer.dtype)
-        flag_value = one.to(win.buffer.device).expand(win.axis_size, 1)
+        # filled where the flag lands: no host-to-device copy
+        flag_value = torch.full((win.axis_size, 1), one.item(),
+                                dtype=one.dtype, device=win.buffer.device)
     return flag_op, flag_value.reshape(win.axis_size, -1)
 
 
@@ -380,12 +382,20 @@ def put_signal(win: Window, data: torch.Tensor, perm, *, data_offset=0,
     window it uses the declared op, and the default ``flag_value`` (stacked
     ``(n, 1)``) is op-aware (``accumulate.default_flag_value``; under
     ``prod``/``band`` the caller must pre-set the word).  Both halves run as
-    one K4 launch.  ``after`` (a completion token of another window) is not
-    ported: the port has no tokens (ROADMAP queue 1, item 2)."""
+    one K4 launch.
+
+    ``after``: a completion token of *another* window
+    (:meth:`Window.completion_token`).  The whole put + signal is ordered
+    behind it — cross-window notified access: a doorbell that must not
+    overtake its data.  On the card the current CUDA stream waits for the
+    token's event (no host synchronization), so the K4 launch may be issued
+    on another stream than the token was taken on.  It bills nothing: the
+    ledger is that of the same call without ``after``."""
     if after is not None:
-        raise NotImplementedError(
-            "put_signal(after=...) is not ported to repro_torch yet: the port "
-            "has no completion tokens (ROADMAP queue 1, item 2)")
+        if not isinstance(after, CompletionToken):
+            raise TypeError(f"after= takes a window's completion token "
+                            f"(Window.completion_token), got {type(after)}")
+        after.wait()
     return _put_then_signal(win, data, perm, data_offset=data_offset,
                             flag_offset=flag_offset, flag_value=flag_value,
                             stream=stream)

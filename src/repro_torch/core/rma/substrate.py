@@ -47,7 +47,10 @@ same-host (``shm``) op      the same data phases, billed to the intra tier,
 ==========================  ==================================================
 
 Ordering (P2) needs no tokens: every launch of a window family goes to one
-CUDA stream, whose issue order is completion order at the target.  The
+CUDA stream, whose issue order is completion order at the target.  Ordering
+*across* windows (a doorbell on a control window behind a data window's
+flush epoch) takes a :class:`CompletionToken`: a CUDA event recorded on the
+issuing stream, which another stream waits for on the card.  The
 substrate is mutable — operations update the buffer in place and return the
 substrate, so ``sub = sub.put(...)`` reads like the JAX package's functional
 calls.
@@ -159,6 +162,34 @@ class PhaseLedger:
         return self.inter + self.intra
 
 
+@dataclasses.dataclass(frozen=True)
+class CompletionToken:
+    """A point in a window family's issue order, for ordering work on
+    another window behind it (the reference's channel token and its tie).
+
+    It stands for every operation issued on the family before it was taken
+    — on its lane and, since every launch goes to one CUDA stream, on the
+    others — and, after a flush of the lane, for their completion at the
+    target: the flush's wait is itself in that order.  On the card it is a
+    CUDA event recorded on the current stream when the token is taken: no
+    launch and no host read.  ``event`` is None on the CPU, where every
+    operation has completed when its call returns.  A flush whose bounded
+    spin gave up counts into ``Substrate.stalls`` and does not block, so
+    work ordered behind a token is only as complete as ``stalls == 0``
+    says."""
+
+    stream: int
+    device: torch.device
+    event: "torch.cuda.Event | None" = None
+
+    def wait(self) -> None:
+        """Order what is issued next on the current CUDA stream of the
+        token's card behind the token, on the card: no host
+        synchronization."""
+        if self.event is not None:
+            torch.cuda.current_stream(self.device).wait_event(self.event)
+
+
 # ---------------------------------------------------------------------------
 # Substrate
 # ---------------------------------------------------------------------------
@@ -238,6 +269,16 @@ class Substrate:
         """Where the control state lives and the operations' results land:
         the buffer's device, or the card under a pinned host buffer."""
         return self.counters.device
+
+    def token(self, stream: int) -> CompletionToken:
+        """The completion token of ``stream`` (see :class:`CompletionToken`):
+        on the card an event recorded on the current CUDA stream.  Bills
+        nothing."""
+        if self.device.type != "cuda":
+            return CompletionToken(stream, self.device)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return CompletionToken(stream, self.device, event)
 
     # -- helpers ----------------------------------------------------------
     def _launches(self, pairs) -> list:
@@ -681,5 +722,5 @@ class Substrate:
                 and int(self.stalls.item()) == 0)
 
 
-__all__ = ["SCOPE_PROCESS", "SCOPE_THREAD", "FlushQueues", "PhaseLedger",
-           "Substrate"]
+__all__ = ["SCOPE_PROCESS", "SCOPE_THREAD", "CompletionToken", "FlushQueues",
+           "PhaseLedger", "Substrate"]

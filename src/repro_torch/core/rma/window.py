@@ -27,7 +27,8 @@ from typing import Sequence
 import torch
 
 from repro_torch.core.rma.substrate import (SCOPE_PROCESS, SCOPE_THREAD,
-                                            FlushQueues, Substrate)
+                                            CompletionToken, FlushQueues,
+                                            Substrate)
 from repro_torch.core.rma.topology import Topology
 
 Perm = Sequence[tuple[int, int]]
@@ -160,6 +161,17 @@ class Window:
                 "aliased window — allocate the parent with enough streams")
         accepted = {k: v for k, v in info.items() if k not in _DUP_IMMUTABLE_KEYS}
         return dataclasses.replace(self, config=self.config.replace(**accepted))
+
+    def completion_token(self, stream: int = 0) -> CompletionToken:
+        """The stream's completion token: it stands for every operation
+        issued on the stream and, after a flush, for their completion at
+        the target.  The handle for *cross-window* ordering: pass it as
+        ``put_signal(..., after=...)`` to sequence a doorbell on a control
+        window behind this window's epoch.  Costs no launch, no host read
+        and no phase (:class:`~repro_torch.core.rma.substrate.
+        CompletionToken`)."""
+        self._check_stream(stream)
+        return self.substrate.token(stream)
 
     def _shm(self, perm: Perm) -> bool:
         t = self.config.topology

@@ -8,11 +8,21 @@
 Runs on the card unless ``--device cpu``; ``--full`` takes the published
 widths and depth (``--tiny``, the default, the reduced config).  A Mamba2
 stack (``mamba2-370m``) serves dense only: its caches are the conv tail and
-the SSM state, with no KV to page.  ``--disagg`` runs the decode
-engine on the paged KV pool (page-table indirection, page alloc/free at slot
-admit/release), and ``--prefix-share`` adds copy-on-write prefix sharing on
-it.  The JAX launcher's prefill→decode round-trip demo over a device mesh,
-its ``--dry-run`` and the elastic ``--inject`` mode are not ported yet.
+the SSM state, with no KV to page.
+
+``--disagg`` first drives the prefill→push→doorbell→admission→decode round
+trip (``serve/disagg.py::demo_round_trip``, 8 stacked ranks) in this
+process on ``--device``, then runs the decode engine on the paged KV pool
+(page-table indirection, page alloc/free at slot admit/release);
+``--prefix-share`` adds copy-on-write prefix sharing on it, and
+``--disagg --dry-run`` runs only the round trip.  ``--inject SPEC`` drives
+the engine through the elastic runtime (``ft/elastic.py::ElasticServing``)
+with a scripted fault spec::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
+      --device cpu --disagg --dry-run
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
+      --device cpu --inject dead:1@4 --workers 2
 """
 from __future__ import annotations
 
@@ -22,7 +32,10 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config, tiny_config
+from repro_torch.ft.elastic import ElasticServing
+from repro_torch.ft.inject import FaultScript
 from repro_torch.models import build_model
+from repro_torch.serve.disagg import demo_round_trip
 from repro_torch.serve.engine import Request, ServeEngine
 
 
@@ -40,7 +53,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="where the model runs (default: the card)")
     ap.add_argument("--disagg", action="store_true",
-                    help="disaggregated mode: the paged-KV decode engine")
+                    help="disaggregated mode: the prefill→decode handle-path "
+                         "round trip, then the paged-KV decode engine")
     ap.add_argument("--page-tokens", type=int, default=16,
                     help="tokens per KV page in --disagg mode")
     ap.add_argument("--policy", default="continuous",
@@ -59,31 +73,26 @@ def main(argv=None):
                     help="give every request the same random prefix of this "
                          "many tokens")
     ap.add_argument("--inject", default=None, metavar="SPEC",
-                    help="elastic mode with a scripted fault spec (not "
-                         "ported yet)")
+                    help="elastic mode: drive the engine through "
+                         "repro_torch.ft.elastic with a scripted fault spec, "
+                         "e.g. 'slow:1@4x6,dead:1@8' (kind:worker@tick[xmag];"
+                         " kinds slow/dead/bell/rejoin) or 'random:SEED'")
     ap.add_argument("--workers", type=int, default=2,
-                    help="with --inject: decode slots per worker group")
+                    help="with --inject: decode slots are owned "
+                         "n_slots//workers per worker; evicting a worker "
+                         "drains and requeues its slots")
     ap.add_argument("--dry-run", action="store_true",
-                    help="with --disagg: run only the round-trip demo (not "
-                         "ported yet)")
+                    help="with --disagg: run only the round-trip demo")
     args = ap.parse_args(argv)
 
     if args.dry_run and not args.disagg:
         ap.error("--dry-run requires --disagg")
     if args.prefix_share and not args.disagg:
         ap.error("--prefix-share requires --disagg (the paged pool)")
-    if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run: the prefill→decode round trip over the control "
-            "window is not ported to repro_torch yet (ROADMAP queue 1, "
-            "item 9)")
-    if args.inject is not None:
-        raise NotImplementedError(
-            "--inject: the elastic runtime is not ported to repro_torch yet "
-            "(ROADMAP queue 1, item 12)")
     if args.disagg:
-        print("[serve] the prefill→decode round-trip demo is not ported yet "
-              "(ROADMAP item 9); serving on the paged KV pool")
+        checks = demo_round_trip(device=args.device)
+        if args.dry_run:
+            return checks
 
     cfg = tiny_config(args.arch) if args.tiny else get_config(args.arch)
     model = build_model(cfg)
@@ -100,13 +109,29 @@ def main(argv=None):
         prompt = np.concatenate([shared, rng.randint(0, cfg.vocab, size=tail)])
         eng.submit(Request(rid=rid, prompt=prompt,
                            max_new_tokens=args.max_new))
-    done = eng.run()
+    es = None
+    if args.inject is not None:
+        if args.inject.startswith("random:"):
+            script = FaultScript.random(int(args.inject.split(":", 1)[1]),
+                                        n_workers=args.workers)
+        else:
+            script = FaultScript.parse(args.inject)
+        es = ElasticServing(eng, script, n_workers=args.workers)
+        done = es.run()
+    else:
+        done = eng.run()
     dt = time.perf_counter() - t0
     toks = sum(len(c.tokens) for c in done)
     mode = "disagg/paged" if args.disagg else "dense"
     print(f"[serve] {len(done)} requests, {toks} tokens in {dt:.2f}s "
           f"({toks/dt:.1f} tok/s, {args.slots} slots, {mode} KV, "
           f"{args.policy} admission, device {args.device})")
+    if es is not None:
+        st = es.stats()
+        print(f"[serve] elastic: workers={st['elastic']['workers']} "
+              f"evictions={st['evictions']} "
+              f"faults={st['faults_injected']} "
+              f"offline_slots={st['offline_slots']}")
     if args.disagg:
         print(f"[serve] pool stats: {eng.stats()}")
     for c in sorted(done, key=lambda c: c.rid)[:3]:

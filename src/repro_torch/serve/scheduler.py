@@ -7,8 +7,8 @@ The serving engine is split into three layers:
   priorities, tenants) and decides *which* pending requests are admitted
   into free decode slots *each tick* (continuous batching), or only between
   whole batches (the static baseline).  The same policy object is meant to
-  drive the disaggregated control window's fetch_op ticket admission (not
-  ported yet, ROADMAP item 9): :meth:`Scheduler.ticket_window` is how many
+  drive the disaggregated control window's fetch_op ticket admission
+  (``serve/disagg.py::claim_slots``): :meth:`Scheduler.ticket_window` is how many
   tickets a decode lane may claim this tick, and
   :meth:`Scheduler.slot_for_ticket` maps a claimed ticket to a slot.
 * **KV pool manager** (:class:`repro_torch.serve.paged.KVPoolManager`) —
@@ -167,7 +167,8 @@ class Scheduler:
         return max(self.n_slots - live - self.outstanding_claims(), 0)
 
     def slot_for_ticket(self, ticket):
-        """Map a claimed admission ticket to a decode slot."""
+        """Map a claimed admission ticket to a decode slot (an int, or a
+        tensor of tickets on the card: no host read)."""
         return ticket % self.n_slots
 
     # -- ticket claim bookkeeping (per claiming worker) -----------------------

@@ -237,5 +237,6 @@ def test_unordered_process_put_signal_drains_every_stream():
     assert win.ledger.by_kind["flush"] == 4
     assert win.ledger.total == 1 + _signal_phases(False, "process", "sum", 2)
     assert list(win.group.pending) == [0]            # the flag is in flight
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # after= takes a window's completion token, nothing else
+    with pytest.raises(TypeError, match="completion token"):
         put_signal(win, torch.ones(N, 4), RING, flag_offset=10, after=object())

@@ -472,11 +472,28 @@ def test_launcher_serves_on_the_cpu(capsys):
     assert sorted(c.rid for c in done) == [0, 1, 2, 3]
     assert all(c.finished and len(c.tokens) == 3 for c in done)
     out = capsys.readouterr().out
-    assert "not ported yet" in out and "'pages_shared': " in out
-    for extra, item in ((["--disagg", "--dry-run"], "item 9"),
-                        (["--inject", "dead:1@4"], "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            serve_main(["--arch", "qwen3-4b", "--device", "cpu", *extra])
+    assert "[disagg]   pages_landed: OK" in out and "'pages_shared': " in out
+
+
+@pytest.mark.parametrize("extra", [["--disagg", "--dry-run"],
+                                   ["--inject", "dead:1@4"]],
+                         ids=["disagg-dry-run", "inject"])
+def test_launcher_disagg_and_inject_modes_on_the_cpu(capsys, extra):
+    """``--disagg --dry-run`` runs the round trip alone (the reference's
+    seven checks, all OK); ``--inject`` drains every request through the
+    elastic runtime with worker 1 evicted and its slots offline."""
+    got = serve_main(["--arch", "qwen3-4b", "--device", "cpu",
+                      "--requests", "4", "--max-new", "6", *extra])
+    out = capsys.readouterr().out
+    if "--dry-run" in extra:
+        assert len(got) == 7 and all(got.values())
+        assert out.count(": OK") == 7 and "FAIL" not in out
+        assert "[serve]" not in out
+    else:
+        assert sorted(c.rid for c in got) == [0, 1, 2, 3]
+        assert all(c.finished and len(c.tokens) == 6 for c in got)
+        assert ("[serve] elastic: workers={0: 'healthy', 1: 'evicted'}"
+                in out and "offline_slots=2" in out)
 
 
 def test_serve_entry_points_raise_on_cuda_without_a_card(models,
