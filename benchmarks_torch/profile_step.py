@@ -2,13 +2,15 @@
 """Where the time of one train step, or of one prefill and one decode tick
 of the serving path, of the port goes on a card.
 
-    python3 benchmarks_torch/profile_step.py [--moe | --serve [--arch A]]
+    python3 benchmarks_torch/profile_step.py [--moe | --serve] [--arch A]
 
 Builds a configuration ``chip_smoke.py`` trains — by default ``qwen3-4b``
 at full width with depth cut to 2 layers, 4 stacked data-parallel ranks,
-``grad_sync="rma_ring"``; with ``--moe``, ``llama4-maverick-400b-a17b`` at
-full width with 2 layers and 8 experts over 4 stacked expert-parallel ranks,
-``moe_ep="rma"`` — global batch 8 × 512, runs two warm-up steps, then
+``grad_sync="rma_ring"``; with ``--arch mamba2-370m``, that arch at all 48
+layers on the same ranks and ring (its Mamba2 blocks differentiate
+``models.ssm.ssd_chunked``); with ``--moe``, ``llama4-maverick-400b-a17b``
+at full width with 2 layers and 8 experts over 4 stacked expert-parallel
+ranks, ``moe_ep="rma"`` — global batch 8 × 512, runs two warm-up steps, then
 traces one step with ``torch.profiler`` (CPU and CUDA activities, input
 shapes recorded) and prints:
 
@@ -23,15 +25,17 @@ shapes recorded) and prints:
 
 With ``--serve``: one of ``chip_smoke.py``'s serving configurations at all
 its layers and published widths behind a dense engine of 4 slots —
-``qwen3-4b`` (the default: ``max_seq`` 2048, 1016-token prompts) or
-``--arch mamba2-370m`` (``max_seq`` 4096, 2040-token prompts) — admits four
-requests as warm-up, then traces one prefill (a fifth prompt into slot 0)
-and one decode tick over the four slots, and prints for each the wall time,
-the card's busy time and idle share, the kernels' launches and shares of
-the busy time (K7; or K8 and the SSD pass, the two kernels of the SSD scan,
-and whatever else runs inside ``kernels.ops.ssd_scan``, found through a
-profiler range around it), and the operators and kernels with the most
-device time.
+``qwen3-4b`` (the default: ``max_seq`` 2048, 1016-token prompts),
+``--arch mamba2-370m`` (``max_seq`` 4096, 2040-token prompts) or ``--arch
+jamba-v0.1-52b`` (one period of 8 layers, ``max_seq`` 2048, 1016-token
+prompts) — admits four requests as warm-up, then traces one prefill (a
+fifth prompt into slot 0) and one decode tick over the four slots, and
+prints for each the wall time, the card's busy time and idle share, the
+kernels' launches and shares of the busy time (K7 where the stack has
+attention; K8 and the SSD pass, the two kernels of the SSD scan, and
+whatever else runs inside ``kernels.ops.ssd_scan``, found through a
+profiler range around it, where it has Mamba2 layers), and the operators
+and kernels with the most device time.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -47,8 +51,13 @@ N_LAYERS, N_RANKS, GLOBAL_BATCH, SEQ_LEN, WARMUP = 2, 4, 8, 512, 2
 MOE_EXPERTS = 8
 #: the profiler range ``--serve`` puts around the SSD scan
 SCAN_RANGE = "ssd_scan"
-#: serving configurations: arch → (slots, max_seq, prompt tokens)
-SERVE = {"qwen3-4b": (4, 2048, 1016), "mamba2-370m": (4, 4096, 2040)}
+#: serving configurations: arch → (slots, max_seq, prompt tokens, layers)
+#: (None: all of them)
+SERVE = {"qwen3-4b": (4, 2048, 1016, None),
+         "mamba2-370m": (4, 4096, 2040, None),
+         "jamba-v0.1-52b": (4, 2048, 1016, 8)}
+#: train configurations besides the default: arch → layers (None: all)
+TRAIN = {"qwen3-4b": N_LAYERS, "mamba2-370m": None}
 
 
 def self_device_us(evt) -> float:
@@ -119,8 +128,10 @@ def profile_serve(torch, arch: str) -> int:
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Request, ServeEngine
 
-    slots, max_seq, prompt_len = SERVE[arch]
+    slots, max_seq, prompt_len, layers = SERVE[arch]
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
     model = build_model(cfg)
     params = model.init(0, device="cuda")
     ssm = cfg.ssm is not None
@@ -156,8 +167,11 @@ def profile_serve(torch, arch: str) -> int:
         if busy_ms <= 0:
             raise AssertionError("the profiler recorded no device time")
         shares = []
-        for tag, name in ((("K8", "ssd_intra"), ("the SSD pass", "ssd_pass"))
-                          if ssm else (("K7", "flash_fwd_"),)):
+        tags = ((("K7", "flash_fwd_"),)
+                if any(sp.mixer == "gqa" for sp in model.plan) else ())
+        if ssm:
+            tags += (("K8", "ssd_intra"), ("the SSD pass", "ssd_pass"))
+        for tag, name in tags:
             kern = [e for e in kernels if name in e.key]
             kern_ms = sum(self_device_us(e) for e in kern) / 1e3
             shares.append(f"{tag} {sum(e.count for e in kern)} launches, "
@@ -196,10 +210,11 @@ def main(argv=None) -> int:
                       help="profile one prefill and one decode tick of the "
                            "serving path")
     ap.add_argument("--arch", default="qwen3-4b", choices=sorted(SERVE),
-                    help="with --serve: the served architecture")
+                    help="the served (--serve) or trained architecture")
     args = ap.parse_args(argv)
-    if args.arch != "qwen3-4b" and not args.serve:
-        ap.error("--arch goes with --serve")
+    if not args.serve and (args.arch not in TRAIN or args.moe and
+                           args.arch != "qwen3-4b"):
+        ap.error(f"--arch trains one of {sorted(TRAIN)}, without --moe")
     sys.path.insert(0, os.path.join(HERE, "..", "src"))
     import torch
 
@@ -228,13 +243,15 @@ def main(argv=None) -> int:
         what = (f"{cfg.name} d{cfg.d_model} x{N_LAYERS} layers, "
                 f"{MOE_EXPERTS} experts over {N_RANKS} expert ranks")
     else:
-        cfg = get_config("qwen3-4b").replace(n_layers=N_LAYERS)
+        cfg = get_config(args.arch)
+        if TRAIN[args.arch] is not None:
+            cfg = cfg.replace(n_layers=TRAIN[args.arch])
         model = build_model(cfg)
         params, opt_state = init_train_state(model, 0, device="cuda")
         step = make_train_step(model, opt, grad_sync="rma_ring",
                                data_axis="data", data_axis_size=N_RANKS)
-        what = (f"{cfg.name} d{cfg.d_model} x{N_LAYERS} layers, {N_RANKS} "
-                "data-parallel ranks")
+        what = (f"{cfg.name} d{cfg.d_model} x{cfg.n_layers} layers, "
+                f"{N_RANKS} data-parallel ranks")
     data = make_source(DataConfig(vocab=cfg.vocab, seq_len=SEQ_LEN,
                                   global_batch=GLOBAL_BATCH, seed=0))
 

@@ -16,7 +16,9 @@
    tokens; K8 at the JAX kernel test's three shapes (float32 and
    bfloat16) and the prefill's (1, 2048, 32 x 64), N 128, chunk 64 in
    bfloat16, and the SSD pass on K8's outputs at the same shapes, with and
-   without an initial state; the whole card scan (K8 + pass) against the
+   without an initial state; both again at ``jamba-v0.1-52b``'s Mamba2
+   shape (1, 1024, 128 x 64), N 16, in float32 and bfloat16, with the card
+   scan on its ragged 1016 rows; the whole card scan (K8 + pass) against the
    sequential oracle in float32 (an initial state, ragged lengths) and
    against the plain scan at the 2040-token prefill in bfloat16, one scan
    traced to show it is two kernels; K4's check mode counts the copy
@@ -59,7 +61,11 @@
    dup_with_info → ring put with a thread-scope flush → declared
    accumulates below and above the crossover → an undeclared one →
    put_signal on an ordered and an unordered window), each phase-ledger
-   count held to the reference cost model; the P5 tour (``[p5]``): a
+   count held to the reference cost model; a doorbell after a stalled
+   flush (``[stall]``): K3's wait held short (owed = ticks + 1), then
+   ``put_signal(..., after=token)`` — the payload lands, K4 withholds every
+   bell and counts it, and without the stall every bell rises, as on the
+   CPU's plain versions; the P5 tour (``[p5]``): a
    dynamic window over 4 ranks' 2^24-float pools, handle puts, accumulates
    (intrinsic, tiled), gets, a stale handle dropped, zeroed and counted,
    the query and active-message slow paths, a plan's handle ops and an
@@ -111,7 +117,18 @@
    prefill's SSD scan on K8 and the pass — each launched 48 times per
    prefill, every request's 32 tokens in the vocabulary, one prefill's
    logits held to the same prefill on their plain composition and the next
-   decode step finite.
+   decode step finite; ``mamba2-370m`` trained (``[train-ssm]``): all 48
+   layers, 4 stacked ranks with the ring gradient sync, batch 8 x 512, 3
+   steps — loss finite and falling, K5 once a step, no K8 or pass launch in
+   a step (a Mamba2 block that trains calls ``ssd_chunked``), and the
+   trained model's no-grad prefill on K8 and the pass 48 times each; and
+   the hybrid stack (``[serve-hybrid]``): ``jamba-v0.1-52b`` at published
+   widths cut to one period (8 of 32 layers: 7 Mamba2, 1 attention, 4 MoE
+   of all 16 experts) behind a dense and a paged + COW engine with the
+   ``[serve]`` request set — greedy tokens equal bit for bit, the pool
+   conserved, a page payload the attention layer's KV alone, per prefill
+   K7 once and K8 and the pass 7 times, one prefill's logits held to the
+   same prefill on the plain versions and the next decode step finite.
 3. Prints the kernels' record as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -200,6 +217,15 @@ K8_TOL = {"float32": dict(atol=2e-4, rtol=1e-3),
 #: (K8_TOL), so each rounding may land one bf16 step (2^-7 of the value
 #: rounded) apart: |d| <= atol + 2^-6 (|y_intra| + |y_inter|)
 PASS_BF16_RTOL = 2.0 ** -6
+# serving the hybrid stack: jamba-v0.1-52b at published widths, depth cut
+# to one period (8 of 32 layers: 7 Mamba2, 1 attention, 4 MoE, all 16
+# experts), the [serve] request set through a dense and a paged + COW
+# engine.  Its Mamba2 layers are 128 heads x 64 with d_state 16: K8 and the
+# pass are held to their plain versions at that shape first
+HYBRID_ARCH, HYBRID_LAYERS = "jamba-v0.1-52b", 8
+# SSM training: mamba2-370m at all 48 layers, 4 stacked data-parallel
+# ranks with the one-sided ring, batch 8 x 512, 3 steps
+SSM_TRAIN_STEPS = 3
 #: a 48-layer bfloat16 Mamba2 prefill on K8 and the pass against the same
 #: prefill on their plain versions: max |d logit| over max |logit| (each
 #: layer's y rounds to bfloat16 in both, so entries may differ by one bf16
@@ -213,6 +239,28 @@ def bound_ms(nbytes: float, ops: float = 0.0,
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def ssd_work(length: int, heads: int, headdim: int, d_state: int,
+             chunk: int) -> tuple[float, float, float, float]:
+    """Bytes and operations of K8 and of the SSD pass on one bf16 sequence
+    of ``length`` rows (a multiple of ``chunk``), no initial state.  K8:
+    x, a, B, C read once; y, the float32 states and cum written once; the
+    causal (i >= j) pairs of C B^T and of the y product, and every term of
+    the states product.  The pass: the states, y_intra, C and cum read
+    once, y and the final state written once; the read-out C_t . carry for
+    every row and the carry update, once a chunk."""
+    nc = length // chunk
+    pairs = nc * chunk * (chunk + 1) // 2
+    hp = heads * headdim
+    states = 4 * nc * hp * d_state
+    k8_bytes = (2 * 2 * length * hp + 4 * length * heads
+                + 2 * 2 * length * d_state + states + 4 * length * heads)
+    k8_ops = 2 * (pairs * d_state + pairs * hp + length * hp * d_state)
+    pass_bytes = (states + 2 * length * hp + 2 * length * d_state
+                  + 4 * length * heads + 2 * length * hp + 2 * hp * d_state)
+    pass_ops = 2 * length * hp * d_state + 2 * nc * hp * d_state
+    return k8_bytes, k8_ops, pass_bytes, pass_ops
 
 
 def time_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
@@ -1246,25 +1294,12 @@ def main() -> int:
             *pass_ins, **k8_kw)),
         library_ms=None, max_abs_err=pass_err,
         shape=[1, ssm_l, ssm_h * ssm_p, ssm_n], dtype="bfloat16")
-    # bytes: x, a, B, C read once; y, the float32 states and cum written
-    # once.  Operations: the causal (i >= j) pairs of C B^T and of the y
-    # product, and every term of the states product
-    nc_ = ssm_l // ssm_q
-    pairs = nc_ * ssm_q * (ssm_q + 1) // 2
     hp_ = ssm_h * ssm_p
-    states_bytes = 4 * nc_ * hp_ * ssm_n
-    k8_bytes = (2 * 2 * ssm_l * hp_ + 4 * ssm_l * ssm_h
-                + 2 * 2 * ssm_l * ssm_n + states_bytes + 4 * ssm_l * ssm_h)
-    k8_ops = 2 * (pairs * ssm_n + pairs * hp_ + ssm_l * hp_ * ssm_n)
+    k8_bytes, k8_ops, pass_bytes, pass_ops = ssd_work(ssm_l, ssm_h, ssm_p,
+                                                      ssm_n, ssm_q)
     record["ssd_intra_chunk"]["bound_ms"], \
         record["ssd_intra_chunk"]["bound_by"] = bound_ms(
             k8_bytes, k8_ops, peak=PEAK_BF16)
-    # the pass: the states, y_intra, C and cum read once, y and the final
-    # state written once (no initial state here).  Operations: the read-out
-    # C_t . carry for every row and the carry update, once a chunk
-    pass_bytes = (states_bytes + 2 * ssm_l * hp_ + 2 * ssm_l * ssm_n
-                  + 4 * ssm_l * ssm_h + 2 * ssm_l * hp_ + 2 * hp_ * ssm_n)
-    pass_ops = 2 * ssm_l * hp_ * ssm_n + 2 * nc_ * hp_ * ssm_n
     record["ssd_pass"]["bound_ms"], record["ssd_pass"]["bound_by"] = \
         bound_ms(pass_bytes, pass_ops, peak=PEAK_BF16)
     # the whole scan at the 2040-token prefill, B and C sliced from one
@@ -1322,6 +1357,73 @@ def main() -> int:
           f"then the pass (bf16 prefill, float32 ragged)", flush=True)
     del k8_args, k8_outs, pass_ins, scan_args, xdt, a, bm, cm, xbc, s0, \
         got, want, yi_plain
+    # K8 and the pass at jamba-v0.1-52b's Mamba2 shape: 128 heads x 64,
+    # d_state 16 (the card saw only N 128 at full width before), chunk 64,
+    # over the [serve-hybrid] prompt of SERVE_PROMPT tokens (a ragged last
+    # chunk): K8 and the pass on the whole chunks against their plain
+    # versions, then the card scan on the ragged rows, B and C sliced from
+    # one projection, against the plain scan; float32 and bfloat16
+    cfg_hyb = get_config(HYBRID_ARCH)
+    hyb_h = cfg_hyb.ssm.expand * cfg_hyb.d_model // cfg_hyb.ssm.headdim
+    hyb_p, hyb_n, hyb_q = (cfg_hyb.ssm.headdim, cfg_hyb.ssm.d_state,
+                           cfg_hyb.ssm.chunk)
+    hyb_l = -(-SERVE_PROMPT // hyb_q) * hyb_q
+    hyb_kw = dict(chunk=hyb_q, nheads=hyb_h, headdim=hyb_p)
+    hyb_err = hyb_pass_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        what = f"at jamba's shape N {hyb_n} {str(dtype).split('.')[1]}"
+        hyb_args = ssd_inputs(1, hyb_l, hyb_h, hyb_p, hyb_n, dtype)
+        hyb_err = max(hyb_err, k8_check(hyb_args, hyb_kw, dtype, what))
+        hyb_pass_err = max(hyb_pass_err,
+                           pass_check(hyb_args, hyb_kw, dtype, what))
+        xdt, a, bm, cm = (t[:, :SERVE_PROMPT] for t in hyb_args)
+        xbc = torch.cat([bm, cm], -1)
+        xdt = xdt.reshape(1, SERVE_PROMPT, hyb_h, hyb_p)
+        scan_args = (xdt, a, xbc[..., :hyb_n], xbc[..., hyb_n:])
+        got = ops_mod.ssd_scan(*scan_args, **hyb_kw)
+        want = ops_mod.ssd_scan_plain(*scan_args, **hyb_kw)
+        if dtype == torch.float32:
+            for g, w in zip(got, want):
+                check(torch.allclose(g, w, **K8_TOL["float32"]),
+                      f"the card scan {what}: max err "
+                      f"{(g - w).abs().max().item()}")
+        else:
+            yi_plain = k8.ssd_intra_chunk_plain(
+                *(torch.nn.functional.pad(t, (0, 0, 0, hyb_l - SERVE_PROMPT))
+                  for t in (xdt.reshape(1, SERVE_PROMPT, -1), a, bm, cm)),
+                **hyb_kw)[0][:, :SERVE_PROMPT].reshape(want[0].shape)
+            y_check(got[0], want[0], yi_plain, f"the card scan {what}")
+            check(torch.allclose(got[1].float(), want[1].float(),
+                                 **K8_TOL["bfloat16"]),
+                  f"the card scan's final state {what}: max err "
+                  f"{max_err(got[1:], want[1:])}")
+    record["ssd_intra_chunk_n16"] = dict(
+        ms=graph_ms(torch, lambda: k8.ssd_intra_chunk(*hyb_args, **hyb_kw)),
+        plain_ms=graph_ms(torch, lambda: k8.ssd_intra_chunk_plain(
+            *hyb_args, **hyb_kw)),
+        library_ms=None, max_abs_err=hyb_err,
+        shape=[1, hyb_l, hyb_h * hyb_p, hyb_n], dtype="bfloat16")
+    hyb_ins = k8.ssd_intra_chunk(*hyb_args, **hyb_kw) + (hyb_args[3],)
+    record["ssd_pass_n16"] = dict(
+        ms=graph_ms(torch, lambda: kp.ssd_pass(*hyb_ins, **hyb_kw)),
+        plain_ms=graph_ms(torch, lambda: kp.ssd_pass_plain(
+            *hyb_ins, **hyb_kw)),
+        library_ms=None, max_abs_err=hyb_pass_err,
+        shape=[1, hyb_l, hyb_h * hyb_p, hyb_n], dtype="bfloat16")
+    hk8_bytes, hk8_ops, hpass_bytes, hpass_ops = ssd_work(
+        hyb_l, hyb_h, hyb_p, hyb_n, hyb_q)
+    for name, nbytes, ops in (("ssd_intra_chunk_n16", hk8_bytes, hk8_ops),
+                              ("ssd_pass_n16", hpass_bytes, hpass_ops)):
+        record[name]["bound_ms"], record[name]["bound_by"] = bound_ms(
+            nbytes, ops, peak=PEAK_BF16)
+    print(f"[kernels] K8 and the SSD pass at jamba's Mamba2 shape (1, "
+          f"{hyb_l}, {hyb_h}x{hyb_p}) N {hyb_n} chunk {hyb_q} equal their "
+          f"plain versions in float32 and bfloat16 (max abs err "
+          f"{hyb_err:.3g}, {hyb_pass_err:.3g}), and the card scan the plain "
+          f"scan at {SERVE_PROMPT} ragged rows; K8 {hk8_bytes / 1e6:.2f} MB, "
+          f"{hk8_ops / 1e9:.3f} GFLOP; the pass {hpass_bytes / 1e6:.2f} MB",
+          flush=True)
+    del hyb_args, hyb_ins, scan_args, xdt, a, bm, cm, xbc, got, want
     for name, r in record.items():
         lib_ms = r["library_ms"]
         calls = (f", wrapper calls {r['call_ms']:.4f}" if "call_ms" in r
@@ -1419,6 +1521,61 @@ def main() -> int:
                                 "put_wait", "put_signal"))
     del buf, win, sumwin, data, expect, sw, payload
     torch.cuda.empty_cache()
+
+    # a doorbell never rises over a stalled flush: a pool window puts on
+    # lane 1, its flush's K3 wait is held short (owed = ticks + 1 on every
+    # rank, so the bounded spin gives up and counts a stall), and a control
+    # window's put_signal ordered after the pool's completion token runs
+    # K4 with the pool's stall word: the count word lands, the bell stays
+    # 0 and the withheld bells count in the control window's stalls.
+    # Without the stall the bell rises.  The same calls on the CPU's plain
+    # versions give the same words and counts.
+    def stall_case(device, payload, stall):
+        pool_w = Window.allocate(torch.zeros((n, M), device=device), "x", n,
+                                 WindowConfig(scope="thread", order=True,
+                                              max_streams=2))
+        ctrl_w = Window.allocate(
+            torch.zeros((n, 3), dtype=torch.int32, device=device), "x", n,
+            WindowConfig(scope="thread", order=True, max_streams=2,
+                         same_op="sum", accumulate_ops=("sum",)))
+        pool_w.put(payload.to(device), ring, stream=1)
+        if stall:
+            for owed in pool_w.substrate.expected:
+                owed[1] += 1
+        pool_w.flush(stream=1)
+        put_signal(ctrl_w, torch.full((n, 1), 7, dtype=torch.int32,
+                                      device=device), ring, data_offset=0,
+                   flag_offset=2, stream=1,
+                   after=pool_w.completion_token(1))
+        ctrl_w.flush(stream=1)
+        landed = torch.equal(pool_w.buffer.cpu(),
+                             torch.roll(payload.cpu(), 1, 0))
+        return (landed, ctrl_w.buffer.cpu().tolist(),
+                int(pool_w.substrate.stalls.item()),
+                int(ctrl_w.substrate.stalls.item()))
+
+    K.reset_launch_counts()
+    stall_payload = rand((n, M), torch.float32)
+    stall_out = {stall: stall_case(dev, stall_payload, stall)
+                 for stall in (False, True)}
+    stall_counts = path_counts("stalled-flush doorbell",
+                               ("ring_put", "put_wait", "put_signal"))
+    for stall, want in ((False, (True, [[7, 0, 1]] * n, 0, 0)),
+                        (True, (True, [[7, 0, 0]] * n, n, n))):
+        check(stall_out[stall] == want,
+              f"doorbell after a token, stall={stall}: (landed, control "
+              f"words, pool stalls, control stalls) {stall_out[stall]}, "
+              f"want {want}")
+        check(stall_case("cpu", stall_payload, stall) == want,
+              f"the plain versions, stall={stall}: differ from the card's")
+    check(stall_counts["put_signal"] == 2 and stall_counts["put_wait"] == 4,
+          f"stall check launches {stall_counts}: want 2 K4, 4 waits")
+    print(f"[stall] a K3 wait held short (owed = ticks + 1 on {n} ranks) "
+          f"counted {n} stalls; K4 after the pool's token then landed its "
+          f"count word and withheld all {n} bells (control stalls {n}); "
+          f"without the stall every bell rose; the plain versions agree",
+          flush=True)
+    del stall_payload
 
     # ---- [p5] memory handles and dynamic windows ------------------------
     # a dynamic window over each rank's 2^24-float pool, slots attached in
@@ -2572,6 +2729,209 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- [train-ssm] mamba2-370m trains on the card -------------------------
+    # all 48 layers at published widths, 4 stacked data-parallel ranks with
+    # the one-sided ring: a Mamba2 block whose inputs require grad calls
+    # models.ssm.ssd_chunked (the reference's training path), so no K8 or
+    # pass launch happens in a step; a no-grad prefill of the trained model
+    # launches each once a layer
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run = train(SSM_ARCH, tiny=False, steps=SSM_TRAIN_STEPS,
+                global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN, peak_lr=1e-3,
+                warmup_steps=0, grad_sync="rma_ring", dp_ranks=n,
+                device="cuda", log_every=1)
+    counts = path_counts("mamba2-370m step", ("ring_all_reduce", "put_wait"))
+    check(all(v == v and abs(v) < 1e6 for v in run.losses),
+          f"train-ssm: loss not finite: {run.losses}")
+    check(run.losses[-1] < run.losses[0],
+          f"train-ssm: loss did not fall: {run.losses}")
+    check(counts["ring_all_reduce"] == SSM_TRAIN_STEPS,
+          f"train-ssm: K5 launched {counts['ring_all_reduce']} times in "
+          f"{SSM_TRAIN_STEPS} steps")
+    check(counts["ssd_intra_chunk"] == counts["ssd_pass"] == 0,
+          f"train-ssm: K8 or the pass launched in a train step: {counts}")
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    ring_ms = [round(p["sync"], 2) for p in run.part_ms]
+    parts = [{k: round(v, 2) for k, v in p.items()} for p in run.part_ms]
+    K.reset_launch_counts()
+    tok = torch.as_tensor(ssm_prompts[0][:SEQ_LEN], dtype=torch.int64,
+                          device=dev)[None]
+    with torch.no_grad():
+        trained_logits, _ = ssm_model.prefill(
+            run.params, {"tokens": tok}, ssm_model.init_cache(1, SEQ_LEN))
+    counts = path_counts("mamba2-370m no-grad prefill of the trained model",
+                         ("ssd_intra_chunk", "ssd_pass"))
+    check(counts["ssd_intra_chunk"] == counts["ssd_pass"]
+          == cfg_ssm.n_layers,
+          f"train-ssm: the trained model's prefill launched {counts}, want "
+          f"K8 and the pass {cfg_ssm.n_layers} times each")
+    check(bool(torch.isfinite(trained_logits[..., :cfg_ssm.vocab]).all()),
+          "train-ssm: the trained model's prefill logits not finite")
+    print(f"[train-ssm] {SSM_ARCH} d{cfg_ssm.d_model} x{cfg_ssm.n_layers} "
+          f"layers, {n} ranks, batch {GLOBAL_BATCH}x{SEQ_LEN} bf16, "
+          f"{run.n_params} parameters: losses "
+          f"{[round(v, 4) for v in run.losses]}; step ms "
+          f"{[round(v, 1) for v in run.step_ms]}; ring ms (CUDA events) "
+          f"{ring_ms}; parts ms {parts}; peak memory {train_peak:.1f} GiB; "
+          f"K5 once "
+          f"a step, no K8 or pass launch in a step; the trained model's "
+          f"no-grad prefill on K8 and the pass {cfg_ssm.n_layers} times each "
+          f"({smi})", flush=True)
+    del run, trained_logits, ssm_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- [serve-hybrid] jamba-v0.1-52b served on the card -------------------
+    # published widths, depth cut to one period (8 of 32 layers: 7 Mamba2,
+    # 1 attention, 4 MoE of all 16 experts), parameters made on the card
+    # from seed 0; the [serve] request set through a dense engine and a
+    # paged engine with copy-on-write prefix sharing.  Each prefill runs K7
+    # once (the attention layer) and K8 and the pass once a Mamba2 layer;
+    # the MoE layers serve in ep_mode="gspmd", as the JAX launcher does
+    cfg_hyb = cfg_hyb.replace(n_layers=HYBRID_LAYERS)
+    hyb_model = build_model(cfg_hyb)
+    n_attn = sum(sp.mixer == "gqa" for sp in hyb_model.plan)
+    n_mamba = sum(sp.mixer == "mamba" for sp in hyb_model.plan)
+    n_moe = sum(sp.ffn == "moe" for sp in hyb_model.plan)
+    check((n_attn, n_mamba, n_moe) == (1, 7, 4),
+          f"jamba x{HYBRID_LAYERS}: {n_attn} attention, {n_mamba} Mamba2, "
+          f"{n_moe} MoE layers")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    hyb_params = hyb_model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n_hyb = sum(p.numel() for p in leaves(hyb_params))
+    print(f"[plan] {cfg_hyb.name} x{cfg_hyb.n_layers} of 32 layers d"
+          f"{cfg_hyb.d_model} ({n_attn} attention GQA {cfg_hyb.n_heads}/"
+          f"{cfg_hyb.n_kv_heads}, {n_mamba} Mamba2 {hyb_h}x{hyb_p} d_state "
+          f"{hyb_n}, {n_moe} MoE of {cfg_hyb.moe.num_experts} experts top "
+          f"{cfg_hyb.moe.top_k}): {n_hyb} float32 parameters "
+          f"({n_hyb * 4 / 2**30:.1f} GiB) initialized on the card from seed "
+          f"0 in {time.perf_counter() - t0:.1f} s ({held_before:.2f} GiB "
+          f"held before)", flush=True)
+    prng = np.random.RandomState(0)
+    prefix = prng.randint(0, cfg_hyb.vocab, size=SERVE_PREFIX)
+    hyb_prompts = [np.concatenate([prefix, prng.randint(
+        0, cfg_hyb.vocab, size=SERVE_PROMPT - SERVE_PREFIX)])
+        for _ in range(3)]
+    hyb_prompts.append(hyb_prompts[2].copy())
+    hyb_prompts += [prng.randint(0, cfg_hyb.vocab, size=SERVE_PROMPT)
+                    for _ in range(SERVE_REQUESTS - len(hyb_prompts))]
+    hyb_out = {}
+    for mode, kw in (("dense", {}),
+                     ("paged+cow", dict(paged_kv=True, page_tokens=SERVE_PAGE,
+                                        prefix_share=True))):
+        eng = ServeEngine(hyb_model, hyb_params, n_slots=SERVE_SLOTS,
+                          max_seq=SERVE_MAX_SEQ, **kw)
+        for rid, prompt in enumerate(hyb_prompts):
+            eng.submit(Request(rid, prompt, SERVE_NEW))
+        spent = {"prefill": [], "decode": []}
+        for part in spent:            # both calls end in a host read
+            def timed(*a, _fn=getattr(eng.executor, part), _t=spent[part]):
+                t = time.perf_counter()
+                out = _fn(*a)
+                _t.append((time.perf_counter() - t) * 1e3)
+                return out
+            setattr(eng.executor, part, timed)
+        del timed
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        done = eng.run(strict=True)
+        wall = time.perf_counter() - t0
+        counts = path_counts(f"serve-hybrid {mode}", (
+            "flash_attention", "ssd_intra_chunk", "ssd_pass"))
+        n_prefill = len(spent["prefill"])
+        check(n_prefill == SERVE_REQUESTS,
+              f"serve-hybrid {mode}: {n_prefill} prefills")
+        for name, per in (("flash_attention", n_attn),
+                          ("ssd_intra_chunk", n_mamba),
+                          ("ssd_pass", n_mamba)):
+            check(counts[name] == per * n_prefill,
+                  f"serve-hybrid {mode}: {name} launched {counts[name]} "
+                  f"times, want {per} x {n_prefill} prefills")
+        check(k7.COUNTER.by_variant == {
+            k7.VARIANTS[torch.bfloat16]: counts["flash_attention"]},
+              f"serve-hybrid {mode}: K7 variants {k7.COUNTER.by_variant}")
+        hybrid_launches = {"ssd_intra_chunk_n16": counts["ssd_intra_chunk"],
+                           "ssd_pass_n16": counts["ssd_pass"]}
+        tokens = {c.rid: c.tokens for c in done}
+        check(sorted(tokens) == list(range(SERVE_REQUESTS)) and all(
+            len(t) == SERVE_NEW and all(0 <= x < cfg_hyb.vocab for x in t)
+            for t in tokens.values()), f"serve-hybrid {mode}: {tokens}")
+        st = eng.stats()
+        if eng.paged_kv:
+            eng.pool.check_conservation()
+            check(st["cow_copies"] > 0 and st["pages_shared"] > 0,
+                  f"serve-hybrid {mode}: no page was shared or forked: {st}")
+            check(eng.pool.n_free == eng.pool.n_pages,
+                  f"serve-hybrid {mode}: pages still held: {st}")
+            check(eng.executor.page_payload_elems == SERVE_PAGE
+                  * cfg_hyb.n_kv_heads * cfg_hyb.head_dim * 2 * n_attn,
+                  f"serve-hybrid: a page payload of "
+                  f"{eng.executor.page_payload_elems} elements is not the "
+                  f"attention layer's KV alone")
+        n_tok = sum(len(t) for t in tokens.values())
+        hyb_out[mode] = tokens
+        pre, dec = spent["prefill"], spent["decode"]
+        print(f"[serve-hybrid] {mode}: {SERVE_REQUESTS} requests x "
+              f"{SERVE_PROMPT} prompt tokens, {SERVE_NEW} new each, "
+              f"{SERVE_SLOTS} slots, max_seq {SERVE_MAX_SEQ}, bf16: {n_tok} "
+              f"tokens in {wall:.2f} s ({n_tok / wall:.1f} tok/s); prefill "
+              f"ms per request {[round(x, 1) for x in pre]}; decode ms per "
+              f"tick median {sorted(dec)[len(dec) // 2]:.2f} (min "
+              f"{min(dec):.2f}, max {max(dec):.2f}, {len(dec)} ticks); peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+              f"launches {counts}; stats {st} ({smi})", flush=True)
+        del eng, done
+        gc.collect()
+    check(hyb_out["dense"] == hyb_out["paged+cow"],
+          "serve-hybrid: dense and paged+COW greedy tokens differ")
+    print("[serve-hybrid] dense and paged+COW greedy tokens equal bit for "
+          "bit", flush=True)
+    # one prefill on K7, K8 and the pass against the same prefill on their
+    # plain versions, and one decode step after it
+    tok = torch.as_tensor(hyb_prompts[0], dtype=torch.int64,
+                          device=dev)[None]
+    logits = {}
+    card_scan = ops_mod.ssd_scan
+    for name, attn_fn, scan_fn in (
+            ("kernels", k7.flash_attention, card_scan),
+            ("plain", k7.flash_attention_plain, ops_mod.ssd_scan_plain)):
+        attn_mod.flash_attention, ops_mod.ssd_scan = attn_fn, scan_fn
+        try:
+            logits[name], cache = hyb_model.prefill(
+                hyb_params, {"tokens": tok},
+                hyb_model.init_cache(1, SERVE_MAX_SEQ))
+        finally:
+            attn_mod.flash_attention = k7.flash_attention
+            ops_mod.ssd_scan = card_scan
+        if name == "kernels":
+            step_logits, _ = hyb_model.decode_step(
+                hyb_params, cache,
+                logits["kernels"][:, -1].argmax(-1, keepdim=True))
+    lanes = slice(0, cfg_hyb.vocab)
+    diff = (logits["kernels"][..., lanes] - logits["plain"][..., lanes]
+            ).abs().max().item()
+    scale = logits["plain"][..., lanes].abs().max().item()
+    check(bool(torch.isfinite(logits["kernels"][..., lanes]).all())
+          and bool(torch.isfinite(step_logits[..., lanes]).all()),
+          "jamba prefill or decode logits not finite")
+    check(diff <= PREFILL_LOGIT_RTOL * scale,
+          f"jamba prefill logits on K7, K8 and the pass vs their plain "
+          f"versions: max |d| {diff} of max |logit| {scale}")
+    print(f"[serve-hybrid] one prefill's last logits, K7 + K8 + pass vs "
+          f"their plain versions: max |d| {diff:.4g} of max |logit| "
+          f"{scale:.4g} (bound {PREFILL_LOGIT_RTOL} x); the next decode "
+          f"step's logits finite", flush=True)
+    del hyb_params, logits, cache, step_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- 3. the record ------------------------------------------------------
     replaces = {
         "accumulate": ("K1", "src/repro/kernels/accumulate.py:84"),
@@ -2594,6 +2954,8 @@ def main() -> int:
         "flash_attention": ("K7", "src/repro/kernels/flash_attention.py:84"),
         "ssd_intra_chunk": ("K8", "src/repro/kernels/ssd_scan.py:62"),
         "ssd_pass": ("K8 glue", "src/repro/kernels/ops.py:24"),
+        "ssd_intra_chunk_n16": ("K8", "src/repro/kernels/ssd_scan.py:62"),
+        "ssd_pass_n16": ("K8 glue", "src/repro/kernels/ops.py:24"),
     }
     sources = {"accumulate": "accumulate.cu", "ring_accumulate": "intrinsic.cu",
                "ring_accumulate_device": "intrinsic.cu",
@@ -2606,7 +2968,9 @@ def main() -> int:
                "ring_all_reduce": "ring_allreduce.cu",
                "accumulate_signal": "put_signal.cu",
                "flash_attention": "flash_attention.cu",
-               "ssd_intra_chunk": "ssd_scan.cu", "ssd_pass": "ssd_pass.cu"}
+               "ssd_intra_chunk": "ssd_scan.cu", "ssd_pass": "ssd_pass.cu",
+               "ssd_intra_chunk_n16": "ssd_scan.cu",
+               "ssd_pass_n16": "ssd_pass.cu"}
     # a K2/K3 row counts the launches of its variant: static host offsets,
     # a displacement from device memory, or the handle guard
     variant_of = {"ring_put": ("ring_put", "static"),
@@ -2621,8 +2985,10 @@ def main() -> int:
         r = record[name]
         tag, where = replaces[name]
         # the [serve-disagg] rows count that path's launches alone: K4's
-        # doorbells, K3's guarded page moves (and the stale read)
-        count = (disagg_launches[name] if name in disagg_launches
+        # doorbells, K3's guarded page moves (and the stale read); the N 16
+        # rows the [serve-hybrid] paged engine's
+        path_launches = {**disagg_launches, **hybrid_launches}
+        count = (path_launches[name] if name in path_launches
                  else variant_launches.get(variant_of[name], 0)
                  if name in variant_of else launches[name])
         check(count > 0, f"{name}: no launch on any path")

@@ -64,7 +64,7 @@ SIGNATURES = {
     "put_signal": {
         "rt_put_signal": (_P, _I64, _P, _I64, _I64, _P, _P, _I64, _I64, _I,
                           _P, _I64, _P, _I64, _I64, _I64, _I, _I, _P, _P, _I,
-                          _I, _I, _I, _P, _P, _P),
+                          _I, _I, _I, _P, _P, _P, _P),
         "rt_accumulate_signal": (_P, _I64, _P, _I64, _I64, _P, _P, _I64, _I64,
                                  _I, _I, _P, _I64, _P, _I64, _I64, _I64, _I,
                                  _I, _P, _P, _I, _I, _I, _I, _P, _P)},

@@ -1,7 +1,7 @@
-"""The dense, MoE and pure-SSM architectures the port builds, exactly as the
-JAX package registers them (``repro/configs/archs.py``).  The MLA, hybrid,
-enc-dec and VLM families arrive with their model code (ROADMAP queue 1,
-item 11)."""
+"""The dense, MoE, pure-SSM and hybrid architectures the port builds,
+exactly as the JAX package registers them (``repro/configs/archs.py``).
+The MLA, enc-dec and VLM families arrive with their model code (ROADMAP
+queue 1, item 11, step 3)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import (ModelConfig, MoEConfig, SSMConfig,
@@ -97,6 +97,29 @@ def llama4_maverick() -> ModelConfig:
         moe=MoEConfig(num_experts=128, top_k=1, d_ff_expert=8192,
                       n_shared=1, d_ff_shared=8192,
                       interleave_step=2, interleave_offset=1),
+    )
+
+
+@register("jamba-v0.1-52b")
+def jamba_v01() -> ModelConfig:
+    """[hybrid] Mamba+attention 1:7 interleave + MoE 16e top-2
+    [arXiv:2403.19887; hf].
+
+    32L, d=4096, 32H (GQA kv=8), ff=14336, vocab=65536.  Period-8 blocks:
+    layer i%8==4 is attention (the published attn_layer_offset=4,
+    attn_layer_period=8); every other layer's FFN is MoE
+    (expert_layer_period=2, offset=1).  Sub-quadratic: runs long_500k.
+    """
+    return ModelConfig(
+        name="jamba-v0.1-52b", family="hybrid",
+        n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+        d_ff=14336, vocab=65536,
+        rope_theta=0.0,  # Jamba uses no positional encoding (Mamba carries it)
+        hybrid_period=8, hybrid_attn_offset=4,
+        ssm=SSMConfig(d_state=16, headdim=64, expand=2, chunk=64, d_conv=4),
+        moe=MoEConfig(num_experts=16, top_k=2, d_ff_expert=14336,
+                      interleave_step=2, interleave_offset=1),
+        subquadratic=True, max_seq=524288,
     )
 
 

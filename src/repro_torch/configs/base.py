@@ -1,7 +1,8 @@
 """Model configuration and the architecture registry: the JAX package's
-``ModelConfig`` fields that the dense, MoE and pure-SSM families read, with
-torch dtypes.  The MLA, hybrid, enc-dec and VLM sub-configs arrive with
-their model code (ROADMAP queue 1, item 11)."""
+``ModelConfig`` fields that the dense, MoE, pure-SSM and hybrid
+(Mamba2 + attention) families read, with torch dtypes.  The MLA, enc-dec
+and VLM sub-configs arrive with their model code (ROADMAP queue 1, item 11,
+step 3)."""
 from __future__ import annotations
 
 import dataclasses
@@ -54,7 +55,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm (the families the port builds so far)
+    family: str  # dense | moe | ssm | hybrid (the families the port builds)
     n_layers: int
     d_model: int
     n_heads: int
@@ -75,6 +76,9 @@ class ModelConfig:
     blockwise_threshold: int = 2048 * 2048
     attn_impl: str = "auto"    # auto | full | blockwise
     attn_block_kv: int = 1024
+    # hybrid (jamba): layer i is attention iff i % hybrid_period == hybrid_attn_offset
+    hybrid_period: int = 0
+    hybrid_attn_offset: int = 0
     moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
     dtype: str = "bfloat16"

@@ -1,8 +1,9 @@
 """Reduced same-family configs for tests and examples: ``tiny_config(arch)``
 keeps the structure of the architecture (family, qk-norm, GQA ratio, norm
-and activation kinds, MoE interleave, SSM state) and shrinks widths, depth
-and experts, exactly as the JAX package's ``tiny_config`` does for the
-dense, MoE and pure-SSM families."""
+and activation kinds, MoE interleave, SSM state, hybrid period) and shrinks
+widths, depth and experts, exactly as the JAX package's ``tiny_config``
+does for the dense, MoE, pure-SSM and hybrid families: a hybrid stack keeps
+one whole period of layers."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,7 +16,7 @@ def tiny_config(arch: str, *, dtype: str = "float32") -> ModelConfig:
     kw: dict = dict(
         d_model=64, d_ff=128, vocab=256, max_seq=256,
         dtype=dtype, param_dtype="float32",
-        n_layers=2,
+        n_layers=cfg.hybrid_period if cfg.hybrid_period else 2,
     )
     if cfg.n_heads > 1:
         kw.update(n_heads=4, n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4,

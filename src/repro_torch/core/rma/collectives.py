@@ -352,9 +352,10 @@ def _flag_payload(win: Window, flag_value):
 
 
 def _put_then_signal(win: Window, data, perm, *, data_offset, flag_offset,
-                     flag_value, stream) -> Window:
+                     flag_value, stream, hold=None) -> Window:
     """The last put and its flag as one K4 launch, ordered on an
-    ``order=True`` window and in the Listing-1 shape otherwise."""
+    ``order=True`` window and in the Listing-1 shape otherwise; ``hold``
+    withholds the flag while that stall word is not 0."""
     win._check_stream(stream)
     flag_op, flag = _flag_payload(win, flag_value)
     path = acc_engine.route(flag_op, int(flag[0].numel()), win.buffer.dtype,
@@ -362,7 +363,7 @@ def _put_then_signal(win: Window, data, perm, *, data_offset, flag_offset,
     win.substrate.put_signal(
         data, perm, offset=data_offset, flag=flag, flag_offset=flag_offset,
         flag_op=flag_op, flag_path=path, stream=stream, shm=win._shm(perm),
-        ordered=win.config.order, scope=win.config.scope)
+        ordered=win.config.order, scope=win.config.scope, hold=hold)
     return win
 
 
@@ -389,16 +390,22 @@ def put_signal(win: Window, data: torch.Tensor, perm, *, data_offset=0,
     behind it — cross-window notified access: a doorbell that must not
     overtake its data.  On the card the current CUDA stream waits for the
     token's event (no host synchronization), so the K4 launch may be issued
-    on another stream than the token was taken on.  It bills nothing: the
+    on another stream than the token was taken on.  The token's family
+    flushes with a bounded wait that counts a stall instead of hanging; K4
+    reads that family's stall word, and while it is not 0 the data lands
+    but the flag is withheld and counted in this window's ``stalls`` — no
+    doorbell over transfers a flush gave up on.  It bills nothing: the
     ledger is that of the same call without ``after``."""
+    hold = None
     if after is not None:
         if not isinstance(after, CompletionToken):
             raise TypeError(f"after= takes a window's completion token "
                             f"(Window.completion_token), got {type(after)}")
         after.wait()
+        hold = after.stalls
     return _put_then_signal(win, data, perm, data_offset=data_offset,
                             flag_offset=flag_offset, flag_value=flag_value,
-                            stream=stream)
+                            stream=stream, hold=hold)
 
 
 def put_signal_pipelined(win: Window, data: torch.Tensor, perm, *,

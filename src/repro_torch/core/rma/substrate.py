@@ -174,13 +174,16 @@ class CompletionToken:
     CUDA event recorded on the current stream when the token is taken: no
     launch and no host read.  ``event`` is None on the CPU, where every
     operation has completed when its call returns.  A flush whose bounded
-    spin gave up counts into ``Substrate.stalls`` and does not block, so
-    work ordered behind a token is only as complete as ``stalls == 0``
-    says."""
+    spin gave up counts into the family's stall word and does not block:
+    ``stalls`` is that word, and a doorbell ordered behind the token
+    (``put_signal(..., after=token)``) reads it on the card and is not
+    raised while it is not 0."""
 
     stream: int
     device: torch.device
     event: "torch.cuda.Event | None" = None
+    stalls: "torch.Tensor | None" = dataclasses.field(default=None,
+                                                      compare=False)
 
     def wait(self) -> None:
         """Order what is issued next on the current CUDA stream of the
@@ -275,10 +278,10 @@ class Substrate:
         on the card an event recorded on the current CUDA stream.  Bills
         nothing."""
         if self.device.type != "cuda":
-            return CompletionToken(stream, self.device)
+            return CompletionToken(stream, self.device, stalls=self.stalls)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
-        return CompletionToken(stream, self.device, event)
+        return CompletionToken(stream, self.device, event, self.stalls)
 
     # -- helpers ----------------------------------------------------------
     def _launches(self, pairs) -> list:
@@ -605,13 +608,16 @@ class Substrate:
                       op: str | None = None, dst: torch.Tensor | None = None,
                       offset=0, flag: torch.Tensor, flag_offset: int,
                       flag_op: str, flag_sub: "Substrate | None" = None,
-                      ordered: bool = True, stream: int = 0) -> None:
+                      ordered: bool = True, stream: int = 0,
+                      hold: torch.Tensor | None = None) -> None:
         """One K4 (``op=None``: copy) or K6 (fold with ``op``) launch: the
         payload along ``perm``, then its flag words at ``flag_offset`` of
         ``flag_sub``'s window (default: this one).  The payload lands in
         this window at ``offset``, or in ``dst`` (stacked rows, as a
-        two-sided send lands) when given.  Ticks this family's completion
-        counters on ``stream``; billing is the caller's."""
+        two-sided send lands) when given.  ``hold`` (K4 only): another
+        family's stall word; while it is not 0 the flags are withheld and
+        counted in this family's ``stalls``.  Ticks this family's
+        completion counters on ``stream``; billing is the caller's."""
         self._one_origin_per_target(perm)
         fsub = self if flag_sub is None else flag_sub
         flag, flat, foff = fsub._flag_rows(flag, flag_offset)
@@ -623,7 +629,8 @@ class Substrate:
                       counters=self.counters, stream=stream,
                       stalls=self.stalls, scratch=self.scratch)
         if op is None:
-            ticks = put_signal_rows(data, dst, self._targets(perm), **common)
+            ticks = put_signal_rows(data, dst, self._targets(perm),
+                                    hold=hold, **common)
         else:
             ticks = accumulate_signal_rows(data, dst, self._targets(perm),
                                            op=op, **common)
@@ -633,13 +640,15 @@ class Substrate:
     def put_signal(self, data: torch.Tensor, perm: Perm, *, offset=0,
                    flag: torch.Tensor, flag_offset: int, flag_op: str,
                    flag_path: str, stream: int = 0, shm: bool = False,
-                   ordered: bool = True, scope: str = SCOPE_THREAD
-                   ) -> "Substrate":
+                   ordered: bool = True, scope: str = SCOPE_THREAD,
+                   hold: torch.Tensor | None = None) -> "Substrate":
         """A put and then its flag accumulate at ``flag_offset``, in one K4
         launch.  Ordered (P2), the flag chains behind the payload: put 1 +
         flag phases.  Unordered (Listing 1), the flush between them is the
         launch's grid-wide completion wait: the streams the flush drains are
-        waited for first and billed 2 each, as :meth:`flush` bills them."""
+        waited for first and billed 2 each, as :meth:`flush` bills them.
+        ``hold``: the stall word of the family a token orders this behind
+        (:meth:`launch_signal`)."""
         from repro_torch.core.rma import accumulate as _engine
 
         drained = {} if ordered else self.queues.take(scope, stream)
@@ -647,7 +656,7 @@ class Substrate:
             self._wait(s)
         self.launch_signal(data, perm, offset=offset, flag=flag,
                            flag_offset=flag_offset, flag_op=flag_op,
-                           ordered=ordered, stream=stream)
+                           ordered=ordered, stream=stream, hold=hold)
         self.ledger.bill("put", 1 + (0 if _is_static(offset) else 1), shm=shm)
         if not ordered:
             self.ledger.bill("flush", 2 * len(set(drained) | (

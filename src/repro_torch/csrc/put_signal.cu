@@ -26,7 +26,16 @@
 //   scheduled.
 //
 // The flag update is the window's declared op folded into the target's flag
-// words (a signal is an accumulate), stored with st.release.gpu.  Each
+// words (a signal is an accumulate), stored with st.release.gpu.
+//
+// A doorbell ordered behind another family's completion token (K4's `hold`:
+// that family's stall word) is a promise that the family's flushed
+// transfers have landed.  The flush wait gives up after a bounded spin and
+// counts a stall instead of hanging, so the flag writer acquire-reads the
+// hold word first: when it is not 0 the payload still lands, but the flag
+// words stay as they are and the launch adds one to its own `stalls` for
+// each flag so withheld.  A consumer then sees what the reference's flush,
+// which never gives up, would show it: no doorbell.  Each
 // payload block also release-adds one to the origin's (rank, stream)
 // completion counter, as K3 does, so a later flush of that stream finds the
 // transfer complete.
@@ -76,6 +85,7 @@ struct SigArgs {
   int ordered;
   unsigned* mismatch;     // check mode: units that differ (null: no check)
   unsigned* stalls;       // bounded spins that gave up, or null
+  const unsigned* hold;   // K4: a stall word; the flags are withheld while it is not 0
 };
 
 template <typename F>
@@ -135,6 +145,19 @@ __device__ void raise_flag(const SigArgs& a, int r, int t) {
       default: flag_word<int64_t>(dst, val, i, a.fop); break;
     }
   }
+}
+
+// The flag writer's block: raise origin r's flag words, or, when the hold
+// word says a flush this doorbell is ordered behind gave up, withhold them
+// and count the stall.  `held` is shared by the block (thread 0 reads it).
+__device__ void raise_or_hold(const SigArgs& a, int r, int t, int* held) {
+  if (threadIdx.x == 0) *held = a.hold != nullptr && rt_ld_acquire(a.hold) != 0u;
+  __syncthreads();
+  if (*held) {
+    if (threadIdx.x == 0 && a.stalls) atomicAdd(a.stalls, 1u);
+    return;
+  }
+  raise_flag(a, r, t);
 }
 
 __device__ __forceinline__ bool spin_until(const unsigned* word, unsigned at_least,
@@ -213,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) signal_kernel(SigArgs a) {
   const int r = b / nb;
   const int j = b % nb;
   const int t = a.targets[r];
-  __shared__ int last;
+  __shared__ int last, held;
   if (t >= 0) {
     const int64_t off = a.dst_offs ? a.dst_offs[r] : a.dst_off;
     const U* s = (const U*)a.src + (int64_t)r * a.src_stride;
@@ -235,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) signal_kernel(SigArgs a) {
     __syncthreads();
     if (!last) return;
     __threadfence();  // acquire side of the other blocks' fenced arrivals
-    raise_flag(a, r, t);
+    raise_or_hold(a, r, t, &held);
     if (threadIdx.x == 0) a.scratch[r] = 0u;  // ready for the next launch
     return;
   }
@@ -251,7 +274,7 @@ __global__ void __launch_bounds__(kThreads) signal_kernel(SigArgs a) {
   if (threadIdx.x == 0) spin_until(done, (unsigned)producers, a.stalls);
   __syncthreads();
   __threadfence();
-  if (t >= 0) raise_flag(a, r, t);
+  if (t >= 0) raise_or_hold(a, r, t, &held);
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
@@ -327,18 +350,21 @@ static SigArgs make_args(const void* src, int64_t src_stride, void* dst, int64_t
   a.ordered = ordered;
   a.mismatch = nullptr;
   a.stalls = (unsigned*)stalls;
+  a.hold = nullptr;
   return a;
 }
 
 // K4.  Sizes of the payload in units of `unit` bytes; flag sizes in flag
-// words.  mismatch != null selects the check mode.
+// words.  mismatch != null selects the check mode; hold != null withholds
+// the flags while *hold is not 0.
 RT_EXPORT int rt_put_signal(const void* src, int64_t src_stride, void* dst, int64_t dst_stride,
                             int64_t dst_off, const int64_t* dst_offs, const int32_t* targets,
                             int64_t n, int64_t m, int unit, const void* fval,
                             int64_t fval_stride, void* fdst, int64_t fdst_stride, int64_t foff,
                             int64_t fw, int fdtype, int fop, void* scratch, void* counters,
                             int n_streams, int stream, int blocks, int ordered,
-                            void* mismatch, void* stalls, void* stream_ptr) {
+                            void* mismatch, void* stalls, const void* hold,
+                            void* stream_ptr) {
   if (n < 1 || n > 65535 || m < 0 || blocks < 1 || stream < 0 || stream >= n_streams ||
       fw > 1024)
     return RT_BAD_ARGUMENT;
@@ -346,6 +372,7 @@ RT_EXPORT int rt_put_signal(const void* src, int64_t src_stride, void* dst, int6
                         fval, fval_stride, fdst, fdst_stride, foff, fw, fdtype, fop, scratch,
                         counters, n_streams, stream, blocks, ordered, stalls);
   if (!flag_ok(a)) return RT_BAD_ARGUMENT;
+  a.hold = (const unsigned*)hold;
   if (mismatch) {
     // the consumer spins on one 32-bit flag word
     if (fdtype != DT_F32 && fdtype != DT_I32) return RT_BAD_ARGUMENT;

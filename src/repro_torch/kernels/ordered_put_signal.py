@@ -113,12 +113,12 @@ def put_signal_rows_plain(src, dst, targets, *, flag, flag_dst, offset=0,
                           flag_offset: int = 0, flag_op: str = "sum",
                           ordered: bool = True, counters=None,
                           stream: int = 0, stalls=None, check=None,
-                          scratch=None) -> int:
+                          scratch=None, hold=None) -> int:
     """The plain PyTorch version of K4: same contract, copying by element.
     In check mode ``check[0]`` gains the payload elements that differ from
     what their origin sent (0 here: the plain version runs in program
     order)."""
-    del ordered, stalls, scratch
+    del ordered, scratch
     offs = _offsets(offset, src.shape[0])
     _check(src, dst, targets, offs, flag, flag_dst, flag_offset, flag_op)
     tgt = _host_targets(targets, src.shape[0])
@@ -126,7 +126,11 @@ def put_signal_rows_plain(src, dst, targets, *, flag, flag_dst, offset=0,
     for r, t in enumerate(tgt):
         if t >= 0:
             dst[t, offs[r]:offs[r] + m] = src[r]
-    _raise_flags_plain(flag, flag_dst, tgt, flag_offset, flag_op)
+    if hold is not None and int(hold.reshape(-1)[0]) != 0:
+        if stalls is not None:              # one withheld flag per origin
+            stalls += sum(t >= 0 for t in tgt)
+    else:
+        _raise_flags_plain(flag, flag_dst, tgt, flag_offset, flag_op)
     _tick_plain(counters, tgt, stream)
     if check is not None:
         for r, t in enumerate(tgt):
@@ -198,13 +202,18 @@ def put_signal_rows(src: torch.Tensor, dst: torch.Tensor, targets, *,
                     counters: torch.Tensor | None = None, stream: int = 0,
                     stalls: torch.Tensor | None = None,
                     check: torch.Tensor | None = None,
-                    scratch: torch.Tensor | None = None) -> int:
+                    scratch: torch.Tensor | None = None,
+                    hold: torch.Tensor | None = None) -> int:
     """For every rank r with ``targets[r] >= 0``: ``dst[t, off_r:off_r+m] =
     src[r]`` (``off_r`` = ``offset``, or ``offset[r]`` per rank), then —
     behind that payload — ``flag_dst[t, flag_offset:+f] = flag_op(...,
     flag[r])``.  ``ordered=False`` makes every flag wait for every payload
-    of the launch (Listing 1).  With ``counters``, each payload block adds
-    one to ``counters[r, stream]``; returns those ticks per sending rank.
+    of the launch (Listing 1).  ``hold`` (a stall word, int32, on the flag
+    rows' device): while it is not 0 the payloads land but every flag stays
+    as it is, and ``stalls[0]`` gains one per flag withheld — a doorbell
+    ordered behind a flush that gave up is not raised.  With ``counters``,
+    each payload block adds one to ``counters[r, stream]``; returns those
+    ticks per sending rank.
     ``check`` (a (1,) int32 tensor, K4's check mode): the launch — the
     same instance and launch mode as without it — gains one consumer block
     per origin, which spins on the origin's first flag word (4-byte flag
@@ -220,7 +229,12 @@ def put_signal_rows(src: torch.Tensor, dst: torch.Tensor, targets, *,
         return put_signal_rows_plain(
             src, dst, targets, flag=flag, flag_dst=flag_dst, offset=offset,
             flag_offset=flag_offset, flag_op=flag_op, ordered=ordered,
-            counters=counters, stream=stream, stalls=stalls, check=check)
+            counters=counters, stream=stream, stalls=stalls, check=check,
+            hold=hold)
+    if hold is not None and (hold.dtype != torch.int32 or
+                             hold.device != flag_dst.device):
+        raise ValueError(f"hold must be an int32 word on {flag_dst.device}, "
+                         f"got {hold.dtype} on {hold.device}")
     tgt, offs_t = _launch_setup(src, dst, counters, offs, targets, src.device)
     words, fcode = _flag_args(flag, flag_dst)
     es = src.element_size()
@@ -249,6 +263,7 @@ def put_signal_rows(src: torch.Tensor, dst: torch.Tensor, targets, *,
             stream if counters is not None else 0, blocks, int(ordered),
             None if check is None else check.data_ptr(),
             None if stalls is None else stalls.data_ptr(),
+            None if hold is None else hold.data_ptr(),
             _common.stream_ptr(src.device))
     check_launch("put_signal", rc)
     PUT_COUNTER.bump()

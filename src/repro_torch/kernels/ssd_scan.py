@@ -21,8 +21,10 @@ d_state N ≤ 128, headdim P ≤ 64; the wrapper raises outside them, on either
 device.  :func:`ssd_intra_chunk` keeps the JAX kernel's contract (L a
 multiple of the chunk); :func:`launch_intra_chunk`, what the SSD scan calls,
 takes any L — the last chunk's rows past L read as zeros, the glue's exact
-pad — and row-strided B and C.  It has no backward: on the card an input
-that requires grad raises (SSM training is ROADMAP item 11).
+pad — and row-strided B and C.  It has no backward, as the JAX kernel has
+none: on the card an input that requires grad raises, and a Mamba2 block
+that trains calls ``models.ssm.ssd_chunked`` instead, as the reference's
+model does.
 """
 from __future__ import annotations
 
@@ -107,12 +109,15 @@ def row_view(t: torch.Tensor) -> tuple[torch.Tensor, int]:
 
 
 def refuse_grad(what: str, *tensors) -> None:
-    """No kernel of the SSD scan has a backward: raise on the card for an
-    input that requires grad."""
+    """No kernel of the SSD scan has a backward, and neither has the JAX
+    kernel: raise on the card for an input that requires grad.  A model
+    trains through ``models.ssm.ssd_chunked``, as the reference does."""
     if any(t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{what} has no backward kernel: SSM training on the card is not "
-            "ported yet (ROADMAP queue 1, item 11)")
+            f"{what} has no backward kernel (nor has the JAX kernel): "
+            "differentiate models.ssm.ssd_chunked, which Mamba2 blocks call "
+            "for inputs that require grad; a backward kernel is speed work "
+            "(ROADMAP queue 1, item 13)")
 
 
 def launch_intra_chunk(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,

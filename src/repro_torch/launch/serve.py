@@ -8,7 +8,13 @@
 Runs on the card unless ``--device cpu``; ``--full`` takes the published
 widths and depth (``--tiny``, the default, the reduced config).  A Mamba2
 stack (``mamba2-370m``) serves dense only: its caches are the conv tail and
-the SSM state, with no KV to page.
+the SSM state, with no KV to page.  A hybrid stack (``jamba-v0.1-52b``)
+serves dense or paged: only its attention layers' KV is paged, the Mamba2
+layers' conv tail and state stay dense::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
+      --device cpu --disagg --prefix-share --shared-prefix-len 16 \\
+      --prompt-len 20
 
 ``--disagg`` first drives the prefill→push→doorbell→admission→decode round
 trip (``serve/disagg.py::demo_round_trip``, 8 stacked ranks) in this

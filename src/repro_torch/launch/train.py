@@ -1,6 +1,9 @@
 """Training launcher: synthetic data → train step → per-step record.
 
-Runs on the card unless ``device="cpu"``.  ``dp_ranks > 1`` with
+Runs on the card unless ``device="cpu"``.  Every family the port builds
+trains: dense, MoE, pure SSM (``mamba2-370m``) and hybrid (``jamba``) —
+a Mamba2 block differentiates the chunked scan ``models.ssm.ssd_chunked``,
+as the reference's does.  ``dp_ranks > 1`` with
 ``grad_sync="rma_ring"`` trains data-parallel over stacked ranks with the
 one-sided ring gradient sync.  ``moe_ep="rma"`` runs an MoE arch's expert
 layers over ``ep_ranks`` stacked expert-parallel ranks through the
@@ -14,6 +17,8 @@ Usage:
       --steps 20 --dp-ranks 4 --grad-sync rma_ring --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \
       --arch llama4-maverick-400b-a17b --moe-ep rma --ep-ranks 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
+      --steps 5 --device cpu
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ class TrainRun:
     """What a run did: per-step losses, wall times (ms, each step ending in
     a device synchronization) and, on the card, each step's parts (ms by
     part: gradients, gradient ring, AdamW, and the all-to-all exchanges
-    inside the gradients — CUDA events)."""
+    inside the gradients — CUDA events); and the trained parameters."""
 
     steps_run: int
     losses: list
@@ -45,6 +50,7 @@ class TrainRun:
     part_ms: list
     phases: int | None
     n_params: int
+    params: dict
 
 
 def train(arch: str, *, tiny: bool = True, steps: int = 100,
@@ -98,7 +104,8 @@ def train(arch: str, *, tiny: bool = True, steps: int = 100,
                   f"gnorm={float(metrics['grad_norm']):.3f} "
                   f"ms={step_ms[-1]:.1f}", flush=True)
     return TrainRun(steps_run=steps, losses=losses, step_ms=step_ms,
-                    part_ms=part_ms, phases=phases, n_params=n_params)
+                    part_ms=part_ms, phases=phases, n_params=n_params,
+                    params=params)
 
 
 def main(argv=None):

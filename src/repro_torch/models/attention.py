@@ -10,7 +10,7 @@ weights wq (d, H, hd), wk/wv (d, KV, hd), wo (H, hd, d); activations
 Where the JAX package returns a new cache, the port writes the given cache
 in place (its tensors, ``pos`` included), so a decode step copies no cache.
 MLA and cross-attention arrive with their families (ROADMAP queue 1,
-item 11).
+item 11, step 3).
 """
 from __future__ import annotations
 
@@ -220,7 +220,7 @@ def gqa_attention(params: dict, x: torch.Tensor, cfg, *,
     if kv_input is not None:
         raise NotImplementedError(
             "cross-attention (enc-dec families) is not ported to repro_torch "
-            "yet (ROADMAP queue 1, item 11)")
+            "yet (ROADMAP queue 1, item 11, step 3)")
     H, KV = cfg.n_heads, cfg.n_kv_heads
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))

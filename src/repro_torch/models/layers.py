@@ -21,7 +21,7 @@ def trunc_normal(gen: torch.Generator, shape, scale: float, dtype,
     stddev = scale / np.sqrt(max(1, shape[0] if len(shape) else 1))
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * stddev).to(dtype)
+    return t.mul_(stddev).to(dtype)     # in place: no second copy
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype, device, *,

@@ -1,6 +1,7 @@
 """Top-level model API: ``build_model(cfg)`` → ``init`` / ``forward`` /
 ``loss`` / ``init_cache`` / ``prefill`` / ``decode_step`` for the dense,
-MoE and pure-SSM (Mamba2) families.
+MoE, pure-SSM (Mamba2) and hybrid (Mamba2 + attention, ``jamba``)
+families.
 
 Batch conventions: train ``{"tokens": (B, S) int64, "labels": (B, S)
 int64}``; prefill ``{"tokens": (B, S)}``; decode tokens (B, 1) + cache.
@@ -97,7 +98,8 @@ class Model:
     def prefill(self, params, batch, cache) -> tuple[torch.Tensor, dict]:
         """Process the prompt into a fresh cache (rows at position 0, as the
         JAX package's prefill assumes: its positions start at 0); attention
-        runs through K7, a Mamba2 block's scan through K8.  Returns
+        runs through K7, a Mamba2 block's scan through K8 and the SSD
+        pass.  Returns
         (last-position float32 logits, cache)."""
         cfg = self.cfg
         tokens = batch["tokens"]

@@ -1,12 +1,18 @@
 """Mamba2 — the state-space duality (SSD) layer: chunked scan for prefill and
 forward, the O(1) recurrence for decode.
 
-Ported from the JAX package's ``models/ssm.py``.  Where the reference's
-model calls the pure-JAX ``ssd_chunked``, the port calls
-``kernels.ops.ssd_scan`` — kernel K8 plus its inter-chunk glue, the same
-function — so every prefill of a Mamba2 stack runs through K8.
-``ssd_chunked`` and ``ssd_ref`` stay here as plain versions.  Decode (one
-token against a cache) is the plain recurrence in both packages.
+Ported from the JAX package's ``models/ssm.py``.  The reference's model
+calls the pure-JAX ``ssd_chunked`` everywhere, and trains through it: its
+Pallas kernel has no backward.  The port routes by what the caller
+computes, as the reference's choice of function does: a call whose inputs
+require grad (a train step) goes through :func:`ssd_chunked`, the port of
+that very function, so autograd differentiates it; every other call —
+prefill and the no-grad forward — goes through ``kernels.ops.ssd_scan``,
+kernel K8 plus the SSD pass, the same function, so every prefill of a
+Mamba2 or hybrid stack runs through K8.  No kernel failure leads to
+``ssd_chunked``, and K8 and the pass still refuse grad inputs on the card.
+``ssd_ref`` stays here as the sequential oracle.  Decode (one token against
+a cache) is the plain recurrence in both packages.
 
 Layout: d_inner = expand·d_model, nheads = d_inner/headdim, one B/C group.
 Caches are written in place (the JAX package returns new ones).
@@ -140,7 +146,9 @@ def mamba2_apply(params: dict, x: torch.Tensor, cfg, *,
     """Mamba2 block over x (B, S, d).  With ``cache`` (written in place):
     one-token decode when S == 1, else a prefill that continues from the
     cached state and stores the conv tail and final state.  Without:
-    the full-sequence forward.  Prefill and forward run through K8."""
+    the full-sequence forward.  The chunked scan runs through K8 and the
+    SSD pass, or, when its inputs require grad, through
+    :func:`ssd_chunked`."""
     s = cfg.ssm
     B, S, _ = x.shape
     dt_ = x.dtype
@@ -184,10 +192,16 @@ def mamba2_apply(params: dict, x: torch.Tensor, cfg, *,
         cache["conv"].copy_(conv_state)
         cache["ssm"].copy_(state)
     else:
-        y, final_state = ops.ssd_scan(
-            xdt, a, Bm, Cm, chunk=s.chunk, nheads=nheads,
-            headdim=s.headdim,
-            initial_state=cache["ssm"] if cache is not None else None)
+        s0 = cache["ssm"] if cache is not None else None
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (xdt, a, Bm, Cm,
+                                                            s0)):
+            y, final_state = ssd_chunked(xdt, a, Bm, Cm, chunk=s.chunk,
+                                         initial_state=s0)
+        else:
+            y, final_state = ops.ssd_scan(
+                xdt, a, Bm, Cm, chunk=s.chunk, nheads=nheads,
+                headdim=s.headdim, initial_state=s0)
         if cache is not None:
             cache["conv"].copy_(xbc_raw[:, -(s.d_conv - 1):, :])
             cache["ssm"].copy_(final_state)

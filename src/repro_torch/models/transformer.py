@@ -1,17 +1,23 @@
-"""Decoder stack for the dense, MoE and pure-SSM families: the layer plan
-and its [prefix] + [repeating period × count] decomposition, kept so the
-parameter tree matches the JAX package's (scanned leaves stacked on a
-leading layer axis).  A layer's mixer is GQA attention or a Mamba2 block
-(``mixer="mamba"``, with no FFN: ``ffn="none"``).  The reference scans the
-periods (rematerializing each under ``remat="block"``); here a Python loop
-walks them and keeps activations.
-MoE layers (``first_dense``, ``interleave_step``/``interleave_offset``) add
-their load-balancing loss to the stack's aux sum.
+"""Decoder stack for the dense, MoE, pure-SSM and hybrid families: the layer
+plan and its [prefix] + [repeating period × count] decomposition, kept so
+the parameter tree matches the JAX package's (scanned leaves stacked on a
+leading layer axis).  A layer is a mixer — GQA attention or a Mamba2 block
+(``mixer="mamba"``) — then an FFN: dense, MoE, or none (pure Mamba2 blocks
+carry their own projections).  A hybrid stack (``jamba``) puts attention
+where ``i % hybrid_period == hybrid_attn_offset`` and Mamba2 elsewhere, with
+the MoE interleave on top: an 8-layer period of 7 Mamba2 layers and one
+attention layer.  The reference scans the periods (rematerializing each
+under ``remat="block"``); here a Python loop walks them and keeps
+activations.  MoE layers (``first_dense``,
+``interleave_step``/``interleave_offset``) add their load-balancing loss to
+the stack's aux sum.
 
 The serving caches follow the same decomposition: ``{"step", "prefix":
 [...], "scan": {...}}`` with the scanned blocks' leaves stacked on a leading
-layer axis, the JAX package's layout.  ``apply_stack(cache=...)`` hands each
-block a view of its slice, so the cache is written in place."""
+layer axis, the JAX package's layout — ``{"attn": {k, v, pos}}`` for an
+attention layer, ``{"mamba": {conv, ssm}}`` for a Mamba2 layer.
+``apply_stack(cache=...)`` hands each block a view of its slice, so the
+cache is written in place."""
 from __future__ import annotations
 
 import dataclasses
@@ -32,24 +38,30 @@ class LayerSpec:
 
 
 def layer_plan(cfg) -> list[LayerSpec]:
-    """The per-layer structure of the decoder stack (dense, MoE and pure-SSM
-    families; MLA, hybrid and enc-dec stacks are not ported)."""
-    if cfg.family not in ("dense", "moe", "ssm") or \
-            getattr(cfg, "mla", None) is not None or \
-            (cfg.family == "ssm") != (cfg.ssm is not None):
+    """The per-layer structure of the decoder stack for ``cfg``, the JAX
+    package's plan.  MLA and enc-dec stacks are not ported."""
+    if getattr(cfg, "mla", None) is not None or getattr(cfg, "enc_layers", 0):
         raise NotImplementedError(
-            f"model family {cfg.family!r} of {cfg.name!r} is not ported to "
-            "repro_torch yet (ROADMAP queue 1, item 11)")
-    if cfg.family == "ssm":   # pure Mamba2 blocks carry their own projections
-        return [LayerSpec(mixer="mamba", ffn="none")
-                for _ in range(cfg.n_layers)]
+            f"model family {cfg.family!r} of {cfg.name!r} (multi-head latent "
+            "or cross-attention) is not ported to repro_torch yet (ROADMAP "
+            "queue 1, item 11, step 3)")
     plan = []
     for i in range(cfg.n_layers):
-        ffn = "dense"
-        if cfg.moe is not None and i >= cfg.moe.first_dense and \
+        if cfg.ssm is not None and cfg.hybrid_period:
+            mixer = ("gqa" if i % cfg.hybrid_period == cfg.hybrid_attn_offset
+                     else "mamba")
+        elif cfg.ssm is not None:
+            mixer = "mamba"
+        else:
+            mixer = "gqa"
+        if cfg.family == "ssm":
+            ffn = "none"   # pure Mamba2 blocks carry their own projections
+        elif cfg.moe is not None and i >= cfg.moe.first_dense and \
                 i % cfg.moe.interleave_step == cfg.moe.interleave_offset:
             ffn = "moe"
-        plan.append(LayerSpec(ffn=ffn))
+        else:
+            ffn = "dense"
+        plan.append(LayerSpec(mixer=mixer, ffn=ffn))
     return plan
 
 
@@ -81,12 +93,14 @@ def _norm(x, p, cfg):
 
 def init_block(gen, spec: LayerSpec, cfg, device) -> dict:
     pd = cfg.parameter_dtype
+    p: dict = {"norm_mixer": _norm_init(cfg, device)}
     if spec.mixer == "mamba":
-        return {"norm_mixer": _norm_init(cfg, device),
-                "mamba": ssm.init_mamba2(gen, cfg, device)}
-    p: dict = {"norm_mixer": _norm_init(cfg, device),
-               "attn": attention.init_gqa(gen, cfg, device),
-               "norm_ffn": _norm_init(cfg, device)}
+        p["mamba"] = ssm.init_mamba2(gen, cfg, device)
+    else:
+        p["attn"] = attention.init_gqa(gen, cfg, device)
+    if spec.ffn == "none":
+        return p
+    p["norm_ffn"] = _norm_init(cfg, device)
     if spec.ffn == "moe":
         p["moe"] = moe_lib.init_moe(gen, cfg, device)
         return p
@@ -106,27 +120,30 @@ def apply_block(params: dict, spec: LayerSpec, x: torch.Tensor, cfg, *,
                 positions: torch.Tensor, causal: bool = True,
                 ep_ranks: int = 1, cache: dict | None = None,
                 prefill: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """One decoder block (pre-norm attention or Mamba2 mixer + pre-norm MLP
-    or MoE, or no FFN).  Returns ``(x, aux)``; ``ep_ranks`` is the MoE's
-    expert-parallel rank count.  ``cache`` (the block's, written in place)
-    goes to the mixer, ``prefill`` to the attention (a Mamba2 block decodes
-    exactly when it has a cache and one token)."""
+    """One decoder block: pre-norm attention or Mamba2 mixer, then a
+    pre-norm MLP, MoE, or no FFN.  Returns ``(x, aux)``; ``ep_ranks`` is the
+    MoE's expert-parallel rank count.  ``cache`` (the block's, written in
+    place) goes to the mixer, ``prefill`` to the attention (a Mamba2 block
+    decodes exactly when it has a cache and one token)."""
     h = _norm(x, params["norm_mixer"], cfg)
     if spec.mixer == "mamba":
         x = x + ssm.mamba2_apply(
             params["mamba"], h, cfg,
             cache=cache["mamba"] if cache is not None else None)
-        return x, x.new_zeros((), dtype=torch.float32)
-    x = x + attention.gqa_attention(
-        params["attn"], h, cfg, positions=positions, causal=causal,
-        cache=cache["attn"] if cache is not None else None,
-        block_kv=cfg.attn_block_kv, prefill=prefill)
+    else:
+        x = x + attention.gqa_attention(
+            params["attn"], h, cfg, positions=positions, causal=causal,
+            cache=cache["attn"] if cache is not None else None,
+            block_kv=cfg.attn_block_kv, prefill=prefill)
+    aux = x.new_zeros((), dtype=torch.float32)
+    if spec.ffn == "none":
+        return x, aux
     h = _norm(x, params["norm_ffn"], cfg)
     if spec.ffn == "moe":
         out, aux = moe_lib.moe_apply(params["moe"], h, cfg, ep_ranks=ep_ranks)
         return x + out, aux
     mlp = layers.gelu_mlp if cfg.act == "gelu" else layers.swiglu
-    return x + mlp(h, params["mlp"]), x.new_zeros((), dtype=torch.float32)
+    return x + mlp(h, params["mlp"]), aux
 
 
 def init_block_cache(spec: LayerSpec, cfg, batch: int, max_seq: int, dtype,
@@ -150,9 +167,19 @@ def init_stack(gen, cfg, device, plan: list[LayerSpec] | None = None) -> dict:
     params: dict = {"prefix": [init_block(gen, plan[i], cfg, device)
                                for i in range(prefix)]}
     if count:
-        per_layer = [{f"l{j}": init_block(gen, plan[prefix + j], cfg, device)
-                      for j in range(period)} for _ in range(count)]
-        params["scan"] = tree_map(lambda *xs: torch.stack(xs), *per_layer)
+        # each layer's leaves are drawn in order and copied into their slot
+        # of the stacked leaves, so at most one layer is held twice
+        scan: dict = {}
+        for c in range(count):
+            for j in range(period):
+                blk = init_block(gen, plan[prefix + j], cfg, device)
+                if c == 0:
+                    scan[f"l{j}"] = tree_map(
+                        lambda t: t.new_empty((count,) + tuple(t.shape)),
+                        blk)
+                tree_map(lambda dst, t: dst[c].copy_(t), scan[f"l{j}"], blk)
+                del blk
+        params["scan"] = scan
     return params
 
 

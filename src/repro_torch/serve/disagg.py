@@ -175,15 +175,24 @@ def read_doorbell(ctrl: Window, seq: int
             buf[:, ctrl_meta_offset(seq)].clone())
 
 
-def pool_stats(pool: PagedKVWindow) -> dict[str, torch.Tensor]:
+def pool_stats(pool: PagedKVWindow, ctrl: Window | None = None
+               ) -> dict[str, torch.Tensor]:
     """The pool's health: ``live_pages``, the live page count (int32, from
-    the host-side mirror every rank shares), and ``err_count``, the P5
+    the host-side mirror every rank shares), ``err_count``, the P5
     stale-handle drops per rank (non-zero: a peer pushed or read through a
-    freed page)."""
-    return {
+    freed page), and ``stalls``, the pool's flushes that gave up waiting
+    (non-zero: a completion token taken after them does not imply that the
+    pages landed).  With ``ctrl``, ``ctrl_stalls`` too: the control
+    window's flushes that gave up and the doorbells it withheld because
+    the pool's flush had.  All stay on the device."""
+    stats = {
         "live_pages": pool.live.sum().to(torch.int32),
         "err_count": pool.err_count,
+        "stalls": pool.window.substrate.stalls[0],
     }
+    if ctrl is not None:
+        stats["ctrl_stalls"] = ctrl.substrate.stalls[0]
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -319,8 +328,9 @@ def demo_round_trip(n_seqs: int = 2, pages_per_seq: int = 2,
     it receives its predecessor's pushes, claims admission tickets by remote
     fetch_op, reads the doorbells and meta words and the pushed pages — and
     reads once through a freed page's old handle, which must come back
-    zeroed and counted.  Returns the reference's seven checks; raises
-    ``SystemExit`` if one fails."""
+    zeroed and counted.  Returns the reference's seven checks and an eighth,
+    ``no_stalls``: no flush of the pool or the control window gave up, so
+    no doorbell was withheld; raises ``SystemExit`` if one fails."""
     dev = resolve_device(device)
     n = N_DEMO_DEV
     perm = [(i, (i + 1) % n) for i in range(n)]
@@ -360,7 +370,7 @@ def demo_round_trip(n_seqs: int = 2, pages_per_seq: int = 2,
     pool.free_page(0)
     mhw = win_from_memhandle(pool.window, stale_handle)
     mhw, stale = mhw.get(perm, offset=0, size=4)
-    stats = pool_stats(pool)
+    stats = pool_stats(pool, ctrl)
     k = n_seqs
     vals = torch.stack(vals, 1).cpu()
     flags = torch.stack([b[0] for b in bells], 1).cpu()
@@ -376,6 +386,7 @@ def demo_round_trip(n_seqs: int = 2, pages_per_seq: int = 2,
         "stale_read_masked": bool((stale[:, :4].cpu() == 0).all()),
         "stale_read_counted": bool((errs == 1).all()),
         "live_pages": int(stats["live_pages"]) == k * pages_per_seq - 1,
+        "no_stalls": int(stats["stalls"]) == int(stats["ctrl_stalls"]) == 0,
     }
     if verbose:
         print(f"[disagg] {k} seqs x {pages_per_seq} pages pushed over a "

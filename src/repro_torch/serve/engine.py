@@ -18,8 +18,9 @@ Three layers, as in the JAX package's ``serve/engine.py``:
 
 ``paged_kv=True`` replaces the dense per-slot KV with the paged pool layout
 (``repro_torch.serve.disagg.paginate_cache``): a physical page pool plus a
-per-row page table; a stack with no self-attention KV (pure SSM) refuses
-it.  ``prefix_share=True`` additionally admits new requests onto the pages
+per-row page table for every attention layer (a hybrid stack's Mamba2
+layers keep their dense conv tail and state); a stack with no
+self-attention KV (pure SSM) refuses it.  ``prefix_share=True`` additionally admits new requests onto the pages
 of a live request with a common prompt prefix: full pages
 inside the common prefix are mapped read-only (refcount + 1, write-protected
 through the cache's ``page_ro`` leaf); the partial page at the prefix
@@ -30,7 +31,8 @@ because the KV at position *i* depends only on tokens ``0..i`` and decode
 writes before it attends.
 
 Prefill runs each admitted prompt alone into a one-row sub-cache (through
-kernel K7, or K8 for Mamba2 blocks) and inserts it into the slot; in paged
+kernel K7, and K8 and the SSD pass for Mamba2 blocks) and inserts it into
+the slot; in paged
 mode the prompt's KV is re-paged into the slot's physical pages, and pages
 it shares land on the parking page.
 

@@ -272,10 +272,11 @@ def test_page_allocator_fifo_and_exhaustion_match_reference():
     ids=["2x2x2-continuous", "3x1x1-static"])
 def test_demo_round_trip_on_the_cpu(shape, capsys):
     """Both shapes of the reference's multi-device script, on 8 stacked
-    ranks: all seven checks true."""
+    ranks: the reference's seven checks and the port's ``no_stalls`` (no
+    flush gave up, no doorbell withheld) all true."""
     checks = tdis.demo_round_trip(device=CPU, **shape)
     assert list(checks) == ["pages_landed", "doorbells", "meta_page_counts",
                             "tickets", "stale_read_masked",
-                            "stale_read_counted", "live_pages"]
+                            "stale_read_counted", "live_pages", "no_stalls"]
     assert all(checks.values())
     assert f"{tdis.N_DEMO_DEV}-rank ring" in capsys.readouterr().out

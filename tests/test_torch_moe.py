@@ -19,6 +19,7 @@ from repro.configs.base import MoEConfig as JMoEConfig
 from repro.configs.tiny import tiny_config as j_tiny_config
 from repro.models import build_model as j_build_model
 from repro.models import moe as j_moe
+from repro.models.transformer import layer_plan as j_layer_plan
 from repro.train.optimizer import OptimizerConfig as JOptimizerConfig
 from repro.train.optimizer import init_opt_state as j_init_opt_state
 from repro.train.trainstep import make_train_step as j_make_train_step
@@ -151,8 +152,12 @@ def test_moe_config_and_family_guards():
             t_moe.moe_apply(blk, torch.zeros(1, 4, 64), bcfg, ep_mode="rma",
                             ep_ranks=2)
     for family in ("hybrid", "ssm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg.replace(family=family))
+        # the reference builds both (attention mixers: no ssm config; no
+        # FFN under "ssm"), and so does the port, with its plan
+        plan = build_model(cfg.replace(family=family)).plan
+        jplan = j_layer_plan(jcfg.replace(family=family))
+        assert [(s.mixer, s.ffn, s.cross) for s in plan] == \
+            [(s.mixer, s.ffn, s.cross) for s in jplan]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         # an MoE config with multi-head latent attention (deepseek-v2)
         layer_plan(types.SimpleNamespace(family="moe", mla=object(),

@@ -480,14 +480,15 @@ def test_launcher_serves_on_the_cpu(capsys):
                          ids=["disagg-dry-run", "inject"])
 def test_launcher_disagg_and_inject_modes_on_the_cpu(capsys, extra):
     """``--disagg --dry-run`` runs the round trip alone (the reference's
-    seven checks, all OK); ``--inject`` drains every request through the
-    elastic runtime with worker 1 evicted and its slots offline."""
+    seven checks and the port's ``no_stalls``, all OK); ``--inject`` drains
+    every request through the elastic runtime with worker 1 evicted and its
+    slots offline."""
     got = serve_main(["--arch", "qwen3-4b", "--device", "cpu",
                       "--requests", "4", "--max-new", "6", *extra])
     out = capsys.readouterr().out
     if "--dry-run" in extra:
-        assert len(got) == 7 and all(got.values())
-        assert out.count(": OK") == 7 and "FAIL" not in out
+        assert len(got) == 8 and all(got.values())
+        assert out.count(": OK") == 8 and "FAIL" not in out
         assert "[serve]" not in out
     else:
         assert sorted(c.rid for c in got) == [0, 1, 2, 3]
