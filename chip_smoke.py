@@ -128,7 +128,24 @@
    ``[serve]`` request set — greedy tokens equal bit for bit, the pool
    conserved, a page payload the attention layer's KV alone, per prefill
    K7 once and K8 and the pass 7 times, one prefill's logits held to the
-   same prefill on the plain versions and the next decode step finite.
+   same prefill on the plain versions and the next decode step finite;
+   then the last three families, each after the one before is freed:
+   ``[serve-mla]``: ``deepseek-v2-236b`` at published widths cut to 4 of
+   60 layers (1 dense, 3 MoE of all 160 experts; 3 layers where the free
+   memory cannot hold 4, printed), the ``[serve]`` request set through the
+   dense engine — tokens in the vocabulary, the paged engine refused, the
+   latent cache's bytes a token a layer, one prefill's last logits held to
+   the forward's; ``[serve-vlm]``: ``internvl2-1b`` at all 24 layers, dense
+   and paged + COW — tokens equal bit for bit, K7 24 times a prefill, one
+   prefill with 256 patch embeddings on K7 held to the same on its plain
+   version; ``[encdec]``: ``whisper-base`` at 6 + 6 layers, 4 rows of 1500
+   frames and a 128-token prompt — K7 18 times in the prefill (6 encoder
+   and 6 cross calls non-causal, 6 decoder causal), its logits held to the
+   plain version's, 32 greedy decode steps held to the forward, and the
+   engine's refusal of the family.  K7's two whisper calls (encoder 1500 x
+   1500 with a ragged last key tile, cross 128 x 1500) are held to the plain
+   version in float32 and bfloat16 in part 1, the cross call timed beside
+   SDPA as its own row.
 3. Prints the kernels' record as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -186,9 +203,10 @@ TIER_HBM_REQUESTS = 4
 # disaggregated prefill -> decode: the [serve] prompts' pages pushed over 8
 # stacked ranks on a ring, 2 sequences a rank on 2 lanes (the reference
 # demo's shape); the cross-stream check spins the push's stream this many
-# cycles (~0.2 s at the H100's 1.98 GHz boost) and probes after TOKEN_PROBE_S
+# cycles (~0.2 s at the H100's 1.98 GHz boost), doubled on each of at most
+# TOKEN_SPIN_TRIES tries while the host issues the edge too late
 DISAGG_RANKS, DISAGG_SEQS = 8, 2
-TOKEN_SPIN_CYCLES, TOKEN_PROBE_S = 400_000_000, 0.05
+TOKEN_SPIN_CYCLES, TOKEN_SPIN_TRIES = 400_000_000, 4
 # the elastic runtime: worker 1 of 2 (slots 2 and 3) dies at tick 4
 ELASTIC_SCRIPT = "dead:1@4"
 #: K7 against its plain version: the JAX kernel test's tolerances
@@ -223,6 +241,19 @@ PASS_BF16_RTOL = 2.0 ** -6
 # engine.  Its Mamba2 layers are 128 heads x 64 with d_state 16: K8 and the
 # pass are held to their plain versions at that shape first
 HYBRID_ARCH, HYBRID_LAYERS = "jamba-v0.1-52b", 8
+# the last three families, each after [serve-hybrid] on the card freed of
+# the phase before.  deepseek-v2-236b (MLA) at published widths, depth cut
+# to 4 of 60 layers (layer 0 dense, 3 MoE of all 160 experts: 13.30 B
+# parameters, 49.6 GiB) or to 3 where the free memory cannot hold 4, the
+# [serve] request set through the dense engine (its latent cache is not
+# paged); internvl2-1b at all 24 layers, the [serve] request set dense and
+# paged + COW, and one prefill with a 256-position patch prefix;
+# whisper-base at 6 + 6 layers, 4 rows of 1500 frame embeddings (the 30 s
+# encoder window), a 128-token decoder prompt, 32 greedy decode steps
+MLA_ARCH, MLA_LAYERS = "deepseek-v2-236b", 4
+VLM_ARCH = "internvl2-1b"
+ENCDEC_ARCH = "whisper-base"
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW = 4, 1500, 128, 32
 # SSM training: mamba2-370m at all 48 layers, 4 stacked data-parallel
 # ranks with the one-sided ring, batch 8 x 512, 3 steps
 SSM_TRAIN_STEPS = 3
@@ -1173,6 +1204,50 @@ def main() -> int:
     print(f"[kernel] flash_attention prefill views (1, {SERVE_PROMPT}, "
           f"{H_}/{KV_}, {HD_}): {r7['prefill_views_ms']:.4f} ms", flush=True)
     del q, k, v, qs, ks, vs, views
+    # whisper-base's two non-causal calls, as its prefill makes them: the
+    # encoder's self-attention over 1500 frames (11 key tiles of 128 and a
+    # ragged 92) and the cross-attention of the 128-token prompt over them
+    # (sq != sk), on head-transposed views of (B, S, heads, 64) tensors, in
+    # float32 and bfloat16; the cross call timed beside SDPA
+    cfg_enc = get_config(ENCDEC_ARCH)
+    eh, ehd = cfg_enc.n_heads, cfg_enc.head_dim
+    for dtype in (torch.float32, torch.bfloat16):
+        frames_kv = [rand((ENCDEC_BATCH, ENCDEC_FRAMES, eh, ehd), dtype)
+                     for _ in range(3)]
+        enc_views = [t.transpose(1, 2) for t in frames_kv]
+        k7_check(f"whisper encoder views ({ENCDEC_BATCH}, {ENCDEC_FRAMES}, "
+                 f"{eh}, {ehd}) causal=False", *enc_views, causal=False,
+                 block_q=ENCDEC_FRAMES, block_kv=ENCDEC_FRAMES)
+        cross_q = rand((ENCDEC_BATCH, ENCDEC_PROMPT, eh, ehd),
+                       dtype).transpose(1, 2)
+        cross_kw = dict(causal=False, block_q=ENCDEC_PROMPT,
+                        block_kv=ENCDEC_FRAMES)
+        cross_err = k7_check(
+            f"whisper cross views q ({ENCDEC_BATCH}, {ENCDEC_PROMPT}, {eh}, "
+            f"{ehd}) k/v ({ENCDEC_BATCH}, {ENCDEC_FRAMES}, {eh}, {ehd}) "
+            f"causal=False", cross_q, *enc_views[1:], **cross_kw)
+    cq_, ck_, cv_ = cross_q, enc_views[1], enc_views[2]
+    rc = record["flash_attention_cross"] = dict(
+        ms=graph_ms(torch, lambda: k7.flash_attention(cq_, ck_, cv_,
+                                                      **cross_kw)),
+        plain_ms=graph_ms(torch, lambda: k7.flash_attention_plain(
+            cq_, ck_, cv_, **cross_kw)),
+        library_ms=graph_ms(torch, lambda: sdpa(cq_, ck_, cv_,
+                                                is_causal=False)),
+        max_abs_err=cross_err,
+        shape=[ENCDEC_BATCH, eh, ENCDEC_PROMPT, ENCDEC_FRAMES, ehd],
+        dtype="bfloat16", variant=k7.VARIANTS[torch.bfloat16])
+    cross_ops = 4 * ehd * eh * ENCDEC_BATCH * ENCDEC_PROMPT * ENCDEC_FRAMES
+    rc["bound_ms"], rc["bound_by"] = bound_ms(
+        2 * (2 * cq_.numel() + ck_.numel() + cv_.numel()), cross_ops,
+        peak=PEAK_BF16)
+    rc["tflops"] = cross_ops / rc["ms"] / 1e9
+    rc["vs_library"] = rc["ms"] / rc["library_ms"]
+    print(f"[kernel] flash_attention whisper cross bfloat16: {rc['ms']:.4f} "
+          f"ms, {rc['tflops']:.1f} TFLOP/s, {rc['vs_library']:.2f} x "
+          f"scaled_dot_product_attention's {rc['library_ms']:.4f} ms "
+          f"(is_causal=False) in this call", flush=True)
+    del frames_kv, enc_views, cross_q, cq_, ck_, cv_
 
     # K8 and the SSD pass: K8 at the JAX kernel test's shapes in float32 and
     # bfloat16 and at the prefill's (1, 2048, 32 x 64), N 128, chunk 64,
@@ -2436,43 +2511,69 @@ def main() -> int:
     # the cross-window edge across CUDA streams: the pool's push on a side
     # stream held by a spin, its doorbell on another stream after= the
     # push's token; as the control, a doorbell with no token (on a window
-    # of its own, a third stream) rings while the spin still runs
-    xs_spec = dataclasses.replace(spec_d, n_pages=2)
-    xs_pool = paged_mod.PagedKVWindow.create(xs_spec, "x", nr,
-                                             torch.bfloat16, device=dev)
-    xs_pool.alloc_page(0).alloc_page(1)
-    xs_ctrl, xs_free = (dis_mod.make_control_window(1, "x", nr, n_lanes=1,
-                                                    device=dev)
-                        for _ in range(2))
-    for sub in (xs_pool.window.substrate, xs_ctrl.substrate,
-                xs_free.substrate):
-        sub.prepare(ring8)
+    # of its own, a third stream) rings while the spin still runs.  The
+    # verdict is read from the events' device timestamps, and it means
+    # something only if the host issued both doorbells while the spin still
+    # ran, which a query right after the last launch shows.  A host held
+    # past the spin (a descheduled thread, a collection) voids that try: the
+    # edge is made again on fresh windows with a spin twice as long
     xs_kvs = [pushed[1][:, i] for i in range(2)]
     two = torch.full((nr, 1), 2, dtype=torch.int32, device=dev)
     bell_at = dict(data_offset=dis_mod.ctrl_meta_offset(0),
                    flag_offset=dis_mod.ctrl_flag_offset(0))
-    torch.cuda.synchronize()
-    s_push, s_bell, s_free = (torch.cuda.Stream() for _ in range(3))
-    with torch.cuda.stream(s_push):
-        torch.cuda._sleep(TOKEN_SPIN_CYCLES)
-        xs_pool.push_pages([0, 1], xs_kvs, ring8)
-        token = xs_pool.window.completion_token(0)
-        push_done = ev()
-    with torch.cuda.stream(s_bell):
-        put_signal(xs_ctrl, two, ring8, after=token, **bell_at)
-        bell_done = ev()
-    with torch.cuda.stream(s_free):
-        put_signal(xs_free, two, ring8, **bell_at)
-        free_done = ev()
-    time.sleep(TOKEN_PROBE_S)
-    spinning, held, rang = (not push_done.query(), not bell_done.query(),
-                            free_done.query())
-    torch.cuda.synchronize()
-    check(spinning, f"the spin of {TOKEN_SPIN_CYCLES} cycles ended within "
-          f"{TOKEN_PROBE_S} s: the cross-stream check proves nothing")
-    check(held and rang, f"a doorbell after= a token on another stream "
-          f"completed during the push's spin ({not held}), or one without a "
-          f"token did not ({rang})")
+
+    def cross_stream_edge(cycles):
+        xs_spec = dataclasses.replace(spec_d, n_pages=2)
+        xs_pool = paged_mod.PagedKVWindow.create(xs_spec, "x", nr,
+                                                 torch.bfloat16, device=dev)
+        xs_pool.alloc_page(0).alloc_page(1)
+        xs_ctrl, xs_free = (dis_mod.make_control_window(
+            1, "x", nr, n_lanes=1, device=dev) for _ in range(2))
+        for sub in (xs_pool.window.substrate, xs_ctrl.substrate,
+                    xs_free.substrate):
+            sub.prepare(ring8)
+        torch.cuda.synchronize()
+        s_push, s_bell, s_free = (torch.cuda.Stream() for _ in range(3))
+        t0 = time.perf_counter()
+        with torch.cuda.stream(s_push):
+            torch.cuda._sleep(cycles)
+            xs_pool.push_pages([0, 1], xs_kvs, ring8)
+            token = xs_pool.window.completion_token(0)
+            push_done = ev()
+        with torch.cuda.stream(s_bell):
+            put_signal(xs_ctrl, two, ring8, after=token, **bell_at)
+            bell_done = ev()
+        with torch.cuda.stream(s_free):
+            put_signal(xs_free, two, ring8, **bell_at)
+            free_done = ev()
+        spinning = not push_done.query()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return (xs_pool, xs_ctrl, xs_free, spinning, issue_ms,
+                push_done.elapsed_time(bell_done),
+                free_done.elapsed_time(push_done))
+
+    gc.disable()
+    try:
+        for attempt in range(TOKEN_SPIN_TRIES):
+            xs_cycles = TOKEN_SPIN_CYCLES << attempt
+            (xs_pool, xs_ctrl, xs_free, spinning, xs_issue_ms, held_ms,
+             rang_ms) = cross_stream_edge(xs_cycles)
+            if spinning:
+                break
+            print(f"[serve-disagg] the {xs_cycles}-cycle spin ended before "
+                  f"the host had issued the cross-stream edge "
+                  f"({xs_issue_ms:.1f} ms): made again with a spin twice as "
+                  f"long", flush=True)
+    finally:
+        gc.enable()
+    check(spinning, f"in each of {TOKEN_SPIN_TRIES} tries the spin ended "
+          f"before the host had issued the cross-stream edge (the last, "
+          f"{xs_cycles} cycles, issued in {xs_issue_ms:.1f} ms): the "
+          f"cross-stream check proves nothing")
+    check(held_ms >= 0 and rang_ms > 0, f"a doorbell after= a token on "
+          f"another stream completed {-held_ms:.3f} ms before the push it "
+          f"follows, or one without a token {-rang_ms:.3f} ms after it")
     xs_pages = xs_pool.window.buffer.view(nr, 2, page_e)
     check(xs_ctrl.buffer[:, 1:3].tolist() == [[2, 1]] * nr and all(
         torch.equal(xs_pages[t], pushed[1][(t - 1) % nr, :2])
@@ -2569,8 +2670,10 @@ def main() -> int:
           f"flush {[round(x, 4) for x in ms_d['claim']]} ms, the migration "
           f"of 64 pages {ms_d['migration']:.3f} ms; the cross-window edge "
           f"held across CUDA streams (the doorbell after= the token waited "
-          f"for a {TOKEN_SPIN_CYCLES}-cycle spin, the one without a token "
-          f"rang during it)", flush=True)
+          f"for a {xs_cycles}-cycle spin and completed {held_ms:.3f} ms "
+          f"after the push, the one without a token rang {rang_ms:.3f} ms "
+          f"before it; edge issued in {xs_issue_ms:.1f} ms of host clock)",
+          flush=True)
     print(f"[serve-disagg] graph replay: K4 doorbell {list(rd['shape'])} "
           f"int32 {rd['ms']:.4f} ms (plain {rd['plain_ms']:.4f}, index_copy_ "
           f"of the two words {rd['index_copy_ms']:.4f}, empty launch "
@@ -2580,7 +2683,8 @@ def main() -> int:
           f"{rp['library_ms']:.4f}, copy_ {rp['copy_ms']:.4f}, bound "
           f"{rp['bound_ms']:.4f})", flush=True)
     del pool, ctrl, xs_pool, xs_ctrl, xs_free, pushed, mhw, stale, got_k, \
-        got_p, got_l, lib_rows, xs_buf, xs_pages, page_src
+        got_p, got_l, lib_rows, xs_buf, xs_pages, page_src, pool_pages, \
+        xs_kvs, seq_pages
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2932,6 +3036,380 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- the last three families: MLA, the VLM prefix, enc-dec -------------
+    from repro_torch.tree import leaves_with_paths
+
+    def serve_prompts(vocab: int) -> list:
+        """The [serve] request set over ``vocab``: three prompts sharing a
+        512-token prefix, one of them twice, and four unrelated ones."""
+        prng = np.random.RandomState(0)
+        prefix = prng.randint(0, vocab, size=SERVE_PREFIX)
+        prompts = [np.concatenate([prefix, prng.randint(
+            0, vocab, size=SERVE_PROMPT - SERVE_PREFIX)]) for _ in range(3)]
+        prompts.append(prompts[2].copy())
+        return prompts + [prng.randint(0, vocab, size=SERVE_PROMPT)
+                          for _ in range(SERVE_REQUESTS - len(prompts))]
+
+    def serve_run(tag: str, model, params, prompts, kw: dict, must):
+        """One engine over ``prompts`` with every launch counter at 0 just
+        before it: tokens checked (all requests, ``SERVE_NEW`` each, in the
+        vocabulary) and a paged pool conserved; prints its prefill ms a
+        request, decode ms a tick, tokens/s and peak memory.  Returns the
+        engine, its tokens, the launch counts and the prefill count."""
+        eng = ServeEngine(model, params, n_slots=SERVE_SLOTS,
+                          max_seq=SERVE_MAX_SEQ, **kw)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid, prompt, SERVE_NEW))
+        spent = {"prefill": [], "decode": []}
+        for part in spent:            # both calls end in a host read
+            def timed(*a, _fn=getattr(eng.executor, part), _t=spent[part]):
+                t = time.perf_counter()
+                out = _fn(*a)
+                _t.append((time.perf_counter() - t) * 1e3)
+                return out
+            setattr(eng.executor, part, timed)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        done = eng.run(strict=True)
+        wall = time.perf_counter() - t0
+        counts = path_counts(tag, must)
+        vocab = model.cfg.vocab
+        tokens = {c.rid: c.tokens for c in done}
+        check(sorted(tokens) == list(range(len(prompts))) and all(
+            len(t) == SERVE_NEW and all(0 <= x < vocab for x in t)
+            for t in tokens.values()), f"{tag}: tokens {tokens}")
+        st = eng.stats()
+        if eng.paged_kv:
+            eng.pool.check_conservation()
+            check(st["cow_copies"] > 0 and st["pages_shared"] > 0,
+                  f"{tag}: no page was shared or forked: {st}")
+            check(eng.pool.n_free == eng.pool.n_pages,
+                  f"{tag}: pages still held after the run: {st}")
+        n_tok = sum(len(t) for t in tokens.values())
+        pre, dec = spent["prefill"], spent["decode"]
+        print(f"[{tag.split()[0]}] {' '.join(tag.split()[1:])}: "
+              f"{len(prompts)} requests x {SERVE_PROMPT} prompt tokens, "
+              f"{SERVE_NEW} new each, {SERVE_SLOTS} slots, max_seq "
+              f"{SERVE_MAX_SEQ}, bf16: {n_tok} tokens in {wall:.2f} s "
+              f"({n_tok / wall:.1f} tok/s); prefill ms per request "
+              f"{[round(x, 1) for x in pre]}; decode ms per tick median "
+              f"{sorted(dec)[len(dec) // 2]:.2f} (min {min(dec):.2f}, max "
+              f"{max(dec):.2f}, {len(dec)} ticks); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+              f"launches {counts}; stats {st} ({smi})", flush=True)
+        return eng, tokens, counts, len(pre)
+
+    # ---- [serve-mla] deepseek-v2-236b served on the card --------------------
+    # published widths (128 heads, q_lora 1536, kv_lora 512, qk 128 + 64, v
+    # 128, 160 routed experts top-6 and 2 shared, vocab 102400), depth cut
+    # to MLA_LAYERS of 60 (or one fewer where the card's free memory cannot
+    # hold the weights, one MoE layer drawn beside them, and the bf16 cast of
+    # a MoE layer's experts), parameters made on the card from seed 0; the
+    # [serve] request set through the dense engine — the latent cache is not
+    # paged, and the paged engine refuses it as the JAX package's does.  MLA
+    # is torch products (no K7: its head dims are none K7 is built for); the
+    # MoE layers serve in ep_mode="gspmd", as the JAX launcher does
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated() / 2**30
+    free_bytes = torch.cuda.mem_get_info()[0]
+    cfg_mla = get_config(MLA_ARCH)
+    mo = cfg_mla.moe
+    moe_layer = mo.num_experts * 3 * cfg_mla.d_model * mo.d_ff_expert
+    mla_layers = MLA_LAYERS
+    while True:
+        n_mla = sum(p.numel() for p in leaves(build_model(
+            cfg_mla.replace(n_layers=mla_layers)).init(0, device="meta")))
+        # the float32 weights and one MoE layer drawn beside them (init
+        # copies a layer into its slot), which outweighs serving's bf16
+        # cast of one layer's experts, and 3 GiB for activations and caches
+        need = 4 * (n_mla + moe_layer) + (3 << 30)
+        if need <= free_bytes or mla_layers == 2:
+            break
+        mla_layers -= 1
+    check(need <= free_bytes, f"serve-mla: {need / 2**30:.1f} GiB needed at "
+          f"{mla_layers} layers, {free_bytes / 2**30:.1f} free")
+    cut = ("" if mla_layers == MLA_LAYERS else
+           f" (cut from x{MLA_LAYERS}: {free_bytes / 2**30:.1f} GiB free)")
+    cfg_mla = cfg_mla.replace(n_layers=mla_layers)
+    mla_model = build_model(cfg_mla)
+    n_moe_mla = sum(sp.ffn == "moe" for sp in mla_model.plan)
+    t0 = time.perf_counter()
+    mla_params = mla_model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    check(sum(p.numel() for p in leaves(mla_params)) == n_mla,
+          "serve-mla: parameter count")
+    m_ = cfg_mla.mla
+    print(f"[plan] {cfg_mla.name} x{mla_layers} of 60 layers{cut} d"
+          f"{cfg_mla.d_model} (MLA {cfg_mla.n_heads} heads, q_lora "
+          f"{m_.q_lora}, kv_lora {m_.kv_lora}, qk {m_.qk_nope}+{m_.qk_rope}, "
+          f"v {m_.v_head}; 1 dense FFN {mo.d_ff_first_dense}, {n_moe_mla} MoE "
+          f"of {mo.num_experts} experts top-{mo.top_k} + {mo.n_shared} "
+          f"shared): {n_mla} float32 parameters ({n_mla * 4 / 2**30:.1f} "
+          f"GiB) initialized on the card from seed 0 in "
+          f"{time.perf_counter() - t0:.1f} s ({held_before:.2f} GiB held "
+          f"before, {free_bytes / 2**30:.1f} GiB free)", flush=True)
+    try:
+        ServeEngine(mla_model, mla_params, n_slots=SERVE_SLOTS,
+                    max_seq=SERVE_MAX_SEQ, paged_kv=True,
+                    page_tokens=SERVE_PAGE)
+        refused = ""
+    except ValueError as err:
+        refused = str(err)
+    check("MLA/SSM caches stay dense" in refused,
+          f"serve-mla: the paged engine was not refused: {refused!r}")
+    mla_prompts = serve_prompts(cfg_mla.vocab)
+    eng, _, counts, _ = serve_run("serve-mla dense", mla_model, mla_params,
+                                  mla_prompts, {}, ())
+    check(counts["flash_attention"] == 0,
+          f"serve-mla: K7 launched {counts['flash_attention']} times")
+    latent = sum(t.numel() * t.element_size() for path, t in
+                 leaves_with_paths(eng.executor.cache)
+                 if path[-1] in ("c_kv", "k_rope"))
+    per_token = latent // (SERVE_SLOTS * SERVE_MAX_SEQ * mla_layers)
+    check(per_token == (m_.kv_lora + m_.qk_rope) * 2,
+          f"serve-mla: {per_token} cache bytes a token a layer")
+    gqa_token = 2 * cfg_serve.n_kv_heads * cfg_serve.head_dim * 2
+    print(f"[serve-mla] the paged engine refused ({refused}); the latent "
+          f"cache holds {per_token} bytes a token a layer in bf16 ((kv_lora "
+          f"{m_.kv_lora} + qk_rope {m_.qk_rope}) x 2), against "
+          f"{cfg_serve.name}'s {gqa_token} (2 x {cfg_serve.n_kv_heads} x "
+          f"{cfg_serve.head_dim} x 2)", flush=True)
+    del eng
+    gc.collect()
+    # one prefill's last logits against the forward's over the same prompt
+    tok = torch.as_tensor(mla_prompts[0], dtype=torch.int64, device=dev)[None]
+    with torch.no_grad():
+        pre_logits, cache = mla_model.prefill(
+            mla_params, {"tokens": tok}, mla_model.init_cache(1, SERVE_MAX_SEQ))
+        step_logits, _ = mla_model.decode_step(
+            mla_params, cache, pre_logits[:, -1].argmax(-1, keepdim=True))
+        fwd_logits, _ = mla_model.forward(mla_params, {"tokens": tok})
+    lanes = slice(0, cfg_mla.vocab)
+    diff = (pre_logits[:, -1, lanes] - fwd_logits[:, -1, lanes]
+            ).abs().max().item()
+    scale = fwd_logits[:, -1, lanes].abs().max().item()
+    check(bool(torch.isfinite(pre_logits[..., lanes]).all())
+          and bool(torch.isfinite(step_logits[..., lanes]).all()),
+          "serve-mla: prefill or decode logits not finite")
+    check(diff <= PREFILL_LOGIT_RTOL * scale,
+          f"serve-mla: prefill logits vs forward's: max |d| {diff} of max "
+          f"|logit| {scale}")
+    print(f"[serve-mla] one prefill's last logits vs the forward's over the "
+          f"same prompt: max |d| {diff:.4g} of max |logit| {scale:.4g} "
+          f"(bound {PREFILL_LOGIT_RTOL} x); the next decode step's logits "
+          f"finite", flush=True)
+    del mla_params, pre_logits, step_logits, fwd_logits, cache, mla_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- [serve-vlm] internvl2-1b served on the card -------------------------
+    # all 24 layers at published widths (d 896, GQA 14/2, head_dim 64); the
+    # [serve] request set through the dense and the paged + COW engine
+    # (prompt tokens only, as the JAX engine feeds them), K7 once an
+    # attention layer a prefill; then one prefill with 256 seeded patch
+    # embeddings (the frontend stub) on K7 against the same on its plain
+    # version
+    cfg_vlm = get_config(VLM_ARCH)
+    vlm_model = build_model(cfg_vlm)
+    t0 = time.perf_counter()
+    vlm_params = vlm_model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n_vlm = sum(p.numel() for p in leaves(vlm_params))
+    print(f"[plan] {cfg_vlm.name} x{cfg_vlm.n_layers} layers d"
+          f"{cfg_vlm.d_model} (GQA {cfg_vlm.n_heads}/{cfg_vlm.n_kv_heads}, "
+          f"head_dim {cfg_vlm.head_dim}, a {cfg_vlm.vlm_prefix}-position "
+          f"patch prefix): {n_vlm} float32 parameters "
+          f"({n_vlm * 4 / 2**30:.1f} GiB) initialized on the card from seed "
+          f"0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    vlm_prompts = serve_prompts(cfg_vlm.vocab)
+    vlm_out = {}
+    for mode, kw in (("dense", {}),
+                     ("paged+cow", dict(paged_kv=True, page_tokens=SERVE_PAGE,
+                                        prefix_share=True))):
+        eng, vlm_out[mode], counts, n_prefill = serve_run(
+            f"serve-vlm {mode}", vlm_model, vlm_params, vlm_prompts, kw,
+            ("flash_attention",))
+        check(counts["flash_attention"] == cfg_vlm.n_layers * n_prefill,
+              f"serve-vlm {mode}: K7 launched {counts['flash_attention']} "
+              f"times, want {cfg_vlm.n_layers} x {n_prefill} prefills")
+        check(k7.COUNTER.by_variant == {
+            k7.VARIANTS[torch.bfloat16]: counts["flash_attention"]},
+              f"serve-vlm {mode}: K7 variants {k7.COUNTER.by_variant}")
+        del eng
+        gc.collect()
+    check(vlm_out["dense"] == vlm_out["paged+cow"],
+          "serve-vlm: dense and paged+COW greedy tokens differ")
+    print("[serve-vlm] dense and paged+COW greedy tokens equal bit for bit",
+          flush=True)
+    batch = {"tokens": torch.as_tensor(vlm_prompts[0], dtype=torch.int64,
+                                       device=dev)[None],
+             "patches": torch.randn((1, cfg_vlm.vlm_prefix, cfg_vlm.d_model),
+                                    generator=gen, device=dev)}
+    logits = {}
+    for name, fn in (("K7", k7.flash_attention),
+                     ("plain", k7.flash_attention_plain)):
+        attn_mod.flash_attention = fn
+        try:
+            logits[name], _ = vlm_model.prefill(
+                vlm_params, batch, vlm_model.init_cache(1, SERVE_MAX_SEQ))
+        finally:
+            attn_mod.flash_attention = k7.flash_attention
+    lanes = slice(0, cfg_vlm.vocab)
+    diff = (logits["K7"][..., lanes] - logits["plain"][..., lanes]
+            ).abs().max().item()
+    scale = logits["plain"][..., lanes].abs().max().item()
+    check(bool(torch.isfinite(logits["K7"][..., lanes]).all()),
+          "serve-vlm: patch-prefix prefill logits not finite")
+    check(diff <= PREFILL_LOGIT_RTOL * scale,
+          f"serve-vlm: patch-prefix prefill logits on K7 vs its plain "
+          f"version: max |d| {diff} of max |logit| {scale}")
+    print(f"[serve-vlm] one prefill with {cfg_vlm.vlm_prefix} patch "
+          f"embeddings and {SERVE_PROMPT - cfg_vlm.vlm_prefix} tokens, last "
+          f"logits on K7 vs its plain version: max |d| {diff:.4g} of max "
+          f"|logit| {scale:.4g} (bound {PREFILL_LOGIT_RTOL} x)", flush=True)
+    del vlm_params, logits, batch, vlm_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- [encdec] whisper-base on the card -----------------------------------
+    # 6 + 6 layers at published widths (d 512, 8 heads of 64, vocab 51865
+    # padded to 51968), parameters from seed 0; a batch of 4 rows of 1500
+    # seeded frame embeddings (the conv frontend stub), a 128-token decoder
+    # prompt, then 32 greedy decode steps.  The prefill runs K7 18 times:
+    # the encoder's self-attention (non-causal, 1500 x 1500), then a layer's
+    # causal self-attention (128 x 128) and cross-attention (non-causal,
+    # 128 x 1500); decode reads the memoized cross k/v.  The engine refuses
+    # the family (it has no frames to give a prefill), as the JAX package's
+    # cannot serve it
+    enc_model = build_model(cfg_enc)
+    t0 = time.perf_counter()
+    enc_params = enc_model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n_enc = sum(p.numel() for p in leaves(enc_params))
+    print(f"[plan] {cfg_enc.name} {cfg_enc.enc_layers} + {cfg_enc.n_layers} "
+          f"layers d{cfg_enc.d_model} ({cfg_enc.n_heads} heads of "
+          f"{cfg_enc.head_dim}, vocab {cfg_enc.vocab} padded to "
+          f"{cfg_enc.vocab_padded}): {n_enc} float32 parameters "
+          f"({n_enc * 4 / 2**30:.2f} GiB) initialized on the card from seed "
+          f"0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        ServeEngine(enc_model, enc_params, n_slots=SERVE_SLOTS,
+                    max_seq=SERVE_MAX_SEQ)
+        refused = ""
+    except ValueError as err:
+        refused = str(err)
+    check("encoder-decoder" in refused,
+          f"encdec: the engine did not refuse the family: {refused!r}")
+    frames = torch.randn((ENCDEC_BATCH, ENCDEC_FRAMES, cfg_enc.d_model),
+                         generator=gen, device=dev)
+    prompt = torch.randint(0, cfg_enc.vocab, (ENCDEC_BATCH, ENCDEC_PROMPT),
+                           generator=gen, device=dev)
+    enc_seq = ENCDEC_PROMPT + ENCDEC_NEW
+    calls: dict = {}
+
+    def tallied(q, k, v, **kw):
+        key = (q.shape[2], k.shape[2], kw["causal"])
+        calls[key] = calls.get(key, 0) + 1
+        return k7.flash_attention(q, k, v, **kw)
+
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn_mod.flash_attention = tallied
+    try:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = enc_model.prefill(
+                enc_params, {"tokens": prompt, "frames": frames},
+                enc_model.init_cache(ENCDEC_BATCH, enc_seq,
+                                     enc_len=ENCDEC_FRAMES))
+        nxt = logits[:, -1].argmax(-1, keepdim=True)
+        nxt.cpu()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        attn_mod.flash_attention = k7.flash_attention
+    generated, step_logits, dec_ms = [nxt], [], []
+    for _ in range(ENCDEC_NEW):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out, cache = enc_model.decode_step(enc_params, cache,
+                                               generated[-1])
+        generated.append(out[:, -1].argmax(-1, keepdim=True))
+        generated[-1].cpu()
+        dec_ms.append((time.perf_counter() - t0) * 1e3)
+        step_logits.append(out[:, -1])
+    counts = path_counts("encdec prefill + decode", ("flash_attention",))
+    enc_peak = torch.cuda.max_memory_allocated() / 2**30
+    L_e, L_d = cfg_enc.enc_layers, cfg_enc.n_layers
+    want_calls = {(ENCDEC_FRAMES, ENCDEC_FRAMES, False): L_e,
+                  (ENCDEC_PROMPT, ENCDEC_PROMPT, True): L_d,
+                  (ENCDEC_PROMPT, ENCDEC_FRAMES, False): L_d}
+    check(calls == want_calls and counts["flash_attention"] == L_e + 2 * L_d,
+          f"encdec: K7 calls {calls}, launches {counts['flash_attention']}; "
+          f"want {want_calls}")
+    check(k7.COUNTER.by_variant == {
+        k7.VARIANTS[torch.bfloat16]: counts["flash_attention"]},
+          f"encdec: K7 variants {k7.COUNTER.by_variant}")
+    encdec_launches = {"flash_attention_cross": calls[
+        (ENCDEC_PROMPT, ENCDEC_FRAMES, False)]}
+    toks = torch.cat(generated, 1)                 # (B, 1 + ENCDEC_NEW)
+    n_tok = ENCDEC_BATCH * ENCDEC_NEW
+    print(f"[encdec] {ENCDEC_BATCH} rows x {ENCDEC_FRAMES} frames and "
+          f"{ENCDEC_PROMPT} prompt tokens, {ENCDEC_NEW} greedy steps, bf16: "
+          f"prefill {pre_ms:.1f} ms; decode ms per step median "
+          f"{sorted(dec_ms)[len(dec_ms) // 2]:.2f} (min {min(dec_ms):.2f}, "
+          f"max {max(dec_ms):.2f}); {n_tok} tokens in "
+          f"{(pre_ms + sum(dec_ms)) / 1e3:.2f} s "
+          f"({n_tok / (pre_ms + sum(dec_ms)) * 1e3:.1f} tok/s); peak memory "
+          f"{enc_peak:.2f} GiB; K7 calls {calls} ({smi})", flush=True)
+    lanes = slice(0, cfg_enc.vocab)
+    check(bool(((toks >= 0) & (toks < cfg_enc.vocab)).all()),
+          f"encdec: tokens outside the vocabulary: {toks.tolist()}")
+    # the prefill on K7 against the same prefill on its plain version
+    attn_mod.flash_attention = k7.flash_attention_plain
+    try:
+        with torch.no_grad():
+            plain_logits, _ = enc_model.prefill(
+                enc_params, {"tokens": prompt, "frames": frames},
+                enc_model.init_cache(ENCDEC_BATCH, enc_seq,
+                                     enc_len=ENCDEC_FRAMES))
+    finally:
+        attn_mod.flash_attention = k7.flash_attention
+    diff = (logits[..., lanes] - plain_logits[..., lanes]).abs().max().item()
+    scale = plain_logits[..., lanes].abs().max().item()
+    check(bool(torch.isfinite(logits[..., lanes]).all()),
+          "encdec: prefill logits not finite")
+    check(diff <= PREFILL_LOGIT_RTOL * scale,
+          f"encdec: prefill logits on K7 vs its plain version: max |d| "
+          f"{diff} of max |logit| {scale}")
+    # every decode step's logits against the forward over the prompt and
+    # the generated tokens (the forward's attention is full_attention)
+    with torch.no_grad():
+        fwd, _ = enc_model.forward(enc_params, {
+            "tokens": torch.cat([prompt, toks[:, :ENCDEC_NEW]], 1),
+            "frames": frames})
+    dec = torch.stack(step_logits, 1)[..., lanes]
+    ref_ = fwd[:, ENCDEC_PROMPT:, lanes]
+    dec_diff = (dec - ref_).abs().max().item()
+    dec_scale = ref_.abs().max().item()
+    check(bool(torch.isfinite(dec).all()), "encdec: decode logits not finite")
+    check(dec_diff <= PREFILL_LOGIT_RTOL * dec_scale,
+          f"encdec: decode logits vs forward's: max |d| {dec_diff} of max "
+          f"|logit| {dec_scale}")
+    print(f"[encdec] the prefill's last logits on K7 vs its plain version: "
+          f"max |d| {diff:.4g} of max |logit| {scale:.4g}; the {ENCDEC_NEW} "
+          f"decode steps' logits vs the forward over the prompt and the "
+          f"generated tokens: max |d| {dec_diff:.4g} of max |logit| "
+          f"{dec_scale:.4g} (bound {PREFILL_LOGIT_RTOL} x); the engine "
+          f"refused the family ({refused})", flush=True)
+    del enc_params, logits, plain_logits, cache, fwd, dec, ref_, \
+        step_logits, frames, enc_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- 3. the record ------------------------------------------------------
     replaces = {
         "accumulate": ("K1", "src/repro/kernels/accumulate.py:84"),
@@ -2952,6 +3430,8 @@ def main() -> int:
         "accumulate_signal": ("K6",
                               "src/repro/kernels/ordered_put_signal.py:144"),
         "flash_attention": ("K7", "src/repro/kernels/flash_attention.py:84"),
+        "flash_attention_cross": ("K7",
+                                  "src/repro/kernels/flash_attention.py:84"),
         "ssd_intra_chunk": ("K8", "src/repro/kernels/ssd_scan.py:62"),
         "ssd_pass": ("K8 glue", "src/repro/kernels/ops.py:24"),
         "ssd_intra_chunk_n16": ("K8", "src/repro/kernels/ssd_scan.py:62"),
@@ -2968,6 +3448,7 @@ def main() -> int:
                "ring_all_reduce": "ring_allreduce.cu",
                "accumulate_signal": "put_signal.cu",
                "flash_attention": "flash_attention.cu",
+               "flash_attention_cross": "flash_attention.cu",
                "ssd_intra_chunk": "ssd_scan.cu", "ssd_pass": "ssd_pass.cu",
                "ssd_intra_chunk_n16": "ssd_scan.cu",
                "ssd_pass_n16": "ssd_pass.cu"}
@@ -2986,8 +3467,10 @@ def main() -> int:
         tag, where = replaces[name]
         # the [serve-disagg] rows count that path's launches alone: K4's
         # doorbells, K3's guarded page moves (and the stale read); the N 16
-        # rows the [serve-hybrid] paged engine's
-        path_launches = {**disagg_launches, **hybrid_launches}
+        # rows the [serve-hybrid] paged engine's; the cross row [encdec]'s
+        # cross-attention calls
+        path_launches = {**disagg_launches, **hybrid_launches,
+                         **encdec_launches}
         count = (path_launches[name] if name in path_launches
                  else variant_launches.get(variant_of[name], 0)
                  if name in variant_of else launches[name])

@@ -1,11 +1,39 @@
-"""The dense, MoE, pure-SSM and hybrid architectures the port builds,
-exactly as the JAX package registers them (``repro/configs/archs.py``).
-The MLA, enc-dec and VLM families arrive with their model code (ROADMAP
-queue 1, item 11, step 3)."""
+"""The ten architectures, exactly as the JAX package registers them
+(``repro/configs/archs.py``; sources and tiers noted inline)."""
 from __future__ import annotations
 
-from repro_torch.configs.base import (ModelConfig, MoEConfig, SSMConfig,
-                                      register)
+from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
+                                      SSMConfig, register)
+
+
+@register("whisper-base")
+def whisper_base() -> ModelConfig:
+    """[audio] enc-dec, conv frontend STUB [arXiv:2212.04356; unverified].
+
+    6L per stack (encoder + decoder), d=512, 8H (kv=8), ff=2048, vocab=51865.
+    LayerNorm + GeLU + biases, learned positions (no RoPE).
+    """
+    return ModelConfig(
+        name="whisper-base", family="encdec",
+        n_layers=6, enc_layers=6,
+        d_model=512, n_heads=8, n_kv_heads=8, d_ff=2048, vocab=51865,
+        rope_theta=0.0, norm="layernorm", act="gelu", attn_bias=True,
+        norm_eps=1e-5, max_seq=32768,  # learned-pos tables
+    )
+
+
+@register("internvl2-1b")
+def internvl2_1b() -> ModelConfig:
+    """[vlm] InternViT frontend STUB + InternLM2-style LM [arXiv:2404.16821; hf].
+
+    24L, d=896, 14H (GQA kv=2), ff=4864, vocab=151655.
+    """
+    return ModelConfig(
+        name="internvl2-1b", family="vlm",
+        n_layers=24, d_model=896, n_heads=14, n_kv_heads=2,
+        d_ff=4864, vocab=151655,
+        rope_theta=1e6, vlm_prefix=256, max_seq=524288,
+    )
 
 
 @register("qwen3-4b")
@@ -97,6 +125,28 @@ def llama4_maverick() -> ModelConfig:
         moe=MoEConfig(num_experts=128, top_k=1, d_ff_expert=8192,
                       n_shared=1, d_ff_shared=8192,
                       interleave_step=2, interleave_offset=1),
+    )
+
+
+@register("deepseek-v2-236b")
+def deepseek_v2() -> ModelConfig:
+    """[moe] MLA (kv_lora=512) + 2 shared + 160 routed top-6
+    [arXiv:2405.04434; hf].
+
+    60L, d=5120, 128H, expert ff=1536, vocab=102400; layer 0 dense (ff=12288,
+    per the HF config).
+    """
+    return ModelConfig(
+        name="deepseek-v2-236b", family="moe",
+        n_layers=60, d_model=5120, n_heads=128, n_kv_heads=128, head_dim=128,
+        d_ff=1536, vocab=102400,
+        rope_theta=1e4, max_seq=524288,
+        mla=MLAConfig(q_lora=1536, kv_lora=512, qk_nope=128, qk_rope=64,
+                      v_head=128),
+        moe=MoEConfig(num_experts=160, top_k=6, d_ff_expert=1536,
+                      n_shared=2, d_ff_shared=2 * 1536,
+                      interleave_step=1, interleave_offset=0,
+                      first_dense=1, d_ff_first_dense=12288),
     )
 
 

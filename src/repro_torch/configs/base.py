@@ -1,8 +1,7 @@
 """Model configuration and the architecture registry: the JAX package's
-``ModelConfig`` fields that the dense, MoE, pure-SSM and hybrid
-(Mamba2 + attention) families read, with torch dtypes.  The MLA, enc-dec
-and VLM sub-configs arrive with their model code (ROADMAP queue 1, item 11,
-step 3)."""
+``ModelConfig`` fields that its ten architectures read — dense, MoE (with
+multi-head latent attention for DeepSeek), pure-SSM, hybrid (Mamba2 +
+attention), enc-dec and VLM — with torch dtypes."""
 from __future__ import annotations
 
 import dataclasses
@@ -44,6 +43,15 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora: int = 1536
+    kv_lora: int = 512
+    qk_nope: int = 128
+    qk_rope: int = 64
+    v_head: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     d_state: int = 128
     headdim: int = 64
@@ -55,7 +63,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid (the families the port builds)
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -79,7 +87,12 @@ class ModelConfig:
     # hybrid (jamba): layer i is attention iff i % hybrid_period == hybrid_attn_offset
     hybrid_period: int = 0
     hybrid_attn_offset: int = 0
+    # enc-dec (whisper)
+    enc_layers: int = 0
+    # vlm stub: number of prefix positions fed as precomputed patch embeddings
+    vlm_prefix: int = 0
     moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
     ssm: SSMConfig | None = None
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
@@ -130,5 +143,5 @@ def list_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-__all__ = ["MoEConfig", "SSMConfig", "ModelConfig", "register", "get_config",
-           "list_archs"]
+__all__ = ["MoEConfig", "MLAConfig", "SSMConfig", "ModelConfig", "register",
+           "get_config", "list_archs"]

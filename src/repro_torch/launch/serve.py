@@ -16,6 +16,12 @@ layers' conv tail and state stay dense::
       --device cpu --disagg --prefix-share --shared-prefix-len 16 \\
       --prompt-len 20
 
+An MLA stack (``deepseek-v2-236b``) serves dense only (its compressed
+latent cache is not paged); a VLM (``internvl2-1b``) serves as a text LM,
+prompt tokens only, dense or paged; an enc-dec stack (``whisper-base``) is
+refused with the engine's message: the engine has no encoder frames to
+give its prefill.
+
 ``--disagg`` first drives the prefill→push→doorbell→admission→decode round
 trip (``serve/disagg.py::demo_round_trip``, 8 stacked ranks) in this
 process on ``--device``, then runs the decode engine on the paged KV pool
@@ -42,7 +48,7 @@ from repro_torch.ft.elastic import ElasticServing
 from repro_torch.ft.inject import FaultScript
 from repro_torch.models import build_model
 from repro_torch.serve.disagg import demo_round_trip
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.engine import ENCDEC_REFUSAL, Request, ServeEngine
 
 
 def main(argv=None):
@@ -101,6 +107,8 @@ def main(argv=None):
             return checks
 
     cfg = tiny_config(args.arch) if args.tiny else get_config(args.arch)
+    if cfg.enc_layers:
+        ap.error(ENCDEC_REFUSAL.format(name=cfg.name))
     model = build_model(cfg)
     params = model.init(args.seed, device=args.device)
     eng = ServeEngine(model, params, n_slots=args.slots, max_seq=args.max_seq,

@@ -1,5 +1,5 @@
-"""repro_torch.models — the dense and MoE transformer families (training
-path)."""
+"""repro_torch.models — the model zoo: one ``Model`` for all ten
+architectures."""
 from repro_torch.models.model import Model, build_model
 
 __all__ = ["Model", "build_model"]

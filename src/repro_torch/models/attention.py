@@ -1,16 +1,25 @@
-"""GQA attention: full (materialized) and blockwise (online-softmax over KV
-blocks) attention for training, and the KV-cache path for serving — dense
-and paged caches, prefill through kernel K7 and decode over the cache.
+"""Attention: GQA (+qk-norm, biases, cross-attention for enc-dec) and MLA
+(DeepSeek-V2 multi-head latent attention); full (materialized) and
+blockwise (online-softmax over KV blocks) attention for training, and the
+KV-cache path for serving — dense and paged caches, prefill through kernel
+K7 and decode over the cache.
 
 Shapes (batch B, sequence S, query heads H, kv heads KV, head_dim hd):
 weights wq (d, H, hd), wk/wv (d, KV, hd), wo (H, hd, d); activations
 (B, S, H, hd); caches k/v (B, S_max, KV, hd), or the paged layout of
 ``repro_torch.serve.disagg.paginate_cache`` — the JAX package's layouts.
+MLA caches the compressed pair (c_kv (B, S_max, kv_lora), k_rope (B, S_max,
+qk_rope)) instead; a cross-attention layer caches the encoder's k/v
+(B, enc_len, KV, hd).
 
 Where the JAX package returns a new cache, the port writes the given cache
 in place (its tensors, ``pos`` included), so a decode step copies no cache.
-MLA and cross-attention arrive with their families (ROADMAP queue 1,
-item 11, step 3).
+K7 takes a prefill's attention wherever the prefill computes the same
+function as the reference: the prompt's causal self-attention, an
+encoder's self-attention and the cross-attention over the encoder output
+(non-causal).  MLA's head dims (192 for q and k, 128 for v; 576 and 512
+absorbed) are none K7 is built for, so MLA stays torch products, as the
+reference's are XLA einsums.
 """
 from __future__ import annotations
 
@@ -102,39 +111,42 @@ def blockwise_attention(q, k, v, *, causal: bool, block_kv: int = 1024,
     return out.transpose(1, 2).to(q.dtype)
 
 
-def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                  ) -> torch.Tensor:
-    """Causal attention of a prompt over its own keys through K7: q (B, S,
-    H, hd), k/v (B, S, KV, hd) unexpanded → (B, S, H, hd).
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True) -> torch.Tensor:
+    """Attention of a prefill's queries over keys it holds whole, through
+    K7: q (B, S, H, hd), k/v (B, Sk, KV, hd) unexpanded → (B, S, H, hd);
+    causal for a prompt over its own keys (Sk = S), non-causal for an
+    encoder's self-attention or a cross-attention over the encoder output.
 
     K7 takes the head-transposed views as they are: on the card its
     bfloat16 variant reads them and writes its output through strides (the
-    output a view of a (B, S, H, hd) tensor), and rows past S are TMA's
-    zeros and clipped stores, so no pad and no layout copy.  The prompt is
-    one block of the JAX contract (``block_q = block_kv = S``): the plain
-    version on CPU tensors then is the causal softmax over the prompt."""
-    S = q.shape[1]
+    output a view of a (B, S, H, hd) tensor), and rows past S or Sk are
+    TMA's zeros and clipped stores, so no pad and no layout copy.  The call
+    is one block of the JAX contract (``block_q = S``, ``block_kv = Sk``):
+    the plain version on CPU tensors then is the softmax over every key."""
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=True, block_q=S,
-                          block_kv=S)
+                          v.transpose(1, 2), causal=causal,
+                          block_q=q.shape[1], block_kv=k.shape[1])
     return out.transpose(1, 2)
 
 
 def _write_dense(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
                  cols: torch.Tensor) -> None:
-    """``buf[r, cols[r]] = new[r]`` in place, dropping writes at cols >=
-    S_max as the JAX scatter drops them.  A dropped write is aimed at the
-    row's last position carrying the value that position ends with, so no
-    two writes to one place disagree."""
+    """``buf[r, cols[r]] = new[r]`` in place (``buf`` (B, S_max, ...),
+    ``new`` (B, S, ...)), dropping writes at cols >= S_max as the JAX
+    scatter drops them.  A dropped write is aimed at the row's last position
+    carrying the value that position ends with, so no two writes to one
+    place disagree."""
     B, s_max = buf.shape[:2]
     S = new.shape[1]
+    tail = (1,) * (new.dim() - 2)
     rows = torch.arange(B, device=buf.device)
     last = s_max - 1 - pos.long()                    # the write to s_max - 1
     hits_last = (last >= 0) & (last < S)
-    fill = torch.where(hits_last[:, None, None],
+    fill = torch.where(hits_last.view(B, *tail),
                        new[rows, last.clamp(0, S - 1)].to(buf.dtype),
                        buf[:, s_max - 1])
-    valid = (cols < s_max)[..., None, None]
+    valid = (cols < s_max).view(B, S, *tail)
     buf[rows[:, None], cols.clamp(max=s_max - 1)] = torch.where(
         valid, new.to(buf.dtype), fill[:, None])
 
@@ -210,34 +222,46 @@ def gqa_attention(params: dict, x: torch.Tensor, cfg, *,
                   positions: torch.Tensor, causal: bool = True,
                   cache: dict | None = None, block_kv: int = 1024,
                   prefill: bool = False,
-                  kv_input: torch.Tensor | None = None) -> torch.Tensor:
-    """GQA self-attention over ``x`` (B, S, d); returns (B, S, d).
+                  kv_input: torch.Tensor | None = None,
+                  cross_cached: bool = False) -> torch.Tensor:
+    """GQA attention over ``x`` (B, S, d); returns (B, S, d).
 
     With ``cache``: the serving path — the new k/v are written at each
-    row's ``cache['pos']`` (in place) and attended over the cache;
-    ``prefill=True`` (the model's prefill, rows starting at position 0)
-    computes the prompt's causal attention through K7 instead."""
-    if kv_input is not None:
-        raise NotImplementedError(
-            "cross-attention (enc-dec families) is not ported to repro_torch "
-            "yet (ROADMAP queue 1, item 11, step 3)")
+    row's ``cache['pos']`` (in place) and attended over the cache.
+    With ``kv_input``: cross-attention (keys and values from the encoder
+    output, no RoPE, no mask); with a cache the prefill memoizes the
+    encoder's k/v into it and ``cross_cached=True`` (decode) reads them
+    back instead of recomputing them.
+    ``prefill=True`` (the model's prefill: rows starting at position 0, no
+    gradient) runs the attention through K7: the prompt's causal
+    self-attention, an encoder's (``causal=False``, no cache) and the
+    cross-attention."""
     H, KV = cfg.n_heads, cfg.n_kv_heads
     dt = x.dtype
+    cross = kv_input is not None
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
     if "bq" in params:
         q = q + params["bq"].to(dt)
-        k = k + params["bk"].to(dt)
-        v = v + params["bv"].to(dt)
+    if cross and cross_cached:
+        k, v = cache["k"].to(dt), cache["v"].to(dt)
+    else:
+        src = kv_input if cross else x
+        k = torch.einsum("bsd,dhk->bshk", src, params["wk"].to(dt))
+        v = torch.einsum("bsd,dhk->bshk", src, params["wv"].to(dt))
+        if "bk" in params:
+            k = k + params["bk"].to(dt)
+            v = v + params["bv"].to(dt)
     if cfg.qk_norm:
         q = layers.rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = layers.rms_norm(k, params["k_norm"], cfg.norm_eps)
-    if cfg.rope_theta:
+        if not (cross and cross_cached):
+            k = layers.rms_norm(k, params["k_norm"], cfg.norm_eps)
+    if cfg.rope_theta and not cross:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    if cache is not None:
+    if cache is not None and not cross:
         out = _cached_attention(q, k, v, cache, prefill=prefill)
+    elif prefill:
+        out = flash_prefill(q, k, v, causal=causal and not cross)
     else:
         kk = _expand_kv(k, H // KV)
         vv = _expand_kv(v, H // KV)
@@ -245,12 +269,20 @@ def gqa_attention(params: dict, x: torch.Tensor, cfg, *,
         if impl == "auto":
             impl = ("blockwise"
                     if x.shape[1] * kk.shape[1] > cfg.blockwise_threshold
-                    else "full")
-        if impl == "blockwise":
+                    and not cross else "full")
+        if impl == "blockwise" and not cross:
             out = blockwise_attention(q, kk, vv, causal=causal,
                                       block_kv=block_kv)
         else:
-            out = full_attention(q, kk, vv, causal=causal)
+            out = full_attention(q, kk, vv, causal=causal and not cross)
+    if cross and cache is not None and not cross_cached:
+        if cache["k"].shape[1] != k.shape[1]:
+            raise ValueError(
+                f"the cross-attention cache holds {cache['k'].shape[1]} "
+                f"encoder rows, the encoder gave {k.shape[1]}: make the cache "
+                f"with init_cache(..., enc_len={k.shape[1]})")
+        cache["k"].copy_(k)
+        cache["v"].copy_(v)
     proj = torch.einsum("bshk,hkd->bsd", out.to(dt), params["wo"].to(dt))
     if "bo" in params:
         proj = proj + params["bo"].to(dt)
@@ -285,6 +317,103 @@ def init_paged_gqa_cache(cfg, batch: int, max_seq: int, dtype, device,
                           page_tokens)
 
 
+# -- MLA — multi-head latent attention (DeepSeek-V2) ------------------------------
+
+def init_mla(gen, cfg, device) -> dict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    pd = cfg.parameter_dtype
+    return {
+        "w_dq": layers.trunc_normal(gen, (d, m.q_lora), 1.0, pd, device),
+        "q_norm": layers.init_rmsnorm(m.q_lora, pd, device),
+        "w_uq": layers.trunc_normal(gen, (m.q_lora, H, m.qk_nope + m.qk_rope),
+                                    1.0, pd, device),
+        "w_dkv": layers.trunc_normal(gen, (d, m.kv_lora), 1.0, pd, device),
+        "kv_norm": layers.init_rmsnorm(m.kv_lora, pd, device),
+        "w_kr": layers.trunc_normal(gen, (d, m.qk_rope), 1.0, pd, device),
+        "w_uk": layers.trunc_normal(gen, (m.kv_lora, H, m.qk_nope), 1.0, pd,
+                                    device),
+        "w_uv": layers.trunc_normal(gen, (m.kv_lora, H, m.v_head), 1.0, pd,
+                                    device),
+        "wo": layers.trunc_normal(gen, (H, m.v_head, d), 1.0, pd, device),
+    }
+
+
+def mla_attention(params: dict, x: torch.Tensor, cfg, *,
+                  positions: torch.Tensor, cache: dict | None = None,
+                  prefill: bool = False) -> torch.Tensor:
+    """DeepSeek-V2 multi-head latent attention over ``x`` (B, S, d);
+    returns (B, S, d).
+
+    The cache stores only (c_kv: kv_lora, k_rope: qk_rope) a token, written
+    at each row's ``pos`` in place.  Scores take the absorbed-weight form,
+    ``q_nope·(W_uk c) + q_rope·k_rope``: q is projected through W_uk once,
+    the scores and softmax are float32, and the weights, cast back to the
+    activation dtype, attend in the latent space before one expansion by
+    W_uv — the reference's products and casts in its order.  A prefill
+    (rows at position 0) attends over the prompt's own latents: its causal
+    mask leaves no other cache row a weight, as in the reference's masked
+    softmax over the whole cache."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    dt = x.dtype
+    cq = layers.rms_norm(torch.einsum("bsd,dr->bsr", x, params["w_dq"].to(dt)),
+                         params["q_norm"], cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", cq, params["w_uq"].to(dt))
+    q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
+    q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = layers.rms_norm(
+        torch.einsum("bsd,dr->bsr", x, params["w_dkv"].to(dt)),
+        params["kv_norm"], cfg.norm_eps)
+    k_rope = torch.einsum("bsd,dr->bsr", x, params["w_kr"].to(dt))
+    k_rope = layers.apply_rope(k_rope[:, :, None, :], positions,
+                               cfg.rope_theta)[:, :, 0]
+    qpos = torch.arange(S, device=x.device)[None, :]            # (1, S)
+    if cache is not None:
+        pos = cache["pos"]
+        cols = pos.long()[:, None] + qpos
+        _write_dense(cache["c_kv"], c_kv, pos, cols)
+        _write_dense(cache["k_rope"], k_rope, pos, cols)
+        pos += S
+        if not prefill:
+            c_kv, k_rope = cache["c_kv"].to(dt), cache["k_rope"].to(dt)
+            qpos = cols
+    # absorbed weights: the cache stays compressed, no per-token K expansion
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["w_uk"].to(dt))
+    s_lat = torch.einsum("bshr,btr->bhst", q_lat.float(), c_kv.float())
+    s_rope = torch.einsum("bshk,btk->bhst", q_rope.float(), k_rope.float())
+    scores = (s_lat + s_rope) * (m.qk_nope + m.qk_rope) ** -0.5
+    kpos = torch.arange(c_kv.shape[1], device=x.device)
+    mask = qpos[:, None, :, None] >= kpos                       # (B|1,1,S,K)
+    scores = torch.where(mask, scores, scores.new_full((), NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    # attend in the latent space, then expand once: out_h = (w·c) @ W_uv
+    ctx = torch.einsum("bhst,btr->bshr", w.to(dt), c_kv)
+    out = torch.einsum("bshr,rhv->bshv", ctx, params["w_uv"].to(dt))
+    return torch.einsum("bshv,hvd->bsd", out, params["wo"].to(dt))
+
+
+def init_mla_cache(cfg, batch: int, max_seq: int, dtype, device) -> dict:
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, max_seq, m.kv_lora), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, max_seq, m.qk_rope), dtype=dtype,
+                              device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def mla_cache_spec(cfg) -> dict:
+    return {
+        "c_kv": ("batch", "kv_seq", "kv_lora"),
+        "k_rope": ("batch", "kv_seq", None),
+        "pos": ("batch",),
+    }
+
+
 __all__ = ["init_gqa", "gqa_attention", "full_attention",
            "blockwise_attention", "flash_prefill", "init_gqa_cache",
-           "gqa_cache_spec", "init_paged_gqa_cache", "PREFILL_BLOCK"]
+           "gqa_cache_spec", "init_paged_gqa_cache", "init_mla",
+           "mla_attention", "init_mla_cache", "mla_cache_spec",
+           "PREFILL_BLOCK"]

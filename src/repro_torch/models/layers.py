@@ -1,4 +1,5 @@
-"""Basic layers in plain PyTorch: norms, embeddings, MLPs, RoPE.
+"""Basic layers in plain PyTorch: norms, embeddings, MLPs, RoPE, learned
+positions.
 
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts (``wi`` is ``(d, 2·ff)``, a linear maps ``x @ W``), so converted
@@ -146,9 +147,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+# -- learned absolute positions (whisper-style) ----------------------------------
+
+def init_learned_pos(gen, max_len: int, d: int, dtype, device) -> dict:
+    return {"pos": trunc_normal(gen, (max_len, d), 0.02 * np.sqrt(max_len),
+                                dtype, device)}
+
+
+def add_learned_pos(x: torch.Tensor, params: dict, offset: int = 0
+                    ) -> torch.Tensor:
+    """``x`` (..., seq, d) plus the table's rows ``offset … offset + seq``."""
+    seq = x.shape[-2]
+    return x + params["pos"][offset:offset + seq].to(x.dtype)
+
+
 __all__ = [
     "trunc_normal", "dense_init", "init_rmsnorm", "rms_norm",
     "init_layernorm", "layer_norm", "init_embed", "embed", "unembed",
     "init_lm_head", "lm_head", "init_swiglu", "swiglu", "init_gelu_mlp",
-    "gelu_mlp", "rope_frequencies", "apply_rope",
+    "gelu_mlp", "rope_frequencies", "apply_rope", "init_learned_pos",
+    "add_learned_pos",
 ]

@@ -1,12 +1,15 @@
 """Top-level model API: ``build_model(cfg)`` → ``init`` / ``forward`` /
-``loss`` / ``init_cache`` / ``prefill`` / ``decode_step`` for the dense,
-MoE, pure-SSM (Mamba2) and hybrid (Mamba2 + attention, ``jamba``)
-families.
+``loss`` / ``init_cache`` / ``prefill`` / ``decode_step``, one class for
+all ten architectures; the enc-dec encoder and the VLM patch prefix are
+dispatched from the config.
 
 Batch conventions: train ``{"tokens": (B, S) int64, "labels": (B, S)
-int64}``; prefill ``{"tokens": (B, S)}``; decode tokens (B, 1) + cache.
-The cache is written in place and returned, where the JAX package returns a
-new one.
+int64, ["frames" | "patches"]}``; prefill ``{"tokens": (B, S), ["frames" |
+"patches"]}``; decode tokens (B, 1) + cache.  The modality frontends of the
+[audio] and [vlm] archs are stubs, as in the JAX package: ``frames`` (B, L,
+d_model) and ``patches`` (B, vlm_prefix, d_model) are precomputed
+embeddings.  The cache is written in place and returned, where the JAX
+package returns a new one.
 Parameters are a plain dict tree with the JAX package's names and layouts
 (``repro_torch.convert.params_from_jax`` carries reference weights over).
 """
@@ -34,6 +37,11 @@ class Model:
     def plan(self) -> list[LayerSpec]:
         return transformer.layer_plan(self.cfg)
 
+    @cached_property
+    def enc_plan(self) -> list[LayerSpec]:
+        return [LayerSpec(mixer="gqa", ffn="dense", cross=False)] * \
+            self.cfg.enc_layers
+
     def init(self, seed: int = 0, *, device="cuda") -> dict:
         """Random parameters from ``seed`` (a ``torch.Generator`` on the
         target device), on the card unless ``device="cpu"``."""
@@ -53,7 +61,46 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = layers.init_lm_head(gen, cfg.d_model,
                                                     cfg.vocab_padded, pd, dev)
+        if cfg.enc_layers:
+            params["encoder"] = {
+                "stack": transformer.init_stack(gen, cfg, dev, self.enc_plan),
+                "final_norm": transformer._norm_init(cfg, dev),
+                "pos": layers.init_learned_pos(gen, cfg.max_seq, cfg.d_model,
+                                               pd, dev),
+            }
+            params["dec_pos"] = layers.init_learned_pos(
+                gen, cfg.max_seq, cfg.d_model, pd, dev)
         return params
+
+    def _embed_inputs(self, params, batch) -> torch.Tensor:
+        """Token embeddings; a VLM's precomputed ``patches`` replace the
+        first ``vlm_prefix`` positions, an enc-dec decoder adds its learned
+        positions."""
+        cfg = self.cfg
+        dt = cfg.activation_dtype
+        x = layers.embed(batch["tokens"], params["embed"], dt)
+        if cfg.vlm_prefix and "patches" in batch:
+            patches = batch["patches"].to(dt)
+            x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
+        if cfg.enc_layers:
+            x = layers.add_learned_pos(x, params["dec_pos"])
+        return x
+
+    def _encode(self, params, frames: torch.Tensor, *,
+                prefill: bool = False) -> torch.Tensor:
+        """The whisper-style encoder over precomputed frame embeddings (the
+        conv frontend is a stub); ``prefill`` runs its self-attention
+        through K7."""
+        cfg = self.cfg
+        enc = params["encoder"]
+        x = layers.add_learned_pos(frames.to(cfg.activation_dtype),
+                                   enc["pos"])
+        positions = torch.arange(x.shape[1], device=x.device).expand(
+            x.shape[:2])
+        x, _ = transformer.apply_stack(enc["stack"], x, cfg,
+                                       positions=positions, causal=False,
+                                       plan=self.enc_plan, prefill=prefill)
+        return transformer._norm(x, enc["final_norm"], cfg)
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -71,26 +118,30 @@ class Model:
         """Full-sequence forward; returns float32 logits and the summed MoE
         aux loss."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = layers.embed(tokens, params["embed"], cfg.activation_dtype)
+        x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device).expand(
             x.shape[:2])
+        enc_out = (self._encode(params, batch["frames"]) if cfg.enc_layers
+                   else None)
         x, aux = transformer.apply_stack(params["stack"], x, cfg,
                                          positions=positions, causal=True,
                                          plan=self.plan,
-                                         ep_ranks=self.ep_ranks)
+                                         ep_ranks=self.ep_ranks,
+                                         enc_out=enc_out)
         return self._logits(params, x), aux
 
     # -- serving ---------------------------------------------------------------
-    def init_cache(self, batch: int, max_seq: int, dtype=None, *,
-                   device="cuda") -> dict:
+    def init_cache(self, batch: int, max_seq: int, dtype=None,
+                   enc_len: int = 0, *, device="cuda") -> dict:
         """A zeroed stack cache for ``batch`` rows of ``max_seq`` tokens in
-        ``dtype`` (default the activation dtype), on the card unless
-        ``device="cpu"``."""
+        ``dtype`` (default the activation dtype), with ``enc_len`` encoder
+        rows of cross-attention k/v in an enc-dec decoder, on the card
+        unless ``device="cpu"``."""
         dev = resolve_device(device)
         dtype = dtype if dtype is not None else self.cfg.activation_dtype
         return transformer.init_stack_cache(self.cfg, batch, max_seq, dtype,
-                                            dev, plan=self.plan)
+                                            dev, enc_len=enc_len,
+                                            plan=self.plan)
 
     def cache_specs(self) -> dict:
         return transformer.stack_cache_spec(self.cfg, self.plan)
@@ -98,18 +149,21 @@ class Model:
     def prefill(self, params, batch, cache) -> tuple[torch.Tensor, dict]:
         """Process the prompt into a fresh cache (rows at position 0, as the
         JAX package's prefill assumes: its positions start at 0); attention
-        runs through K7, a Mamba2 block's scan through K8 and the SSD
-        pass.  Returns
-        (last-position float32 logits, cache)."""
+        runs through K7 (an enc-dec's encoder and cross-attention too, and
+        the cross k/v are memoized into the cache), a Mamba2 block's scan
+        through K8 and the SSD pass; MLA through its torch products.
+        Returns (last-position float32 logits, cache)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = layers.embed(tokens, params["embed"], cfg.activation_dtype)
+        x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device).expand(
             x.shape[:2])
+        enc_out = (self._encode(params, batch["frames"], prefill=True)
+                   if cfg.enc_layers else None)
         x, _ = transformer.apply_stack(params["stack"], x, cfg,
                                        positions=positions, causal=True,
                                        plan=self.plan, ep_ranks=self.ep_ranks,
-                                       cache=cache, prefill=True)
+                                       cache=cache, prefill=True,
+                                       enc_out=enc_out)
         return self._logits(params, x[:, -1:]), cache
 
     def decode_step(self, params, cache, tokens: torch.Tensor
@@ -120,10 +174,14 @@ class Model:
         positions = pos.long()[:, None] + torch.arange(
             tokens.shape[1], device=tokens.device)[None, :]
         x = layers.embed(tokens, params["embed"], cfg.activation_dtype)
+        if cfg.enc_layers:
+            # per-row learned positions: a gather, not a slice
+            x = x + params["dec_pos"]["pos"][positions].to(x.dtype)
         x, _ = transformer.apply_stack(params["stack"], x, cfg,
                                        positions=positions, causal=True,
                                        plan=self.plan, ep_ranks=self.ep_ranks,
-                                       cache=cache)
+                                       cache=cache,
+                                       cross_cached=bool(cfg.enc_layers))
         return self._logits(params, x), cache
 
     def _cache_pos(self, cache) -> torch.Tensor:
@@ -146,7 +204,6 @@ def build_model(cfg: ModelConfig, *, ep_ranks: int = 1) -> Model:
     """The model of ``cfg``; ``ep_ranks`` stacked expert-parallel ranks
     carry its MoE layers under ``ep_mode="rma"`` (it must divide
     ``num_experts``)."""
-    transformer.layer_plan(cfg)   # refuses families the port cannot build
     if ep_ranks < 1 or (cfg.moe is not None
                         and cfg.moe.num_experts % ep_ranks):
         raise ValueError(f"ep_ranks={ep_ranks} must be >= 1 and divide the "

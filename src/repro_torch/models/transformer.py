@@ -1,23 +1,27 @@
-"""Decoder stack for the dense, MoE, pure-SSM and hybrid families: the layer
-plan and its [prefix] + [repeating period × count] decomposition, kept so
-the parameter tree matches the JAX package's (scanned leaves stacked on a
-leading layer axis).  A layer is a mixer — GQA attention or a Mamba2 block
-(``mixer="mamba"``) — then an FFN: dense, MoE, or none (pure Mamba2 blocks
-carry their own projections).  A hybrid stack (``jamba``) puts attention
-where ``i % hybrid_period == hybrid_attn_offset`` and Mamba2 elsewhere, with
-the MoE interleave on top: an 8-layer period of 7 Mamba2 layers and one
+"""Decoder stack for all ten architectures: the layer plan and its
+[prefix] + [repeating period × count] decomposition, kept so the parameter
+tree matches the JAX package's (scanned leaves stacked on a leading layer
+axis).  A layer is a mixer — GQA attention, MLA (``mixer="mla"``,
+DeepSeek) or a Mamba2 block (``mixer="mamba"``) — then, in an enc-dec
+decoder (``cross=True``), a cross-attention over the encoder output, then
+an FFN: dense, MoE, or none (pure Mamba2 blocks carry their own
+projections).  A hybrid stack (``jamba``) puts attention where
+``i % hybrid_period == hybrid_attn_offset`` and Mamba2 elsewhere, with the
+MoE interleave on top: an 8-layer period of 7 Mamba2 layers and one
 attention layer.  The reference scans the periods (rematerializing each
 under ``remat="block"``); here a Python loop walks them and keeps
 activations.  MoE layers (``first_dense``,
 ``interleave_step``/``interleave_offset``) add their load-balancing loss to
-the stack's aux sum.
+the stack's aux sum; in a config with ``first_dense`` every dense FFN takes
+``d_ff_first_dense``, as in the reference.
 
 The serving caches follow the same decomposition: ``{"step", "prefix":
 [...], "scan": {...}}`` with the scanned blocks' leaves stacked on a leading
 layer axis, the JAX package's layout — ``{"attn": {k, v, pos}}`` for an
-attention layer, ``{"mamba": {conv, ssm}}`` for a Mamba2 layer.
-``apply_stack(cache=...)`` hands each block a view of its slice, so the
-cache is written in place."""
+attention layer, ``{"attn": {c_kv, k_rope, pos}}`` for MLA, ``{"mamba":
+{conv, ssm}}`` for a Mamba2 layer, plus ``{"cross": {k, v}}`` (``enc_len``
+rows) in an enc-dec decoder.  ``apply_stack(cache=...)`` hands each block a
+view of its slice, so the cache is written in place."""
 from __future__ import annotations
 
 import dataclasses
@@ -32,19 +36,14 @@ from repro_torch.tree import tree_map
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str = "gqa"   # gqa | mamba
+    mixer: str = "gqa"   # gqa | mla | mamba
     ffn: str = "dense"   # dense | moe | none
-    cross: bool = False
+    cross: bool = False  # add cross-attention (enc-dec decoder)
 
 
 def layer_plan(cfg) -> list[LayerSpec]:
     """The per-layer structure of the decoder stack for ``cfg``, the JAX
-    package's plan.  MLA and enc-dec stacks are not ported."""
-    if getattr(cfg, "mla", None) is not None or getattr(cfg, "enc_layers", 0):
-        raise NotImplementedError(
-            f"model family {cfg.family!r} of {cfg.name!r} (multi-head latent "
-            "or cross-attention) is not ported to repro_torch yet (ROADMAP "
-            "queue 1, item 11, step 3)")
+    package's plan."""
     plan = []
     for i in range(cfg.n_layers):
         if cfg.ssm is not None and cfg.hybrid_period:
@@ -52,6 +51,8 @@ def layer_plan(cfg) -> list[LayerSpec]:
                      else "mamba")
         elif cfg.ssm is not None:
             mixer = "mamba"
+        elif cfg.mla is not None:
+            mixer = "mla"
         else:
             mixer = "gqa"
         if cfg.family == "ssm":
@@ -61,7 +62,8 @@ def layer_plan(cfg) -> list[LayerSpec]:
             ffn = "moe"
         else:
             ffn = "dense"
-        plan.append(LayerSpec(mixer=mixer, ffn=ffn))
+        plan.append(LayerSpec(mixer=mixer, ffn=ffn,
+                              cross=cfg.enc_layers > 0))
     return plan
 
 
@@ -96,8 +98,13 @@ def init_block(gen, spec: LayerSpec, cfg, device) -> dict:
     p: dict = {"norm_mixer": _norm_init(cfg, device)}
     if spec.mixer == "mamba":
         p["mamba"] = ssm.init_mamba2(gen, cfg, device)
+    elif spec.mixer == "mla":
+        p["attn"] = attention.init_mla(gen, cfg, device)
     else:
         p["attn"] = attention.init_gqa(gen, cfg, device)
+    if spec.cross:
+        p["norm_cross"] = _norm_init(cfg, device)
+        p["cross"] = attention.init_gqa(gen, cfg, device)
     if spec.ffn == "none":
         return p
     p["norm_ffn"] = _norm_init(cfg, device)
@@ -119,22 +126,38 @@ def init_block(gen, spec: LayerSpec, cfg, device) -> dict:
 def apply_block(params: dict, spec: LayerSpec, x: torch.Tensor, cfg, *,
                 positions: torch.Tensor, causal: bool = True,
                 ep_ranks: int = 1, cache: dict | None = None,
-                prefill: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """One decoder block: pre-norm attention or Mamba2 mixer, then a
-    pre-norm MLP, MoE, or no FFN.  Returns ``(x, aux)``; ``ep_ranks`` is the
-    MoE's expert-parallel rank count.  ``cache`` (the block's, written in
-    place) goes to the mixer, ``prefill`` to the attention (a Mamba2 block
-    decodes exactly when it has a cache and one token)."""
+                prefill: bool = False, enc_out: torch.Tensor | None = None,
+                cross_cached: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One block: a pre-norm attention, MLA or Mamba2 mixer, in an enc-dec
+    decoder a pre-norm cross-attention over ``enc_out`` (``cross_cached``:
+    the encoder's k/v come from the cache), then a pre-norm MLP, MoE, or no
+    FFN.  Returns ``(x, aux)``; ``ep_ranks`` is the MoE's expert-parallel
+    rank count.  ``cache`` (the block's, written in place) goes to the
+    mixers, ``prefill`` to the attention (a Mamba2 block decodes exactly
+    when it has a cache and one token)."""
     h = _norm(x, params["norm_mixer"], cfg)
     if spec.mixer == "mamba":
         x = x + ssm.mamba2_apply(
             params["mamba"], h, cfg,
             cache=cache["mamba"] if cache is not None else None)
+    elif spec.mixer == "mla":
+        x = x + attention.mla_attention(
+            params["attn"], h, cfg, positions=positions,
+            cache=cache["attn"] if cache is not None else None,
+            prefill=prefill)
     else:
         x = x + attention.gqa_attention(
             params["attn"], h, cfg, positions=positions, causal=causal,
             cache=cache["attn"] if cache is not None else None,
             block_kv=cfg.attn_block_kv, prefill=prefill)
+    if spec.cross:
+        h = _norm(x, params["norm_cross"], cfg)
+        x = x + attention.gqa_attention(
+            params["cross"], h, cfg, positions=positions, causal=False,
+            cache=cache["cross"] if cache is not None else None,
+            prefill=prefill, kv_input=enc_out if enc_out is not None else h,
+            cross_cached=cross_cached)
     aux = x.new_zeros((), dtype=torch.float32)
     if spec.ffn == "none":
         return x, aux
@@ -147,17 +170,33 @@ def apply_block(params: dict, spec: LayerSpec, x: torch.Tensor, cfg, *,
 
 
 def init_block_cache(spec: LayerSpec, cfg, batch: int, max_seq: int, dtype,
-                     device) -> dict:
+                     device, enc_len: int = 0) -> dict:
     if spec.mixer == "mamba":
-        return {"mamba": ssm.init_mamba2_cache(cfg, batch, dtype, device)}
-    return {"attn": attention.init_gqa_cache(cfg, batch, max_seq, dtype,
-                                             device)}
+        c = {"mamba": ssm.init_mamba2_cache(cfg, batch, dtype, device)}
+    elif spec.mixer == "mla":
+        c = {"attn": attention.init_mla_cache(cfg, batch, max_seq, dtype,
+                                              device)}
+    else:
+        c = {"attn": attention.init_gqa_cache(cfg, batch, max_seq, dtype,
+                                              device)}
+    if spec.cross:
+        shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+        c["cross"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                      "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return c
 
 
 def block_cache_spec(spec: LayerSpec, cfg) -> dict:
     if spec.mixer == "mamba":
-        return {"mamba": ssm.mamba2_cache_spec(cfg)}
-    return {"attn": attention.gqa_cache_spec(cfg)}
+        c = {"mamba": ssm.mamba2_cache_spec(cfg)}
+    elif spec.mixer == "mla":
+        c = {"attn": attention.mla_cache_spec(cfg)}
+    else:
+        c = {"attn": attention.gqa_cache_spec(cfg)}
+    if spec.cross:
+        c["cross"] = {"k": ("batch", None, "kv_heads", None),
+                      "v": ("batch", None, "kv_heads", None)}
+    return c
 
 
 def init_stack(gen, cfg, device, plan: list[LayerSpec] | None = None) -> dict:
@@ -184,17 +223,18 @@ def init_stack(gen, cfg, device, plan: list[LayerSpec] | None = None) -> dict:
 
 
 def init_stack_cache(cfg, batch: int, max_seq: int, dtype, device,
-                     plan: list[LayerSpec] | None = None) -> dict:
+                     enc_len: int = 0, plan: list[LayerSpec] | None = None
+                     ) -> dict:
     plan = plan if plan is not None else layer_plan(cfg)
     prefix, period = stage_plan(plan)
     count = (len(plan) - prefix) // period
     cache: dict = {
         "step": torch.zeros((batch,), dtype=torch.int32, device=device),
         "prefix": [init_block_cache(plan[i], cfg, batch, max_seq, dtype,
-                                    device) for i in range(prefix)]}
+                                    device, enc_len) for i in range(prefix)]}
     if count:
         blk = {f"l{j}": init_block_cache(plan[prefix + j], cfg, batch,
-                                         max_seq, dtype, device)
+                                         max_seq, dtype, device, enc_len)
                for j in range(period)}
         cache["scan"] = tree_map(
             lambda t: t[None].repeat((count,) + (1,) * t.dim()), blk)
@@ -221,11 +261,14 @@ def stack_cache_spec(cfg, plan: list[LayerSpec] | None = None) -> dict:
 def apply_stack(params: dict, x: torch.Tensor, cfg, *,
                 positions: torch.Tensor, causal: bool = True,
                 plan: list[LayerSpec] | None = None, ep_ranks: int = 1,
-                cache: dict | None = None, prefill: bool = False
+                cache: dict | None = None, prefill: bool = False,
+                enc_out: torch.Tensor | None = None,
+                cross_cached: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the full stack.  Returns ``(x, aux_loss_sum)``.  With ``cache``
     every block reads and writes its slice in place and ``cache['step']``
-    advances by the sequence length."""
+    advances by the sequence length; ``enc_out`` and ``cross_cached`` go to
+    the cross-attention of an enc-dec decoder."""
     plan = plan if plan is not None else layer_plan(cfg)
     prefix, period = stage_plan(plan)
     count = (len(plan) - prefix) // period
@@ -243,7 +286,8 @@ def apply_stack(params: dict, x: torch.Tensor, cfg, *,
     for p, spec, sub in blocks:
         x, aux = apply_block(p, spec, x, cfg, positions=positions,
                              causal=causal, ep_ranks=ep_ranks, cache=sub,
-                             prefill=prefill)
+                             prefill=prefill, enc_out=enc_out,
+                             cross_cached=cross_cached)
         aux_total = aux_total + aux
     if cache is not None:
         cache["step"] += x.shape[1]

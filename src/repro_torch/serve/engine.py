@@ -20,7 +20,10 @@ Three layers, as in the JAX package's ``serve/engine.py``:
 (``repro_torch.serve.disagg.paginate_cache``): a physical page pool plus a
 per-row page table for every attention layer (a hybrid stack's Mamba2
 layers keep their dense conv tail and state); a stack with no
-self-attention KV (pure SSM) refuses it.  ``prefix_share=True`` additionally admits new requests onto the pages
+self-attention KV (pure SSM, or MLA, whose compressed cache stays dense)
+refuses it.  An enc-dec stack is refused outright (``ENCDEC_REFUSAL``);
+a VLM is served as a text LM, prompt tokens only, as in the JAX package.
+``prefix_share=True`` additionally admits new requests onto the pages
 of a live request with a common prompt prefix: full pages
 inside the common prefix are mapped read-only (refcount + 1, write-protected
 through the cache's ``page_ro`` leaf); the partial page at the prefix
@@ -60,6 +63,16 @@ import torch
 from repro_torch.serve import disagg
 from repro_torch.serve.paged import HostKVTier, KVPoolManager
 from repro_torch.serve.scheduler import Scheduler
+
+
+#: why an enc-dec stack is not served: the engine's prefill feeds prompt
+#: tokens only, and the JAX package's engine, which does the same, fails in
+#: ``model.prefill`` for want of ``frames``
+ENCDEC_REFUSAL = (
+    "{name!r} is an encoder-decoder stack: the serving engine feeds prompt "
+    "tokens only and has no encoder frames to give its prefill (the JAX "
+    "package's engine cannot serve it either); call Model.prefill with "
+    "batch['frames'] and Model.decode_step directly")
 
 
 @dataclasses.dataclass
@@ -126,6 +139,8 @@ class Executor:
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.page_tokens = page_tokens
+        if model.cfg.enc_layers:
+            raise ValueError(ENCDEC_REFUSAL.format(name=model.cfg.name))
         self.device = params["embed"]["table"].device
         self.cache = model.init_cache(n_slots, max_seq, device=self.device)
         self.paged_kv = paged_kv

@@ -6,7 +6,6 @@ JAX package's own tolerances (``tests/test_moe_ep.py``,
 ``tests/mdev/moe_ep_rma.py``).  Weights come from the reference's init,
 activations and tokens from numpy with a seed."""
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -158,10 +157,13 @@ def test_moe_config_and_family_guards():
         jplan = j_layer_plan(jcfg.replace(family=family))
         assert [(s.mixer, s.ffn, s.cross) for s in plan] == \
             [(s.mixer, s.ffn, s.cross) for s in jplan]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        # an MoE config with multi-head latent attention (deepseek-v2)
-        layer_plan(types.SimpleNamespace(family="moe", mla=object(),
-                                         name="deepseek-v2-236b"))
+    # an MoE config with multi-head latent attention (deepseek-v2): the
+    # port builds it, with the reference's plan (one dense layer, then MoE)
+    mla_plan = layer_plan(tiny_config("deepseek-v2-236b"))
+    assert [(s.mixer, s.ffn, s.cross) for s in mla_plan] == \
+        [(s.mixer, s.ffn, s.cross)
+         for s in j_layer_plan(j_tiny_config("deepseek-v2-236b"))] == \
+        [("mla", "dense", False), ("mla", "moe", False)]
     dense = build_model(tiny_config("qwen3-4b"))
     with pytest.raises(ValueError, match="no MoE config"):
         make_train_step(dense, OptimizerConfig(total_steps=1), moe_ep="rma")
