@@ -77,11 +77,15 @@
    2^10, 2^20 floats: allocated, handle, handle per op, query, AM) by graph
    replay and by calls; a data-parallel ``qwen3-4b``
    train step at full width (depth cut to 2 layers) over 4 stacked ranks
-   with the one-sided ring gradient sync; the planned all-to-all at the MoE
+   with the one-sided ring gradient sync (every train step rematerializes
+   each scanned period, ``remat="block"``, the default); the planned
+   all-to-all at the MoE
    exchange's shape, held bit for bit to the same plan run op by op; and an
    expert-parallel ``llama4-maverick-400b-a17b`` train step at full width
    (2 layers, 8 of 128 experts, 4 stacked expert ranks) whose dispatch and
-   combine exchanges run on K4 and K6, forward and backward; and the
+   combine exchanges run on K4 and K6, forward, in the recompute of the
+   rematerialized period and backward — 3(n-1) launches each a step,
+   derived from the layer plan; and the
    serving path: ``qwen3-4b`` at all 36 layers and published widths behind
    a dense engine and a paged engine with copy-on-write prefix sharing,
    one request set each, every prefill's attention on K7 — greedy tokens
@@ -120,8 +124,20 @@
    decode step finite; ``mamba2-370m`` trained (``[train-ssm]``): all 48
    layers, 4 stacked ranks with the ring gradient sync, batch 8 x 512, 3
    steps — loss finite and falling, K5 once a step, no K8 or pass launch in
-   a step (a Mamba2 block that trains calls ``ssd_chunked``), and the
-   trained model's no-grad prefill on K8 and the pass 48 times each; and
+   a step (a Mamba2 block that trains calls ``ssd_chunked``, in the
+   recompute too), and the trained model's no-grad prefill on K8 and the
+   pass 48 times each; then one step at ``remat="none"``, its peak memory
+   beside the rematerialized steps'; checkpoint, preemption and resume
+   (``[train-ckpt]``): ``mamba2-370m`` cut to 8 layers on the same ring, 6
+   steps saving every 2 (2 kept), a run preempted at step 4 and resumed —
+   K5 once a step in each run, the resumed losses held to the
+   uninterrupted run's, the final checkpoint restored onto the card bit for
+   bit, a save's bytes, host copy and write timed, the directory removed;
+   the error-feedback compressed all-reduce (``[compress]``) at
+   ``mamba2-370m``'s gradient size, (4, 368,494,080) float32, int8 and
+   top-k at 1 % — one K5 launch a call, the result bit for bit the
+   restored rows summed by K5's plain version, residuals exact, an int8
+   payload bit for bit the CPU's, the wire ratios; and
    the hybrid stack (``[serve-hybrid]``): ``jamba-v0.1-52b`` at published
    widths cut to one period (8 of 32 layers: 7 Mamba2, 1 attention, 4 MoE
    of all 16 experts) behind a dense and a paged + COW engine with the
@@ -135,7 +151,10 @@
    memory cannot hold 4, printed), the ``[serve]`` request set through the
    dense engine — tokens in the vocabulary, the paged engine refused, the
    latent cache's bytes a token a layer, one prefill's last logits held to
-   the forward's; ``[serve-vlm]``: ``internvl2-1b`` at all 24 layers, dense
+   the forward's (each made twice, printed whether equal bit for bit), and
+   fault 5 traced — the bf16 ``index_add`` MoE combine twice on the same
+   inputs, the fixed-order combine twice and one MoE layer's ``"gspmd"``
+   forward twice (the last two must be equal); ``[serve-vlm]``: ``internvl2-1b`` at all 24 layers, dense
    and paged + COW — tokens equal bit for bit, K7 24 times a prefill, one
    prefill with 256 patch embeddings on K7 held to the same on its plain
    version; ``[encdec]``: ``whisper-base`` at 6 + 6 layers, 4 rows of 1500
@@ -158,8 +177,10 @@ import inspect
 import json
 import os
 import random
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -257,6 +278,16 @@ ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW = 4, 1500, 128, 32
 # SSM training: mamba2-370m at all 48 layers, 4 stacked data-parallel
 # ranks with the one-sided ring, batch 8 x 512, 3 steps
 SSM_TRAIN_STEPS = 3
+# checkpoint / preemption / resume: mamba2-370m at published widths cut to 8
+# of 48 layers, the [train-ssm] ring and batch; 6 steps saving every 2 (2
+# kept), preempted at step 4 and resumed.  The resumed losses are held to
+# the uninterrupted run's relatively: two runs on the card differ in the
+# last bits (the embedding's backward adds with atomics); on the CPU they
+# are equal bit for bit (tests/test_torch_ckpt.py)
+CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, CKPT_KEEP, CKPT_FAIL_AT = 8, 6, 2, 2, 4
+CKPT_LOSS_RTOL = 1e-3
+# the compressed all-reduce at mamba2-370m's gradient size (all 48 layers)
+SSM_PARAMS = 368_494_080
 #: a 48-layer bfloat16 Mamba2 prefill on K8 and the pass against the same
 #: prefill on their plain versions: max |d logit| over max |logit| (each
 #: layer's y rounds to bfloat16 in both, so entries may differ by one bf16
@@ -1512,6 +1543,7 @@ def main() -> int:
     from repro_torch.core.rma import (Window, WindowConfig, all_to_all_plan,
                                       put_signal)
     from repro_torch.launch.train import train
+    from repro_torch.models.transformer import layer_plan, stage_plan
 
     launches = {name: 0 for name in K.COUNTERS}
     #: launches by variant (K3: static / device / guarded; K2 the same;
@@ -1911,6 +1943,8 @@ def main() -> int:
                 warmup_steps=0, grad_sync="rma_ring", dp_ranks=n,
                 device="cuda", log_every=1)
     counts = path_counts("qwen3-4b step", ("ring_all_reduce", "put_wait"))
+    cfg_dense_remat = get_config("qwen3-4b").remat
+    check(cfg_dense_remat == "block", "qwen3-4b: remat is not the default")
     check(run.n_params == n_params, "parameter count")
     check(all(v == v and abs(v) < 1e6 for v in run.losses), "loss not finite")
     check(run.losses[-1] < run.losses[0], f"loss did not fall: {run.losses}")
@@ -1921,10 +1955,10 @@ def main() -> int:
     parts = {k: [round(p[k], 2) for p in run.part_ms]
              for k in run.part_ms[0]}
     print(f"[train] qwen3-4b d2560 x{N_LAYERS} layers, {n} ranks, batch "
-          f"{GLOBAL_BATCH}x{SEQ_LEN} bf16: losses "
+          f"{GLOBAL_BATCH}x{SEQ_LEN} bf16, remat={cfg_dense_remat}: losses "
           f"{[round(v, 4) for v in run.losses]}; step ms "
           f"{[round(v, 1) for v in run.step_ms]}; parts ms (CUDA events) "
-          f"{parts}; peak memory {peak_gib:.1f} GiB", flush=True)
+          f"{parts}; peak memory {peak_gib:.1f} GiB ({smi})", flush=True)
     del run
     torch.cuda.empty_cache()
 
@@ -2001,8 +2035,20 @@ def main() -> int:
     check(all(v == v and abs(v) < 1e6 for v in run.losses), "loss not finite")
     check(run.losses[-1] < run.losses[0], f"loss did not fall: {run.losses}")
     # per MoE layer and step: dispatch (K4) and combine (K6) forward, and
-    # each one's transpose in the backward, n-1 peers each
-    per_step = 2 * (EP_RANKS - 1)
+    # each one's transpose in the backward, n-1 peers each; under
+    # remat="block" a MoE layer inside a scanned period runs its forward
+    # exchanges once more in the recompute (at x2 the plan is prefix 0,
+    # period 2: the MoE layer is inside, so 3(n-1) = 9 each a step)
+    moe_plan = layer_plan(moe_cfg)
+    moe_prefix, _ = stage_plan(moe_plan)
+    n_moe = sum(sp.ffn == "moe" for sp in moe_plan)
+    n_moe_remat = (sum(sp.ffn == "moe" for sp in moe_plan[moe_prefix:])
+                   if moe_cfg.remat == "block" else 0)
+    per_step = (2 * n_moe + n_moe_remat) * (EP_RANKS - 1)
+    check(moe_cfg.remat == "block" and (n_moe, n_moe_remat, per_step)
+          == (1, 1, 3 * (EP_RANKS - 1)),
+          f"{MOE_ARCH} x{N_LAYERS}: remat {moe_cfg.remat}, {n_moe} MoE "
+          f"layers, {n_moe_remat} rematerialized, {per_step} K4/K6 a step")
     check(counts["put_signal"] == counts["accumulate_signal"]
           == per_step * MOE_STEPS,
           f"K4/K6 launches {counts['put_signal']}/"
@@ -2017,7 +2063,9 @@ def main() -> int:
           f"{[round(v, 4) for v in run.losses]}; step ms "
           f"{[round(v, 1) for v in run.step_ms]}; parts ms (CUDA events; "
           f"exchanges lie inside grads) {parts}; peak memory "
-          f"{peak_gib:.1f} GiB", flush=True)
+          f"{peak_gib:.1f} GiB; remat={moe_cfg.remat}: K4 and K6 {per_step} "
+          f"each a step (2 x {n_moe} MoE layer + {n_moe_remat} recomputed, "
+          f"x {EP_RANKS - 1} peers) ({smi})", flush=True)
 
     del run
     torch.cuda.empty_cache()
@@ -2874,7 +2922,7 @@ def main() -> int:
           "train-ssm: the trained model's prefill logits not finite")
     print(f"[train-ssm] {SSM_ARCH} d{cfg_ssm.d_model} x{cfg_ssm.n_layers} "
           f"layers, {n} ranks, batch {GLOBAL_BATCH}x{SEQ_LEN} bf16, "
-          f"{run.n_params} parameters: losses "
+          f"remat={cfg_ssm.remat}, {run.n_params} parameters: losses "
           f"{[round(v, 4) for v in run.losses]}; step ms "
           f"{[round(v, 1) for v in run.step_ms]}; ring ms (CUDA events) "
           f"{ring_ms}; parts ms {parts}; peak memory {train_peak:.1f} GiB; "
@@ -2883,6 +2931,227 @@ def main() -> int:
           f"no-grad prefill on K8 and the pass {cfg_ssm.n_layers} times each "
           f"({smi})", flush=True)
     del run, trained_logits, ssm_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one more step without remat: what rematerializing buys where the
+    # activations dominate
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run = train(SSM_ARCH, tiny=False, steps=1, global_batch=GLOBAL_BATCH,
+                seq_len=SEQ_LEN, peak_lr=1e-3, warmup_steps=0,
+                grad_sync="rma_ring", dp_ranks=n, remat="none",
+                device="cuda", log_every=1)
+    counts = path_counts("mamba2-370m step, remat none",
+                         ("ring_all_reduce", "put_wait"))
+    check(counts["ring_all_reduce"] == 1
+          and counts["ssd_intra_chunk"] == counts["ssd_pass"] == 0,
+          f"train-ssm remat none: launches {counts}")
+    check(all(v == v and abs(v) < 1e6 for v in run.losses),
+          f"train-ssm remat none: loss not finite: {run.losses}")
+    none_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[train-ssm] remat=none, one step: {run.step_ms[0]:.1f} ms, peak "
+          f"memory {none_peak:.1f} GiB, against remat=block's "
+          f"{train_peak:.1f} GiB ({smi})", flush=True)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- [train-ckpt] checkpoint, preemption and resume on the card ---------
+    # mamba2-370m at published widths, depth cut to CKPT_LAYERS of 48, 4
+    # stacked data-parallel ranks with the ring (K5 once a step): an
+    # uninterrupted run of CKPT_STEPS steps saving every CKPT_EVERY (the
+    # newest CKPT_KEEP kept), a run preempted at CKPT_FAIL_AT, and its
+    # resume from the latest checkpoint, in a temporary directory removed
+    # at the end
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.train.optimizer import init_opt_state
+
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpt_kw = dict(tiny=False, n_layers=CKPT_LAYERS, steps=CKPT_STEPS,
+                       global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN,
+                       peak_lr=1e-3, warmup_steps=0, grad_sync="rma_ring",
+                       dp_ranks=n, ckpt_every=CKPT_EVERY,
+                       ckpt_keep=CKPT_KEEP, device="cuda", log_every=1)
+        K.reset_launch_counts()
+        ref_run = train(SSM_ARCH, ckpt_dir=os.path.join(ckpt_root, "a"),
+                        **ckpt_kw)
+        counts = path_counts("mamba2-370m x8 checkpointed run",
+                             ("ring_all_reduce",))
+        check(counts["ring_all_reduce"] == CKPT_STEPS,
+              f"train-ckpt: K5 launched {counts['ring_all_reduce']} times "
+              f"in {CKPT_STEPS} steps")
+        mgr = CheckpointManager(os.path.join(ckpt_root, "a"), keep=CKPT_KEEP)
+        kept = sorted(int(d) for d in os.listdir(mgr.dir))
+        want_kept = list(range(CKPT_EVERY, CKPT_STEPS + 1,
+                               CKPT_EVERY))[-CKPT_KEEP:]
+        check(kept == want_kept, f"train-ckpt: kept {kept}, want "
+              f"{want_kept}")
+        K.reset_launch_counts()
+        try:
+            train(SSM_ARCH, ckpt_dir=os.path.join(ckpt_root, "b"),
+                  fail_at_step=CKPT_FAIL_AT, **ckpt_kw)
+            preempted = ""
+        except RuntimeError as err:
+            preempted = str(err)
+        check(preempted == f"simulated preemption at step {CKPT_FAIL_AT}",
+              f"train-ckpt: the preemption did not happen: {preempted!r}")
+        counts = path_counts("mamba2-370m x8 run preempted",
+                             ("ring_all_reduce",))
+        check(counts["ring_all_reduce"] == CKPT_FAIL_AT,
+              f"train-ckpt: K5 launched {counts['ring_all_reduce']} times "
+              f"before the preemption at {CKPT_FAIL_AT}")
+        K.reset_launch_counts()
+        res_run = train(SSM_ARCH, ckpt_dir=os.path.join(ckpt_root, "b"),
+                        resume=True, **ckpt_kw)
+        counts = path_counts("mamba2-370m x8 resumed run",
+                             ("ring_all_reduce",))
+        check(counts["ring_all_reduce"] == CKPT_STEPS - CKPT_FAIL_AT
+              and res_run.steps_run == CKPT_STEPS - CKPT_FAIL_AT,
+              f"train-ckpt: the resumed run launched K5 "
+              f"{counts['ring_all_reduce']} times in {res_run.steps_run} "
+              f"steps")
+        tail = ref_run.losses[CKPT_FAIL_AT:]
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(res_run.losses, tail))
+        check(all(v == v for v in res_run.losses)
+              and loss_rel <= CKPT_LOSS_RTOL,
+              f"train-ckpt: resumed losses {res_run.losses} vs the "
+              f"uninterrupted run's {tail}")
+        # the final checkpoint restored onto the card: bit for bit the
+        # parameters the run ended with
+        like = {"params": ref_run.params,
+                "opt": init_opt_state(ref_run.params)}
+        state = mgr.restore(CKPT_STEPS, like)
+        check(all(a.dtype == b.dtype and a.device == b.device
+                  and torch.equal(a, b) for a, b in
+                  zip(leaves(state["params"]), leaves(ref_run.params))),
+              "train-ckpt: restored parameters differ from the saved ones")
+        check(int(state["opt"]["step"]) == CKPT_STEPS,
+              f"train-ckpt: restored optimizer step {state['opt']['step']}")
+        del like
+        # one save of that state timed: the host copy (before save
+        # returns), then the thread's write and commit
+        timer = CheckpointManager(os.path.join(ckpt_root, "c"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timer.save(CKPT_STEPS, state)
+        returned_ms = (time.perf_counter() - t0) * 1e3
+        timer.wait()
+        st = timer.stats
+        print(f"[train-ckpt] {SSM_ARCH} x{CKPT_LAYERS} of 48 layers, {n} "
+              f"ranks, batch {GLOBAL_BATCH}x{SEQ_LEN}: {CKPT_STEPS} steps "
+              f"saving every {CKPT_EVERY} (kept {kept}), losses "
+              f"{[round(v, 6) for v in ref_run.losses]}; preempted at step "
+              f"{CKPT_FAIL_AT} and resumed: losses "
+              f"{[round(v, 6) for v in res_run.losses]}, max relative "
+              f"difference {loss_rel:.3g} (bound {CKPT_LOSS_RTOL}); K5 once "
+              f"a step in all three runs; the restored parameters equal the "
+              f"saved bit for bit; step ms "
+              f"{[round(v, 1) for v in ref_run.step_ms]}; a checkpoint "
+              f"(parameters + AdamW state) "
+              f"{st['bytes']} bytes, save: host copy {st['copy_ms']:.1f} ms "
+              f"(save returned after {returned_ms:.1f} ms), the thread's "
+              f"write {st['write_ms']:.1f} ms ({smi})", flush=True)
+        del state, ref_run, res_run, timer, mgr
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    check(not os.path.exists(ckpt_root), "train-ckpt: directory left")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- [compress] error-feedback compressed all-reduce on the card --------
+    # mamba2-370m's gradient size, (4, P) float32 rows from the seed (row r
+    # rank r's gradient, its residual beside it), for int8 and top-k at
+    # 1 %: one K5 launch a call, the result bit for bit the restored rows
+    # summed by K5's plain version, the residual exact, the int8 payload of
+    # a slice bit for bit the CPU's, the wire ratios
+    from repro_torch.core.rma import plan_all_reduce
+    from repro_torch.train import compress as comp
+
+    p_ssm = sum(p.numel() for p in leaves(
+        build_model(cfg_ssm).init(0, device="meta")))
+    check(p_ssm == SSM_PARAMS, f"compress: mamba2-370m has {p_ssm} "
+          f"parameters, want {SSM_PARAMS}")
+    g_rows = torch.randn((n, p_ssm), generator=gen, device=dev)
+    e_rows = torch.randn((n, p_ssm), generator=gen, device=dev) * 0.01
+    sl = slice(0, 1 << 20)
+    # the wire bytes over float32's: int8 values and one float32 scale;
+    # top-k's k float32 values and k int32 indices
+    k_top = max(1, int(p_ssm * 0.01))
+    for scheme, frac, ratio_want in (
+            ("int8", 0.01, (p_ssm + 4) / (4 * p_ssm)),
+            ("topk", 0.01, 8 * k_top / (4 * p_ssm))):
+        ccfg = comp.CompressionConfig(scheme=scheme, topk_frac=frac)
+        K.reset_launch_counts()
+        red, new_err = comp.compressed_all_reduce(g_rows, e_rows, ccfg,
+                                                  "data", n)
+        torch.cuda.synchronize()
+        counts = path_counts(f"compressed all-reduce, {scheme}",
+                             ("ring_all_reduce",))
+        check(counts["ring_all_reduce"] == 1,
+              f"compress {scheme}: K5 launched {counts['ring_all_reduce']} "
+              f"times in one call")
+        # the same compression again, row by row and timed: residuals bit
+        # for bit, restored + residual = g + err to float32 rounding
+        restored = torch.empty_like(g_rows)
+        a_ev = torch.cuda.Event(enable_timing=True)
+        b_ev = torch.cuda.Event(enable_timing=True)
+        comp_ms = 0.0
+        for r in range(n):
+            a_ev.record()
+            payload, e, rest = comp.compress_with_feedback(
+                g_rows[r], e_rows[r], ccfg)
+            b_ev.record()
+            torch.cuda.synchronize()
+            comp_ms += a_ev.elapsed_time(b_ev)
+            restored[r] = rest
+            if r == 0:
+                ratio = comp.compression_ratio(g_rows[0], payload)
+            check(torch.equal(e, new_err[r]),
+                  f"compress {scheme}: row {r}'s residual differs between "
+                  f"two calls")
+            g32 = g_rows[r] + e_rows[r]
+            slack = (rest + e - g32).abs() - 2.0 ** -23 * (
+                g32.abs() + e.abs())
+            check(float(slack.max()) <= 0,
+                  f"compress {scheme}: restored + residual != g + err")
+            del payload, e, rest, g32, slack
+        check(ratio == ratio_want,
+              f"compress {scheme}: ratio {ratio}, want {ratio_want}")
+        plain = k5.ring_all_reduce_plain(restored) / n
+        check(torch.equal(plain, red),
+              f"compress {scheme}: the result differs from the restored "
+              f"rows summed by K5's plain version")
+        del plain, red, new_err
+        # the ring alone, timed (not a main-path launch)
+        a_ev.record()
+        plan_all_reduce(restored, "data", n, order=True, donate=True)
+        b_ev.record()
+        torch.cuda.synchronize()
+        ring_ms = a_ev.elapsed_time(b_ev)
+        del restored
+        if scheme == "int8":
+            piece = g_rows[0, sl] + e_rows[0, sl]
+            q, scale = comp.int8_compress(piece)
+            q_cpu, scale_cpu = comp.int8_compress(piece.cpu())
+            check(torch.equal(q.cpu(), q_cpu)
+                  and torch.equal(scale.cpu(), scale_cpu),
+                  "compress int8: the card's payload of a slice differs "
+                  "from the CPU's")
+            del piece, q, scale
+        print(f"[compress] {scheme}{f' {frac:g}' if scheme == 'topk' else ''}"
+              f" on ({n}, {p_ssm}) float32 ({SSM_ARCH}'s gradient size): K5 "
+              f"once a call; the result bit for bit the restored rows "
+              f"summed by K5's plain version; residuals equal across calls, "
+              f"restored + residual = g + err to float32 rounding; wire "
+              f"ratio {ratio:.9f}; compress {comp_ms:.2f} ms for {n} rows, "
+              f"the ring {ring_ms:.2f} ms (CUDA events; {smi})", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[compress] the int8 payload (q, scale) of a {sl.stop}-float "
+          f"slice on the card equals the CPU's bit for bit", flush=True)
+    del g_rows, e_rows
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3037,7 +3306,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- the last three families: MLA, the VLM prefix, enc-dec -------------
-    from repro_torch.tree import leaves_with_paths
+    from repro_torch.tree import leaves_with_paths, tree_map
 
     def serve_prompts(vocab: int) -> list:
         """The [serve] request set over ``vocab``: three prompts sharing a
@@ -3179,7 +3448,44 @@ def main() -> int:
           f"{cfg_serve.head_dim} x 2)", flush=True)
     del eng
     gc.collect()
-    # one prefill's last logits against the forward's over the same prompt
+    # fault 5's trace: the MoE combine's bf16 index_add adds with atomics
+    # on the card, in whatever order they land.  At this layer's shape (a
+    # prompt's tokens, top-6 of 160 experts, d 5120): that operator twice
+    # on the same inputs, the fixed-order combine (models/moe.py::
+    # combine_sorted) twice, and one MoE layer's "gspmd" forward twice
+    stack = mla_params["stack"]
+    moe_blk = ([blk["moe"] for blk in stack["prefix"] if "moe" in blk]
+               + [tree_map(lambda t: t[0], stack["scan"][j]["moe"])
+                  for j in sorted(stack["scan"])
+                  if "moe" in stack["scan"][j]])[0]
+    T_, k_, d_ = SERVE_PROMPT, mo.top_k, cfg_mla.d_model
+    eidx = torch.topk(torch.rand((T_, mo.num_experts), generator=gen,
+                                 device=dev), k_, dim=-1).indices
+    order = torch.argsort(eidx.reshape(-1), stable=True)
+    vals = torch.randn((T_ * k_, d_), generator=gen, device=dev).to(
+        torch.bfloat16)
+    old = [torch.zeros((T_, d_), dtype=torch.bfloat16, device=dev)
+           .index_add(0, order // k_, vals) for _ in range(2)]
+    new = [moe_lib.combine_sorted(vals, order, k_) for _ in range(2)]
+    h = torch.randn((1, T_, d_), generator=gen, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        outs = [moe_lib.moe_apply(moe_blk, h, cfg_mla, ep_mode="gspmd")[0]
+                for _ in range(2)]
+    old_same = torch.equal(old[0], old[1])
+    old_diff = (old[0].float() - old[1].float()).abs().max().item()
+    check(torch.equal(new[0], new[1]),
+          "serve-mla: the fixed-order combine differs between two calls")
+    check(torch.equal(outs[0], outs[1]),
+          "serve-mla: one MoE layer's gspmd forward differs between two "
+          "calls on the same inputs")
+    print(f"[serve-mla] fault 5: the bf16 index_add combine ({T_} tokens x "
+          f"top-{k_}, d {d_}) twice on the same inputs: equal "
+          f"{old_same} (max |d| {old_diff:.4g}); the fixed-order combine "
+          f"twice: equal True; one MoE layer's gspmd forward twice: equal "
+          f"True ({smi})", flush=True)
+    del eidx, order, vals, old, new, h, outs, moe_blk
+    # one prefill's last logits against the forward's over the same prompt,
+    # each made twice
     tok = torch.as_tensor(mla_prompts[0], dtype=torch.int64, device=dev)[None]
     with torch.no_grad():
         pre_logits, cache = mla_model.prefill(
@@ -3187,6 +3493,12 @@ def main() -> int:
         step_logits, _ = mla_model.decode_step(
             mla_params, cache, pre_logits[:, -1].argmax(-1, keepdim=True))
         fwd_logits, _ = mla_model.forward(mla_params, {"tokens": tok})
+        pre_again, _ = mla_model.prefill(
+            mla_params, {"tokens": tok}, mla_model.init_cache(1, SERVE_MAX_SEQ))
+        fwd_again, _ = mla_model.forward(mla_params, {"tokens": tok})
+    pre_same = torch.equal(pre_logits, pre_again)
+    fwd_same = torch.equal(fwd_logits, fwd_again)
+    del pre_again, fwd_again
     lanes = slice(0, cfg_mla.vocab)
     diff = (pre_logits[:, -1, lanes] - fwd_logits[:, -1, lanes]
             ).abs().max().item()
@@ -3199,8 +3511,9 @@ def main() -> int:
           f"|logit| {scale}")
     print(f"[serve-mla] one prefill's last logits vs the forward's over the "
           f"same prompt: max |d| {diff:.4g} of max |logit| {scale:.4g} "
-          f"(bound {PREFILL_LOGIT_RTOL} x); the next decode step's logits "
-          f"finite", flush=True)
+          f"({100 * diff / scale:.3g} %; bound {PREFILL_LOGIT_RTOL} x); two "
+          f"prefills equal bit for bit {pre_same}, two forwards {fwd_same}; "
+          f"the next decode step's logits finite ({smi})", flush=True)
     del mla_params, pre_logits, step_logits, fwd_logits, cache, mla_model
     gc.collect()
     torch.cuda.empty_cache()

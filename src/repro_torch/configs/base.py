@@ -96,6 +96,9 @@ class ModelConfig:
     ssm: SSMConfig | None = None
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    #: "block" rematerializes each scanned period in the backward (the
+    #: reference's default); "none" keeps every activation
+    remat: str = "block"       # none | block
     #: sub-quadratic decode memory (SSM/hybrid) — eligible for long_500k
     subquadratic: bool = False
 

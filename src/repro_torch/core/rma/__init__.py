@@ -19,7 +19,7 @@ rows of stacked ``(n, ...)`` tensors):
 * :func:`all_reduce_plan` / :func:`plan_all_reduce` — the planned ring;
 * :func:`put_signal` / :func:`put_signal_pipelined` — payload then doorbell;
 * :func:`all_to_all_plan` / :func:`plan_all_to_all` — the planned MoE
-  all-to-all.
+  all-to-all (:func:`rma_all_to_all`: its deprecated imperative form).
 """
 from repro_torch.core.rma.substrate import (SCOPE_PROCESS, SCOPE_THREAD,
                                             CompletionToken, FlushQueues,
@@ -48,7 +48,7 @@ from repro_torch.core.rma.collectives import (all_reduce_plan,
                                               plan_all_reduce, put_signal,
                                               put_signal_pipelined)
 from repro_torch.core.rma.alltoall import (AllToAllResult, all_to_all_plan,
-                                           plan_all_to_all)
+                                           plan_all_to_all, rma_all_to_all)
 
 __all__ = [
     "Substrate", "CompletionToken", "FlushQueues", "PhaseLedger", "Window",
@@ -63,5 +63,5 @@ __all__ = [
     "RmaPlan", "CompiledPlan", "PlanEnv", "PlanResult", "PlanError", "OpRef",
     "all_reduce_plan", "plan_all_reduce", "put_signal",
     "put_signal_pipelined", "all_to_all_plan", "plan_all_to_all",
-    "AllToAllResult",
+    "rma_all_to_all", "AllToAllResult",
 ]

@@ -516,5 +516,27 @@ def plan_all_to_all(x: torch.Tensor, axis: str, axis_size: int, *,
     return AllToAllResult(*_AllToAll.apply(x, counts, spec, win))
 
 
-__all__ = ["plan_all_to_all", "all_to_all_plan", "lower_all_to_all",
-           "hier_applies", "AllToAllResult", "timed_exchanges"]
+def rma_all_to_all(x: torch.Tensor, axis: str, axis_size: int, *,
+                   counts: torch.Tensor | None = None, chunks: int = 1,
+                   order: bool = True, declare: bool = True,
+                   op: str | None = None, win: Window | None = None
+                   ) -> AllToAllResult:
+    """One-sided all-to-all of the stacked ``x`` — the reference's
+    imperative entry point, kept as a thin wrapper over
+    :func:`plan_all_to_all` (same arguments, same numerics and phases).
+
+    .. deprecated:: emits a ``DeprecationWarning`` once per process; build
+       the pattern with ``all_to_all_plan`` (or call ``plan_all_to_all``).
+    """
+    from repro_torch.core.rma.plan import warn_legacy_once
+
+    warn_legacy_once("repro_torch.core.rma.rma_all_to_all",
+                     "alltoall.all_to_all_plan(...).execute (or "
+                     "plan_all_to_all)")
+    return plan_all_to_all(x, axis, axis_size, counts=counts, chunks=chunks,
+                           order=order, declare=declare, op=op, win=win)
+
+
+__all__ = ["rma_all_to_all", "plan_all_to_all", "all_to_all_plan",
+           "lower_all_to_all", "hier_applies", "AllToAllResult",
+           "timed_exchanges"]

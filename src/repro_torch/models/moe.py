@@ -3,7 +3,8 @@
 ``ep_mode="gspmd"`` is the JAX package's single-program dispatch: route,
 sort the T·k assignments by expert, scatter into a dense ``(E, C, d)``
 buffer (capacity C, drops beyond), batched expert matmuls, gather back and
-combine with the gates.
+combine with the gates (:func:`combine_sorted`: each token's terms in a
+fixed order, so the card's result does not depend on atomics' timing).
 
 ``ep_mode="rma"`` is the expert-parallel path over ``ep_ranks`` stacked
 ranks (the mesh axis of the JAX package, explicit here as ``dp_ranks`` is
@@ -68,6 +69,26 @@ def _experts(buf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor, dt
     return torch.matmul(h, wo.to(dt))
 
 
+def combine_sorted(vals: torch.Tensor, order: torch.Tensor, k: int
+                   ) -> torch.Tensor:
+    """Sum each token's ``k`` assignment results: ``vals`` (..., T·k, d)
+    holds them in the dispatch's sorted order (``order`` (..., T·k), the
+    stable argsort that sorted the flat assignments; leading dims are
+    ranks).  A token's terms are added in float32 one at a time in that
+    order and the sum is rounded to ``vals.dtype`` once — what
+    ``index_add`` computes on the CPU, but in a fixed order on the card
+    too, where ``index_add`` adds with atomics in whatever order they
+    land."""
+    pos = torch.argsort(order, dim=-1)
+    pos = pos.view(pos.shape[:-1] + (-1, k)).sort(dim=-1).values.flatten(-2)
+    parts = torch.take_along_dim(vals, pos[..., None], dim=-2)
+    parts = parts.view(pos.shape[:-1] + (-1, k, vals.shape[-1]))
+    out = parts[..., 0, :].float()       # (..., T, k, d): each token's terms
+    for j in range(1, k):
+        out = out + parts[..., j, :]
+    return out.to(vals.dtype)
+
+
 def moe_apply(params: dict, x: torch.Tensor, cfg, *, return_aux: bool = False,
               ep_mode: str | None = None, ep_ranks: int = 1):
     """Apply the MoE layer to ``x`` (B, S, d).  Returns ``(out, aux)``.
@@ -115,8 +136,7 @@ def moe_apply(params: dict, x: torch.Tensor, cfg, *, return_aux: bool = False,
     safe_dest = torch.where(keep, dest, 0)
     y_sorted = y_flat[safe_dest] * keep[:, None].to(dt)
     gates_sorted = gates.reshape(-1)[order].to(dt)
-    out = xt.new_zeros((T, d)).index_add(0, tok_of,
-                                         y_sorted * gates_sorted[:, None])
+    out = combine_sorted(y_sorted * gates_sorted[:, None], order, k)
     if mo.n_shared:
         out = out + layers.swiglu(xt, params["shared"])
     return out.reshape(B, S, d), aux
@@ -264,9 +284,7 @@ def _moe_ep_shard(params: dict, xt: torch.Tensor, cfg, *, n: int,
     y_assign = (_rows(y_ret, torch.where(keep_s, slot, 0)).float()
                 * keep_s[..., None])
     gates_sorted = torch.gather(gates.reshape(n, L), 1, send_order)
-    vals = y_assign * gates_sorted[..., None]
-    out = torch.zeros((n, Tl, d), dtype=torch.float32, device=dev).index_put(
-        (ranks[:, None].expand_as(tok_of), tok_of), vals, accumulate=True)
+    out = combine_sorted(y_assign * gates_sorted[..., None], send_order, k)
     return out.to(xt.dtype), aux
 
 

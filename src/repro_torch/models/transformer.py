@@ -8,9 +8,13 @@ an FFN: dense, MoE, or none (pure Mamba2 blocks carry their own
 projections).  A hybrid stack (``jamba``) puts attention where
 ``i % hybrid_period == hybrid_attn_offset`` and Mamba2 elsewhere, with the
 MoE interleave on top: an 8-layer period of 7 Mamba2 layers and one
-attention layer.  The reference scans the periods (rematerializing each
-under ``remat="block"``); here a Python loop walks them and keeps
-activations.  MoE layers (``first_dense``,
+attention layer.  The reference scans the periods; here a Python loop
+walks them.  Under ``remat="block"`` (the default, as in the reference) a
+training forward wraps each scanned period — never a prefix layer — in a
+non-reentrant ``torch.utils.checkpoint``, so the backward recomputes the
+period from its input and saved nothing inside it; its side effects (an
+MoE period's exchanges) run again in the recompute, as under the
+reference's ``jax.checkpoint``.  MoE layers (``first_dense``,
 ``interleave_step``/``interleave_offset``) add their load-balancing loss to
 the stack's aux sum; in a config with ``first_dense`` every dense FFN takes
 ``d_ff_first_dense``, as in the reference.
@@ -27,11 +31,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map, unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,22 +278,50 @@ def apply_stack(params: dict, x: torch.Tensor, cfg, *,
     prefix, period = stage_plan(plan)
     count = (len(plan) - prefix) // period
     aux_total = x.new_zeros((), dtype=torch.float32)
-    blocks = [(params["prefix"][i], plan[i],
-               cache["prefix"][i] if cache is not None else None)
-              for i in range(prefix)]
+
+    def run(p, spec, x, aux, sub):
+        x, a = apply_block(p, spec, x, cfg, positions=positions,
+                           causal=causal, ep_ranks=ep_ranks, cache=sub,
+                           prefill=prefill, enc_out=enc_out,
+                           cross_cached=cross_cached)
+        return x, aux + a
+
+    for i in range(prefix):
+        x, aux_total = run(params["prefix"][i], plan[i], x, aux_total,
+                           cache["prefix"][i] if cache is not None else None)
+    specs = plan[prefix:prefix + period]
+
+    def apply_period(x, aux, block, bcache):
+        for j, spec in enumerate(specs):
+            x, aux = run(block[f"l{j}"], spec, x, aux,
+                         bcache[f"l{j}"] if bcache is not None else None)
+        return x, aux
+
+    def remat_period(x, aux, *ps):
+        return apply_period(x, aux, unflatten(params["scan"], list(ps)), None)
+
+    # rematerialize only a forward that autograd records (never a serving
+    # call: those carry a cache or run without grad)
+    remat = (count > 0 and cfg.remat == "block" and cache is None
+             and torch.is_grad_enabled()
+             and (x.requires_grad or any(
+                 p.requires_grad for p in leaves(params["scan"]))))
     for c in range(count):
+        # the period's parameter slices are taken outside the checkpoint
+        # and handed in as its arguments
         block = tree_map(lambda p: p[c], params["scan"])
-        bcache = (tree_map(lambda t: t[c], cache["scan"])
-                  if cache is not None else None)
-        blocks += [(block[f"l{j}"], plan[prefix + j],
-                    bcache[f"l{j}"] if bcache is not None else None)
-                   for j in range(period)]
-    for p, spec, sub in blocks:
-        x, aux = apply_block(p, spec, x, cfg, positions=positions,
-                             causal=causal, ep_ranks=ep_ranks, cache=sub,
-                             prefill=prefill, enc_out=enc_out,
-                             cross_cached=cross_cached)
-        aux_total = aux_total + aux
+        if remat:
+            # non-reentrant: the step differentiates with autograd.grad,
+            # and the first forward runs with grad (a Mamba2 block then
+            # takes ssd_chunked in both passes); nothing in a period draws
+            # random numbers, so no RNG state is kept
+            x, aux_total = checkpoint(
+                remat_period, x, aux_total, *leaves(block),
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            bcache = (tree_map(lambda t: t[c], cache["scan"])
+                      if cache is not None else None)
+            x, aux_total = apply_period(x, aux_total, block, bcache)
     if cache is not None:
         cache["step"] += x.shape[1]
     return x, aux_total

@@ -31,8 +31,9 @@ from repro_torch.tree import leaves, unflatten
 
 def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
                     grad_sync: str = "gspmd", data_axis: str | None = None,
-                    data_axis_size: int = 1, topology=None,
-                    backend: str = "rma", moe_ep: str | None = None,
+                    data_axis_size: int = 1, compressor=None,
+                    topology=None, backend: str = "rma",
+                    moe_ep: str | None = None,
                     ep_ranks: int | None = None):
     """Build ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``batch`` is the global batch.  Parameters and optimizer
@@ -46,10 +47,28 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
     hierarchical.  ``backend``: only ``"rma"`` is ported.  ``moe_ep``:
     override the MoE dispatch mode (``"gspmd"`` | ``"rma"``) of the step's
     model; requires an MoE config.  ``ep_ranks``: its expert-parallel
-    ranks (default: the model's)."""
+    ranks (default: the model's).
+
+    ``compressor``: accepted and ignored where the reference ignores it
+    (no ring: ``"gspmd"`` or one rank).  With the ring over n > 1 ranks it
+    raises: the reference's step then skips the gradient sync altogether
+    ("handled at caller level", and no caller does), so each rank would
+    apply its own unsynced gradients, which one stacked parameter tree
+    cannot hold.  ``train.compress.compressed_all_reduce`` is the ported
+    compressed sync."""
     if grad_sync not in ("gspmd", "rma_ring"):
         raise ValueError(f"grad_sync={grad_sync!r}; expected 'gspmd' or "
                          "'rma_ring'")
+    if compressor is not None and grad_sync == "rma_ring" and \
+            data_axis_size > 1:
+        raise NotImplementedError(
+            "compressor= with grad_sync='rma_ring' over "
+            f"{data_axis_size} ranks: the JAX package's step then skips the "
+            "gradient sync (left to a caller that does not exist), so every "
+            "rank would apply its own unsynced gradients, which the stacked "
+            "layout's one parameter tree cannot hold; use "
+            "repro_torch.train.compress.compressed_all_reduce on stacked "
+            "gradients instead")
     if backend != "rma":
         raise NotImplementedError(
             f"backend={backend!r} is not ported to repro_torch yet (ROADMAP "

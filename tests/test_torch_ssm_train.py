@@ -26,6 +26,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.launch.train import train
 from repro_torch.models import build_model, ssm
+from repro_torch.models.transformer import stage_plan
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
 from repro_torch.train.trainstep import make_train_step
 from repro_torch.tree import leaves
@@ -107,8 +108,10 @@ def test_train_step_matches_reference(ref):
 def test_grad_calls_reach_ssd_chunked_and_no_grad_calls_the_scan(
         ref, monkeypatch):
     """A train step's Mamba2 blocks call ``ssd_chunked`` (one call a
-    layer, never the kernels' scan); a prefill without grad calls
-    ``ops.ssd_scan`` (one a layer, never ``ssd_chunked``)."""
+    layer, and under ``remat="block"`` one more in the recompute of each
+    layer inside a scanned period; never the kernels' scan); a prefill
+    without grad calls ``ops.ssd_scan`` (one a layer, never
+    ``ssd_chunked``)."""
     model, params, batch = _port(ref)
     calls = []
     for mod, name in ((ssm, "ssd_chunked"), (ops, "ssd_scan")):
@@ -119,9 +122,12 @@ def test_grad_calls_reach_ssd_chunked_and_no_grad_calls_the_scan(
             return _fn(*a, **kw)
         monkeypatch.setattr(mod, name, rec)
     n_mamba = sum(s.mixer == "mamba" for s in model.plan)
+    prefix, _ = stage_plan(model.plan)
+    recomputed = (sum(s.mixer == "mamba" for s in model.plan[prefix:])
+                  if model.cfg.remat == "block" else 0)
     step = make_train_step(model, OptimizerConfig(**OPT))
     params, _, _ = step(params, init_opt_state(params), batch)
-    assert calls == ["ssd_chunked"] * n_mamba
+    assert calls == ["ssd_chunked"] * (n_mamba + recomputed)
     calls.clear()
     with torch.no_grad():
         model.prefill(params, {"tokens": batch["tokens"]},
