@@ -164,7 +164,24 @@
    engine's refusal of the family.  K7's two whisper calls (encoder 1500 x
    1500 with a ragged last key tile, cross 128 x 1500) are held to the plain
    version in float32 and bfloat16 in part 1, the cross call timed beside
-   SDPA as its own row.
+   SDPA as its own row.  The plan backends (``[backends]``, inside the
+   ``[train]`` phases): the ring macro at the ``qwen3-4b`` gradient's
+   shape (4, 980,431,872) float32 and the all-to-all macro at the
+   ``[a2a]`` blocks (dispatch and combine) on ``rma``, ``gspmd`` and the
+   walker (``interpret``; its ring at (4, 2^24)), bit for bit on
+   integer-valued payloads, then timed by CUDA events; the rows written
+   in the format ``core/rma/backends/costmodel.py`` reads, to a
+   temporary file that ``RMA_TORCH_BACKEND_BENCH_JSON`` points at, and
+   ``compile(backend="auto")`` held to pick each measured minimum and
+   record why; the ``[train]`` ``qwen3-4b`` run again under
+   ``backend="gspmd"`` (0 K5, 0 ring phases, losses within 1e-3 of the
+   ring's) and under ``"auto"``; the ``[train]`` ``llama4-maverick`` run
+   under ``ep_backend="gspmd"`` (0 K4, K6, K3 and waits) and ``"auto"``,
+   losses equal the ``rma`` steps' bit for bit;
+   the imperative ``ring_reduce_scatter`` (``order`` x ``bidirectional``)
+   then ``ring_all_gather`` on a lent window at the gradient's shape —
+   equal to K5's sum bit for bit, ledgers equal to the cost model, K3
+   launches and waits counted — and ``rma_all_reduce`` warning once.
 3. Prints the kernels' record as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -182,6 +199,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -294,6 +312,16 @@ SSM_PARAMS = 368_494_080
 #: step, ~2^-8 relative, and the differences pass 48 layers — K7's bound
 #: and reasoning)
 SSM_LOGIT_RTOL = 5e-2
+# the plan backends ([backends]): each backend's run takes as many steps
+# as the [train] run it is held to (the learning-rate schedule spans the
+# run), from the same seeds; the qwen3-4b gradient sum under "gspmd" adds
+# the 4 rows in another order than K5's ring, so its later losses are held
+# to the ring's relatively (float32 sums of 4 terms reassociate by a few
+# ulps; AdamW carries that into the next loss)
+BACKEND_LOSS_RTOL = 1e-3
+# the walker's ring, informational: (4, 2^24) float32 (its gathered and
+# placed copies of the whole gradient would not fit beside it)
+INTERPRET_ELEMS = 1 << 24
 
 
 def bound_ms(nbytes: float, ops: float = 0.0,
@@ -1959,8 +1987,198 @@ def main() -> int:
           f"{[round(v, 4) for v in run.losses]}; step ms "
           f"{[round(v, 1) for v in run.step_ms]}; parts ms (CUDA events) "
           f"{parts}; peak memory {peak_gib:.1f} GiB ({smi})", flush=True)
+    ring_run = dict(losses=run.losses, step_ms=run.step_ms, peak=peak_gib)
     del run
     torch.cuda.empty_cache()
+
+    # ---- [backends] the plan backends at the [train] shapes ----------------
+    from repro_torch.core.rma import RmaPlan, plan_all_to_all
+    from repro_torch.core.rma import plan as plan_mod
+    from repro_torch.core.rma.backends import costmodel
+    from repro_torch.core.rma.collectives import (all_reduce_plan,
+                                                  plan_all_reduce,
+                                                  ring_all_gather,
+                                                  ring_reduce_scatter,
+                                                  rma_all_reduce)
+
+    table_dir = tempfile.mkdtemp(prefix="chip_smoke_backends_")
+    matrix_rows: list[dict] = []
+    matrix_us: dict[str, dict[str, float]] = {}
+
+    def matrix_row(pattern, backend, ms, shape, dtype, **extra):
+        matrix_rows.append({"name": f"backend_matrix/{pattern}/{backend}",
+                            "us_per_call": ms * 1e3, "shape": list(shape),
+                            "dtype": dtype, **extra})
+        matrix_us.setdefault(pattern, {})[backend] = ms * 1e3
+
+    def write_table(name):
+        """The measured rows in the format ``costmodel`` reads, in a
+        temporary directory; the variable that points ``auto`` at it is set
+        to the new file.  Returns ``{pattern: (target, reason)}``."""
+        path = os.path.join(table_dir, name)
+        doc = {"section": "backends", "card": smi, "rows": matrix_rows}
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        picks = {pat: costmodel.choose(pat, path) for pat in matrix_us}
+        doc["auto_pick"] = {pat: {"target": t, "reason": r}
+                            for pat, (t, r) in picks.items()}
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=1)
+        os.environ["RMA_TORCH_BACKEND_BENCH_JSON"] = path
+        for pat, (target, reason) in picks.items():
+            lat = {b: matrix_us[pat][b] for b in costmodel.AUTO_CANDIDATES}
+            check(lat[target] == min(lat.values()) and
+                  reason.startswith("measured"),
+                  f"[backends] auto picks {target} for {pat} from {lat}")
+        return picks
+
+    # the ring macro at the gradient's shape, integer-valued: every backend
+    # bit for bit first, then timed as the train step replays it (in place)
+    gwidth = -(-n_params // (4 * n)) * (4 * n)
+    xg = torch.empty((n, gwidth), device=dev).random_(-8, 8, generator=gen)
+    K.reset_launch_counts()
+    k5_sum = plan_all_reduce(xg.clone(), "x", n, backend="rma",
+                             donate=True)[0].clone()
+    check(K.launch_counts()["ring_all_reduce"] == 1, "[backends] rma: K5")
+    g_sum = plan_all_reduce(xg, "x", n, backend="gspmd")
+    check(K.launch_counts()["ring_all_reduce"] == 1,
+          "[backends] gspmd launched K5")
+    check(g_sum.stride(0) == 0 and torch.equal(g_sum[0], k5_sum),
+          "[backends] ring: gspmd differs from rma (or is not one row)")
+    del g_sum
+    xs = xg[:, :INTERPRET_ELEMS].contiguous()
+    i_sum = plan_all_reduce(xs, "x", n, backend="interpret")
+    check(torch.equal(i_sum, plan_all_reduce(xs.clone(), "x", n,
+                                             backend="rma", donate=True)),
+          "[backends] ring: the walker differs from rma")
+    del i_sum
+    xt = xg.clone()
+    for backend in ("rma", "gspmd"):
+        ms = time_ms(torch, lambda b=backend: plan_all_reduce(
+            xt, "x", n, backend=b, donate=True), reps=5, warmup=2)
+        matrix_row("ring", backend, ms, (n, gwidth), "float32")
+    del xt
+    matrix_row("ring", "interpret", time_ms(torch, lambda: plan_all_reduce(
+        xs, "x", n, backend="interpret"), reps=2, warmup=1),
+        (n, INTERPRET_ELEMS), "float32")
+    path_counts("backend matrix, ring", ("ring_all_reduce",))
+    picks = write_table("ring.json")
+    ring_pick = picks["ring"][0]
+    check(all_reduce_plan("x", n, (gwidth,), torch.float32,
+                          backend="auto").backend == ring_pick,
+          "[backends] all_reduce_plan(auto) ignores the table")
+    print(f"[backends] ring macro ({n}, {gwidth}) float32, integer-valued: "
+          f"rma = gspmd = the walker's ({n}, {INTERPRET_ELEMS}) bit for bit; "
+          f"us per call (CUDA events) "
+          f"{ {b: round(v, 1) for b, v in matrix_us['ring'].items()} }; "
+          f"auto picks {ring_pick}: {picks['ring'][1]} ({smi})", flush=True)
+
+    # the imperative rings at the gradient's shape, on a lent window: every
+    # composition equals K5's sum bit for bit, each ledger the cost model
+    lent = Window.allocate(torch.zeros((n, 1), device=dev), "x", n,
+                           WindowConfig(scope="thread", max_streams=2))
+    rings = []
+    for order in (True, False):
+        for bidi in (False, True):
+            dirs = 2 if bidi else 1
+            K.reset_launch_counts()
+            before = lent.ledger.total
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t2 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            mine = ring_reduce_scatter(xg, "x", n, order=order,
+                                       bidirectional=bidi, win=lent)
+            t1.record()
+            if bidi:    # the low half rode shift +1, the high half -1
+                c = mine.shape[1] // 2
+                full = torch.cat([
+                    ring_all_gather(mine[:, :c], "x", n, order=order,
+                                    owner_shift=1, win=lent),
+                    ring_all_gather(mine[:, c:], "x", n, order=order,
+                                    owner_shift=n - 1, win=lent)], dim=1)
+            else:
+                full = ring_all_gather(mine, "x", n, order=order,
+                                       owner_shift=1, win=lent)
+            t2.record()
+            torch.cuda.synchronize()
+            del mine
+            check(torch.equal(full, k5_sum.expand(n, -1)),
+                  f"[backends] rings order={order} bidi={bidi} != K5's sum")
+            del full
+            counts = path_counts(f"imperative rings order={order} "
+                                 f"bidirectional={bidi}",
+                                 ("ring_put", "put_wait"))
+            flushes = 0 if order else (n - 2)
+            rs_ph = dirs * ((n - 1) + 2 * flushes + 2)
+            ag_ph = dirs * ((n - 1) + 2 * flushes + 2)
+            got_ph = lent.ledger.total - before
+            check(got_ph == rs_ph + ag_ph,
+                  f"[backends] rings order={order} bidi={bidi}: ledger "
+                  f"{got_ph}, cost model {rs_ph} + {ag_ph}")
+            check(counts["ring_put"] == 2 * dirs * (n - 1) and
+                  counts["put_wait"] == 2 * dirs * (flushes + 1),
+                  f"[backends] rings order={order} bidi={bidi}: {counts}")
+            rings.append((order, bidi, t0.elapsed_time(t1),
+                          t1.elapsed_time(t2), counts["ring_put"],
+                          counts["put_wait"], got_ph))
+    plan_mod._LEGACY_WARNED.discard("repro_torch.core.rma.rma_all_reduce")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for _ in range(2):
+            red = rma_all_reduce(xg, "x", n)
+            check(torch.equal(red, k5_sum.expand(n, -1)),
+                  "[backends] rma_all_reduce != plan_all_reduce's sum")
+            del red
+    deprecations = [w for w in caught
+                    if issubclass(w.category, DeprecationWarning)]
+    check(len(deprecations) == 1, f"rma_all_reduce warned {len(caught)}")
+    k5_ms = matrix_us["ring"]["rma"] / 1e3
+    for order, bidi, rs_ms, ag_ms, k3_n, waits, ph in rings:
+        print(f"[backends] ring_reduce_scatter order={order} "
+              f"bidirectional={bidi} + ring_all_gather(owner_shift=1): "
+              f"{rs_ms:.2f} + {ag_ms:.2f} ms (CUDA events; K5 "
+              f"{k5_ms:.2f} ms), K3 {k3_n}, waits {waits}, ledger {ph} = the "
+              f"cost model; equal to K5's sum bit for bit", flush=True)
+    print("[backends] rma_all_reduce warned once and equals "
+          "plan_all_reduce (K5) bit for bit", flush=True)
+    del xg, xs, k5_sum, lent
+    torch.cuda.empty_cache()
+
+    # the qwen3-4b step on each backend, from the [train] run's seeds
+    for backend in ("gspmd", "auto"):
+        target = ring_pick if backend == "auto" else backend
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        run = train("qwen3-4b", tiny=False, n_layers=N_LAYERS,
+                    steps=STEPS, global_batch=GLOBAL_BATCH,
+                    seq_len=SEQ_LEN, peak_lr=1e-3, warmup_steps=0,
+                    grad_sync="rma_ring", dp_ranks=n, backend=backend,
+                    device="cuda", log_every=STEPS)
+        counts = path_counts(f"qwen3-4b step, backend={backend}", ())
+        want_k5 = STEPS if target == "rma" else 0
+        check(counts["ring_all_reduce"] == want_k5,
+              f"backend={backend}: K5 {counts['ring_all_reduce']}, want "
+              f"{want_k5}")
+        check(run.phases == (2 * n if target == "rma" else 0),
+              f"backend={backend}: ring phases {run.phases}")
+        want = ring_run["losses"]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(run.losses, want))
+        check(run.losses[0] == want[0] and gap <= BACKEND_LOSS_RTOL,
+              f"backend={backend}: losses {run.losses} vs rma {want}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        sync = [round(p["sync"], 2) for p in run.part_ms]
+        print(f"[backends] qwen3-4b x{N_LAYERS} backend={backend} "
+              f"({target}): losses {[round(v, 4) for v in run.losses]}, "
+              f"max relative gap to rma {gap:.3g} (bound "
+              f"{BACKEND_LOSS_RTOL}); step ms "
+              f"{[round(v, 1) for v in run.step_ms]} (rma "
+              f"{[round(v, 1) for v in ring_run['step_ms']]}"
+              f"); sync ms {sync}; K5 {counts['ring_all_reduce']}, ring "
+              f"phases {run.phases}; peak {peak:.1f} GiB (rma "
+              f"{ring_run['peak']:.1f}) ({smi})", flush=True)
+        del run
+        torch.cuda.empty_cache()
 
     # the planned all-to-all at the MoE exchange's shape: the kernels' run
     # is held bit for bit to the same plan run op by op (K3 transfers, K2
@@ -2011,6 +2229,66 @@ def main() -> int:
           f"phases = the JAX planner's; K4 {counts['put_signal']}, K6 "
           f"{counts['accumulate_signal']} launches", flush=True)
     del a2a_cases, x, want, got, wins
+    torch.cuda.empty_cache()
+
+    # [backends] the a2a macro at the same blocks: dispatch (op=None) and
+    # combine (op="sum") on every backend, bit for bit, then timed; auto's
+    # table gets the mean of the two
+    xa = torch.empty((n,) + a2a_shape, device=dev,
+                     dtype=torch.bfloat16).random_(-8, 8, generator=gen)
+    K.reset_launch_counts()
+    a2a_ms: dict[str, list] = {}
+    for op in (None, "sum"):
+        res = {b: plan_all_to_all(xa, "x", n, counts=send_counts, op=op,
+                                  backend=b)
+               for b in ("rma", "gspmd", "interpret")}
+        for b in ("gspmd", "interpret"):
+            check(all(torch.equal(u, v) for u, v in zip(res[b], res["rma"])),
+                  f"[backends] a2a op={op}: {b} differs from rma")
+        del res
+        for b in ("rma", "gspmd", "interpret"):
+            a2a_ms.setdefault(b, []).append(time_ms(
+                torch, lambda b=b, op=op: plan_all_to_all(
+                    xa, "x", n, counts=send_counts, op=op, backend=b),
+                reps=10, warmup=2))
+    path_counts("backend matrix, a2a", ("put_signal", "accumulate_signal"))
+    for b, (ms_plain, ms_sum) in a2a_ms.items():
+        matrix_row("a2a", b, (ms_plain + ms_sum) / 2, (n,) + a2a_shape,
+                   "bfloat16", dispatch_ms=ms_plain, combine_ms=ms_sum)
+    picks = write_table("backends.json")
+    a2a_pick = picks["a2a"][0]
+    check(all_to_all_plan("x", n, a2a_shape, torch.bfloat16,
+                          backend="auto").backend == a2a_pick,
+          "[backends] all_to_all_plan(auto) ignores the table")
+    # one plan holding both macros: compile(backend="auto") records each
+    # pick and the measurement behind it
+    probe = RmaPlan("auto-probe")
+    probe.window("ring", order=True, same_op="sum")
+    probe.window("data", order=True, max_streams=2)
+    probe.window("hdr", order=True, max_streams=2, same_op="sum",
+                 dtype=torch.int32)
+    probe.bind("g", (4 * n,), torch.float32)
+    probe.bind("x", (2 * n, 3), torch.float32)
+    probe.bind("counts", (n,), torch.int32)
+    probe.output("sum", probe.ring_all_reduce(
+        "ring", "g", "x", n, shape=(4 * n,), dtype=torch.float32))
+    for name, ref in zip(("out", "counts", "bells"), probe.all_to_all(
+            "data", "hdr", "x", "counts", "x", n, shape=(2 * n, 3),
+            dtype=torch.float32)):
+        probe.output(name, ref)
+    chosen = probe.compile(backend="auto")
+    check([low[:2] for low in chosen.lowering[:2]] ==
+          [("ring[ring]", ring_pick), ("a2a[data]", a2a_pick)] and all(
+              low[2] == picks[pat][1] for low, pat in
+              zip(chosen.lowering, ("ring", "a2a"))),
+          f"[backends] compile(auto) lowering {chosen.lowering}")
+    print(f"[backends] a2a macro ({n}, {a2a_shape[0]}, {a2a_shape[1]}) "
+          f"bfloat16, integer-valued, op None and sum: rma = gspmd = the "
+          f"walker bit for bit; ms per call (dispatch, combine; CUDA events) "
+          f"{ {b: [round(v, 4) for v in ms] for b, ms in a2a_ms.items()} }; "
+          f"auto picks {a2a_pick}: {picks['a2a'][1]}; compile(auto) "
+          f"lowering {chosen.lowering[:2]} ({smi})", flush=True)
+    del xa
     torch.cuda.empty_cache()
 
     # the expert-parallel train step at full width
@@ -2066,9 +2344,49 @@ def main() -> int:
           f"{peak_gib:.1f} GiB; remat={moe_cfg.remat}: K4 and K6 {per_step} "
           f"each a step (2 x {n_moe} MoE layer + {n_moe_remat} recomputed, "
           f"x {EP_RANKS - 1} peers) ({smi})", flush=True)
-
+    moe_run = dict(losses=run.losses, step_ms=run.step_ms,
+                   exchanges=[p["exchanges"] for p in run.part_ms])
     del run
     torch.cuda.empty_cache()
+
+    # [backends] the expert-parallel step with its exchanges on each backend
+    for ep_backend in ("gspmd", "auto"):
+        target = a2a_pick if ep_backend == "auto" else ep_backend
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        run = train(MOE_ARCH, tiny=False, n_layers=N_LAYERS,
+                    num_experts=MOE_EXPERTS, steps=MOE_STEPS,
+                    global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN,
+                    peak_lr=1e-3, warmup_steps=0, grad_sync="gspmd",
+                    moe_ep="rma", ep_ranks=EP_RANKS, ep_backend=ep_backend,
+                    device="cuda", log_every=MOE_STEPS)
+        counts = path_counts(f"{MOE_ARCH} step, ep_backend={ep_backend}",
+                             ())
+        per = per_step * MOE_STEPS if target == "rma" else 0
+        check(counts["put_signal"] == counts["accumulate_signal"] == per
+              and (counts["ring_put"] > 0) == (target == "rma")
+              and (counts["put_wait"] > 0) == (target == "rma"),
+              f"ep_backend={ep_backend}: launches {counts}")
+        want = moe_run["losses"]
+        check(run.losses == want,
+              f"ep_backend={ep_backend}: losses {run.losses} != rma's {want}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        exch = [round(p["exchanges"], 2) for p in run.part_ms]
+        print(f"[backends] {MOE_ARCH} x{N_LAYERS} ep_backend={ep_backend} "
+              f"({target}): losses equal rma's bit for bit "
+              f"{[round(v, 4) for v in run.losses]}; step ms "
+              f"{[round(v, 1) for v in run.step_ms]} (rma "
+              f"{[round(v, 1) for v in moe_run['step_ms']]}"
+              f"); exchanges ms {exch} (rma "
+              f"{[round(v, 2) for v in moe_run['exchanges']]}"
+              f"); K4 {counts['put_signal']}, K6 "
+              f"{counts['accumulate_signal']}, K3 {counts['ring_put']}, "
+              f"waits {counts['put_wait']}; peak {peak:.1f} GiB ({smi})",
+              flush=True)
+        del run
+        torch.cuda.empty_cache()
+    del os.environ["RMA_TORCH_BACKEND_BENCH_JSON"]
+    shutil.rmtree(table_dir)
 
     # the serving path: qwen3-4b at all 36 layers, one request set through a
     # dense engine and a paged engine with copy-on-write prefix sharing

@@ -33,8 +33,9 @@ class MoEConfig:
     #: dispatch; "rma" runs it over stacked expert-parallel ranks through
     #: the one-sided declared all-to-all (repro_torch.core.rma.alltoall).
     ep_mode: str = "gspmd"
-    #: lowering backend of the "rma" dispatch/combine plans (only "rma" is
-    #: ported; "auto" and "gspmd" raise).
+    #: lowering backend of the "rma" dispatch/combine plans: "rma" (the
+    #: substrate, K4/K6), "gspmd" (the exchange as one block transpose) or
+    #: "auto" (the faster of the two in the table measured on the card)
     ep_backend: str = "rma"
 
     def capacity(self, tokens: int) -> int:

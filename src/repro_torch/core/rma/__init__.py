@@ -16,10 +16,17 @@ rows of stacked ``(n, ...)`` tensors):
   :func:`routed_accumulate`, :func:`crossover_elems`, :func:`accumulate_signal`);
 * :class:`Topology` and :func:`default_topology`;
 * :class:`RmaPlan` / :class:`CompiledPlan` — declarative plans;
-* :func:`all_reduce_plan` / :func:`plan_all_reduce` — the planned ring;
+* :func:`all_reduce_plan` / :func:`plan_all_reduce` — the planned ring
+  (:func:`rma_all_reduce`: its deprecated imperative form);
+  :func:`ring_reduce_scatter` / :func:`ring_all_gather` — the imperative
+  rings;
 * :func:`put_signal` / :func:`put_signal_pipelined` — payload then doorbell;
 * :func:`all_to_all_plan` / :func:`plan_all_to_all` — the planned MoE
-  all-to-all (:func:`rma_all_to_all`: its deprecated imperative form).
+  all-to-all (:func:`rma_all_to_all`: its deprecated imperative form);
+* the plan backends (:mod:`repro_torch.core.rma.backends`):
+  :data:`BACKEND_NAMES`, the :class:`Backend` protocol, the calibrated
+  picker :func:`choose_backend`, and the walker :func:`interpret_plan` with
+  its oracle :func:`vmapped_execute`.
 """
 from repro_torch.core.rma.substrate import (SCOPE_PROCESS, SCOPE_THREAD,
                                             CompletionToken, FlushQueues,
@@ -46,9 +53,15 @@ from repro_torch.core.rma.plan import (CompiledPlan, OpRef, PlanEnv,
                                        PlanError, PlanResult, RmaPlan)
 from repro_torch.core.rma.collectives import (all_reduce_plan,
                                               plan_all_reduce, put_signal,
-                                              put_signal_pipelined)
+                                              put_signal_pipelined,
+                                              ring_all_gather,
+                                              ring_reduce_scatter,
+                                              rma_all_reduce)
 from repro_torch.core.rma.alltoall import (AllToAllResult, all_to_all_plan,
                                            plan_all_to_all, rma_all_to_all)
+from repro_torch.core.rma.backends import (BACKEND_NAMES, Backend,
+                                           InterpretResult, choose_backend,
+                                           interpret_plan, vmapped_execute)
 
 __all__ = [
     "Substrate", "CompletionToken", "FlushQueues", "PhaseLedger", "Window",
@@ -63,5 +76,7 @@ __all__ = [
     "RmaPlan", "CompiledPlan", "PlanEnv", "PlanResult", "PlanError", "OpRef",
     "all_reduce_plan", "plan_all_reduce", "put_signal",
     "put_signal_pipelined", "all_to_all_plan", "plan_all_to_all",
-    "rma_all_to_all", "AllToAllResult",
+    "rma_all_to_all", "AllToAllResult", "ring_reduce_scatter",
+    "ring_all_gather", "rma_all_reduce", "BACKEND_NAMES", "Backend",
+    "InterpretResult", "choose_backend", "interpret_plan", "vmapped_execute",
 ]

@@ -36,8 +36,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.rma.collectives import _place, _take, _zeros
-from repro_torch.core.rma.plan import (OpRef, RmaPlan, _not_ported,
-                                       register_plan_cache)
+from repro_torch.core.rma.plan import OpRef, RmaPlan, register_plan_cache
 from repro_torch.core.rma.substrate import SCOPE_THREAD
 from repro_torch.core.rma.topology import (Topology, default_topology,
                                            topology_fingerprint)
@@ -328,11 +327,6 @@ def lower_all_to_all(plan, data_window: str, hdr_window: str, source, counts,
 _A2A_PLANS: dict[tuple, object] = register_plan_cache("moe_alltoall", {})
 
 
-def _check_backend(backend: str) -> None:
-    if backend in ("auto", "gspmd", "interpret"):
-        raise _not_ported(f"all-to-all backend={backend!r}", "item 3")
-
-
 def all_to_all_plan(axis: str, n: int, shape, dtype, *, chunks: int = 1,
                     order: bool = True, declare: bool = True,
                     op: str | None = None, lent: bool = False,
@@ -344,9 +338,17 @@ def all_to_all_plan(axis: str, n: int, shape, dtype, *, chunks: int = 1,
     ...)`` payload shape.  Per peer: one fetch_op count header, ``chunks``
     data transfers on the direction's stream, and a doorbell ordered behind
     the data.  ``topology`` with ``g > 1 and l > 1`` records the
-    hierarchical relay; its fingerprint is part of the cache key.  Only the
-    ``rma`` backend is ported."""
-    _check_backend(backend)
+    hierarchical relay; its fingerprint is part of the cache key.
+
+    ``backend``: the lowering target (``"auto" | "rma" | "gspmd" |
+    "interpret"``) threaded to :meth:`RmaPlan.compile`.  ``"auto"`` is
+    resolved to a concrete target *before* the cache key is formed: the
+    pick depends on the table on disk, and an environment-dependent
+    decision must never be a cache key."""
+    if backend == "auto":
+        from repro_torch.core.rma.backends import costmodel as _costmodel
+
+        backend = _costmodel.choose("a2a")[0]
     dt = as_dtype(dtype)
     key = (axis, n, tuple(shape), str(dt), chunks, order, declare, op, lent,
            naive_flush, topology_fingerprint(topology), backend)
@@ -420,6 +422,11 @@ def _replay(x: torch.Tensor, counts: torch.Tensor, spec: tuple,
                                order=order, declare=declare, op=op,
                                lent=win is not None, topology=topology,
                                backend=backend)
+    if backend == "interpret":
+        return compiled.interpret(
+            {"data": torch.zeros_like(x),
+             "hdr": torch.zeros((n, 2 * n), dtype=I32, device=x.device)},
+            {"x": x, "counts": counts}, axis=axis)
     streams = (0, 1) if n > 2 else (0,)
     hdr = Window.allocate(
         torch.zeros((n, 2 * n), dtype=I32, device=x.device), axis, n,
@@ -486,10 +493,14 @@ def plan_all_to_all(x: torch.Tensor, axis: str, axis_size: int, *,
     ``op``, on the data view).  ``op``: land data as accumulates (the MoE
     combine).  ``win``: lend a window's substrate for the data phases.
     ``topology``: ``None`` consults ``RMA_TOPOLOGY``; a non-degenerate one
-    replays the hierarchical relay.  ``backend``: only ``"rma"`` is
-    ported."""
+    replays the hierarchical relay.  ``backend``: the lowering target;
+    ``"interpret"`` walks the same schedule on stacked tensors with no
+    substrate (and cannot run on a lent window)."""
     n = axis_size
-    _check_backend(backend)
+    if backend == "interpret" and win is not None:
+        raise ValueError(
+            "backend='interpret' walks the schedule on stacked tensors and "
+            "cannot run on a lent window")
     if topology is None:
         topology = default_topology(n)
     if x.dim() < 2 or x.shape[0] != n:

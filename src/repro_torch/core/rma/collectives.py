@@ -1,6 +1,20 @@
-"""One-sided collectives on the RMA substrate: the planned ring all-reduce.
+"""One-sided collectives on the RMA substrate.
 
-The ring is recorded as a declarative plan (:mod:`repro_torch.core.rma.
+* ``ring_reduce_scatter`` / ``ring_all_gather``: the imperative rings, hop
+  by hop on a window substrate.  Each ring runs on a *duplicated view* of a
+  window (P4) carrying its per-use config: with ``order=True`` (P2)
+  consecutive hops chain on the stream with no per-hop ack; with
+  ``order=False`` a thread-scope flush (P1) precedes every hop that
+  consumes remotely written data.  A reduce hop is an accumulate routed
+  through the engine (``accumulate.acc_hop``): a view declaring
+  ``same_op="sum"`` (``declare_op=True``) stays at one data phase a hop,
+  an undeclared one pays a completion ack.  On the card every hop is one
+  K3 launch (``Substrate.channel_send``) and every flush one K3 wait.
+* ``plan_all_reduce`` / ``all_reduce_plan``: the ring all-reduce as a
+  declarative plan, and ``rma_all_reduce``, its deprecated imperative
+  entry point.
+
+The planned ring is recorded as a declarative plan (:mod:`repro_torch.core.rma.
 plan`) on a thread-scope window: reduce-scatter hops are accumulates routed
 through the engine (a window declaring ``same_op="sum"`` stays at one data
 phase per hop; an undeclared one pays a completion ack per hop), all-gather
@@ -26,7 +40,8 @@ import dataclasses
 
 from repro_torch.core.rma import accumulate as acc_engine
 from repro_torch.core.rma.plan import OpRef, RmaPlan, register_plan_cache
-from repro_torch.core.rma.substrate import SCOPE_THREAD, CompletionToken
+from repro_torch.core.rma.substrate import (SCOPE_THREAD, CompletionToken,
+                                            Substrate)
 from repro_torch.core.rma.topology import (Topology, default_topology,
                                            topology_fingerprint)
 from repro_torch.core.rma.window import Window, WindowConfig
@@ -40,6 +55,187 @@ def _ring_perm(n: int, shift: int = 1):
 def _refs(*xs):
     """The OpRefs among ``xs`` (binding names carry no ordering edge)."""
     return tuple(r for r in xs if isinstance(r, OpRef))
+
+
+# ---------------------------------------------------------------------------
+# The imperative rings
+# ---------------------------------------------------------------------------
+
+
+def _ring_substrate(x: torch.Tensor, axis: str, n: int, *, order: bool,
+                    win: Window | None, streams=(0,),
+                    same_op: str | None = None
+                    ) -> tuple[Substrate, WindowConfig]:
+    """The substrate a ring runs on, and the config in effect.
+
+    With a lent ``win`` the ring runs on a **duplicate** carrying its
+    per-use config (P4); ``max_streams`` is dup-immutable, so the lent
+    window must have enough issue streams.  Entering the collective
+    flushes the caller's in-flight operations on the streams the ring is
+    about to use.  Without ``win`` a one-off window over ``x`` is
+    allocated (its flushes find nothing to drain).  ``same_op``: the reduce
+    rings' op declaration (paper §2.3); ``None`` leaves the hops
+    undeclared."""
+    acc_info = ({"same_op": same_op, "accumulate_ops": (same_op,)}
+                if same_op is not None else {"same_op": None})
+    if win is not None:
+        if max(streams) >= win.config.max_streams:
+            raise ValueError(
+                f"ring needs streams {tuple(streams)} but the lent window "
+                f"has max_streams={win.config.max_streams} (dup-immutable); "
+                "allocate it with enough issue streams")
+        view = win.dup_with_info(order=order, scope=SCOPE_THREAD, **acc_info)
+    else:
+        view = Window.allocate(
+            x.contiguous(), axis, n,
+            WindowConfig(scope=SCOPE_THREAD, order=order,
+                         max_streams=len(streams), **acc_info))
+    sub = view.substrate
+    for s in streams:
+        sub = sub.flush(scope=view.config.scope, stream=s)
+    return sub, view.config
+
+
+def _finish_lent(subs, out: torch.Tensor, win: Window | None, streams
+                 ) -> torch.Tensor:
+    """A collective on a **lent** window returns with nothing in flight, as
+    an MPI blocking collective does: each direction's stream is flushed
+    (thread scope).  A one-off window's queues die with it."""
+    if win is None:
+        return out
+    for sub, s in zip(subs, streams):
+        sub.flush(scope=SCOPE_THREAD, stream=s)
+    return out
+
+
+def _hop_flush(sub: Substrate, *, order: bool, stream: int,
+               dependent: bool) -> Substrate:
+    """Without P2 a completion ack (thread-scope flush epoch) precedes
+    every hop that consumes remotely written data."""
+    if order or not dependent:
+        return sub
+    return sub.flush(scope=SCOPE_THREAD, stream=stream)
+
+
+def _by_chunk(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Stacked ``(n, L, ...)`` as ``(rank, chunk, L // n, ...)``."""
+    c = x.shape[1] // n
+    return x[:, :n * c].reshape((x.shape[0], n, c) + tuple(x.shape[2:]))
+
+
+def _ring_reduce_scatter_dir(sub: Substrate, x: torch.Tensor, n: int, *,
+                             cfg: WindowConfig, shift: int, stream: int = 0,
+                             op: str = "sum") -> tuple[Substrate,
+                                                       torch.Tensor]:
+    """One direction's reduce-scatter: at hop k rank r sends its partial of
+    chunk (r − s·k) and adds what arrives into chunk (r − s(k+1)); rank r
+    ends owning chunk (r + s), returned stacked."""
+    perm = _ring_perm(n, shift)
+    ranks = torch.arange(n, device=x.device)
+    s = 1 if shift == 1 else -1
+    acc = _by_chunk(x, n).clone()
+    for k in range(n - 1):
+        # hop k sends a partial holding hop k-1's received data
+        sub = _hop_flush(sub, order=cfg.order, stream=stream, dependent=k > 0)
+        piece = acc[ranks, (ranks - s * k) % n]
+        recv = (ranks - s * (k + 1)) % n
+        sub, new = acc_engine.acc_hop(sub, cfg, acc[ranks, recv], piece,
+                                      perm, op=op, stream=stream)
+        acc[ranks, recv] = new
+    return sub, acc[ranks, (ranks + s) % n]
+
+
+def _ring_all_gather_dir(sub: Substrate, x: torch.Tensor, n: int, *,
+                         order: bool, shift: int, owner_shift: int = 0,
+                         stream: int = 0, entry_dep: bool = False
+                         ) -> tuple[Substrate, torch.Tensor]:
+    """One direction's all-gather: every hop forwards the piece received in
+    the one before (``entry_dep``: hop 0 also depends on an earlier phase,
+    as RS → AG does)."""
+    if n == 1:
+        return sub, x
+    perm = _ring_perm(n, shift)
+    ranks = torch.arange(n, device=x.device)
+    s = 1 if shift == 1 else -1
+    out = x.new_zeros((x.shape[0], n) + tuple(x.shape[1:]))
+    out[ranks, (ranks + owner_shift) % n] = x
+    piece = x
+    for k in range(n - 1):
+        sub = _hop_flush(sub, order=order, stream=stream,
+                         dependent=k > 0 or entry_dep)
+        sub, piece = sub.channel_send(piece, perm, stream=stream)
+        # the piece received at hop k left rank r − s(k+1), which owns
+        # chunk (origin + owner_shift) % n
+        out[ranks, (ranks - s * (k + 1) + owner_shift) % n] = piece
+    return sub, out.reshape((x.shape[0], n * x.shape[1])
+                            + tuple(x.shape[2:]))
+
+
+def _check_stacked(x: torch.Tensor, n: int, what: str) -> None:
+    if x.dim() < 2 or x.shape[0] != n:
+        raise ValueError(f"{what} expects stacked input with leading dim "
+                         f"{n}, got {tuple(x.shape)}")
+
+
+def ring_reduce_scatter(x: torch.Tensor, axis: str, axis_size: int, *,
+                        order: bool = True, bidirectional: bool = False,
+                        win: Window | None = None,
+                        declare_op: bool = True) -> torch.Tensor:
+    """Ring reduce-scatter of the stacked ``x`` (``(n, L, ...)``, ``L``
+    divisible by n): row r of the result is the sum over ranks of chunk
+    ``(r + 1) % n`` (``(n, L // n, ...)``).
+
+    ``order=False`` is the paper's no-P2 baseline: a completion ack (a
+    thread-scope flush) before each dependent hop.  ``bidirectional=True``
+    splits every rank's rows in two halves reduced in opposite ring
+    directions on two issue streams of one substrate.  ``win``: run on a
+    duplicate of this lent window instead of a throwaway one (its streams
+    are flushed on entry and exit).  ``declare_op=True`` declares
+    ``same_op="sum"`` on the ring's view (one data phase a hop); ``False``
+    is the undeclared baseline (a completion ack a hop)."""
+    n = axis_size
+    _check_stacked(x, n, "ring_reduce_scatter")
+    if n == 1:
+        return x
+    if x.shape[1] % n != 0:
+        raise ValueError(f"leading dim {x.shape[1]} not divisible by axis "
+                         f"size {n}")
+    same_op = "sum" if declare_op else None
+    if bidirectional:
+        h = x.shape[1] // 2
+        base, cfg = _ring_substrate(x, axis, n, order=order, win=win,
+                                    streams=(0, 1), same_op=same_op)
+        s_lo, lo = _ring_reduce_scatter_dir(base, x[:, :h], n, cfg=cfg,
+                                            shift=1, stream=0)
+        s_hi, hi = _ring_reduce_scatter_dir(base, x[:, h:], n, cfg=cfg,
+                                            shift=-1, stream=1)
+        out = torch.cat([lo, hi], dim=1)
+        return _finish_lent((s_lo, s_hi), out, win, (0, 1))
+    sub, cfg = _ring_substrate(x, axis, n, order=order, win=win,
+                               same_op=same_op)
+    sub, mine = _ring_reduce_scatter_dir(sub, x, n, cfg=cfg, shift=1)
+    return _finish_lent((sub,), mine, win, (0,))
+
+
+def ring_all_gather(x: torch.Tensor, axis: str, axis_size: int, *,
+                    order: bool = True, owner_shift: int = 0,
+                    win: Window | None = None) -> torch.Tensor:
+    """Ring all-gather of the stacked ``x`` (``(n, c, ...)``): every row of
+    the result is the concatenation of the ranks' contributions in chunk
+    order (``(n, n c, ...)``).  ``owner_shift``: rank r's contribution is
+    chunk ``(r + owner_shift) % n`` — after :func:`ring_reduce_scatter`
+    rank r owns chunk (r + 1) % n, so the two compose with
+    ``owner_shift=1``."""
+    _check_stacked(x, axis_size, "ring_all_gather")
+    sub, cfg = _ring_substrate(x, axis, axis_size, order=order, win=win)
+    sub, out = _ring_all_gather_dir(sub, x, axis_size, order=cfg.order,
+                                    shift=1, owner_shift=owner_shift)
+    return _finish_lent((sub,), out, win, (0,))
+
+
+# ---------------------------------------------------------------------------
+# The planned all-reduce: the ring pattern as a declarative RMA plan
+# ---------------------------------------------------------------------------
 
 
 def _index(x: torch.Tensor, starts: torch.Tensor, size: int):
@@ -246,7 +442,17 @@ def all_reduce_plan(axis: str, n: int, shape, dtype, *, order: bool = True,
     all-reduce plan for one static configuration; ``shape`` is one rank's
     padded input shape.  ``topology`` with ``g > 1 and l > 1`` selects the
     hierarchical rewrite (the bidirectional split keeps flat directions);
-    its fingerprint is part of the cache key."""
+    its fingerprint is part of the cache key.
+
+    ``backend``: the lowering target (``"auto" | "rma" | "gspmd" |
+    "interpret"``) threaded to :meth:`RmaPlan.compile`.  ``"auto"`` is
+    resolved to a concrete target *before* the cache key is formed: the
+    pick depends on the table on disk, and an environment-dependent
+    decision must never be a cache key."""
+    if backend == "auto":
+        from repro_torch.core.rma.backends import costmodel as _costmodel
+
+        backend = _costmodel.choose("ring")[0]
     dt = as_dtype(dtype)
     key = (axis, n, tuple(shape), str(dt), order, bidirectional, declare_op,
            lent, naive_flush, topology_fingerprint(topology), backend)
@@ -294,13 +500,20 @@ def plan_all_reduce(x: torch.Tensor, axis: str, axis_size: int, *,
     replay it.  ``win``: run on this lent window (its streams are flushed
     on entry and exit, as an MPI blocking collective would).  ``topology``
     ``None`` consults ``RMA_TOPOLOGY``.  ``donate=True`` lets the K5 ring
-    reduce ``x`` in place.  Returns the stacked result."""
+    reduce ``x`` in place.  ``backend``: the lowering target;
+    ``"interpret"`` walks the same schedule on stacked tensors with no
+    substrate (and cannot run on a lent window).  Returns the stacked
+    result (under ``"gspmd"`` a broadcast view of the one sum)."""
     n = axis_size
     if x.shape[0] != n:
         raise ValueError(f"plan_all_reduce expects stacked input with "
                          f"leading dim {n}, got {tuple(x.shape)}")
     if n == 1:
         return x
+    if backend == "interpret" and win is not None:
+        raise ValueError(
+            "backend='interpret' walks the schedule on stacked tensors and "
+            "cannot run on a lent window")
     if topology is None:
         topology = default_topology(n)
     orig = x.shape[1]
@@ -312,6 +525,10 @@ def plan_all_reduce(x: torch.Tensor, axis: str, axis_size: int, *,
                                bidirectional=bidirectional,
                                declare_op=declare_op, lent=win is not None,
                                topology=topology, backend=backend)
+    if backend == "interpret":
+        out = compiled.interpret({"ring": torch.zeros_like(x)}, {"x": x},
+                                 axis=axis).outputs["out"]
+        return out[:, :orig] if pad else out
     streams = (0, 1) if bidirectional else (0,)
     if win is None:
         same_op = "sum" if declare_op else None
@@ -332,6 +549,29 @@ def plan_all_reduce(x: torch.Tensor, axis: str, axis_size: int, *,
                            donate=("x",) if donate else ())
     out = res.outputs["out"]
     return out[:, :orig] if pad else out
+
+
+def rma_all_reduce(x: torch.Tensor, axis: str, axis_size: int, *,
+                   order: bool = True, bidirectional: bool = False,
+                   win: Window | None = None,
+                   declare_op: bool = True) -> torch.Tensor:
+    """One-sided ring all-reduce of the stacked ``x`` — the reference's
+    imperative entry point, kept as a thin wrapper over
+    :func:`plan_all_reduce` (same arguments, numerics and phases: 2(n−1)
+    data phases under P2, plus a thread-scope flush before every dependent
+    hop without it).
+
+    .. deprecated:: emits a ``DeprecationWarning`` once per process; build
+       the pattern with ``all_reduce_plan`` (or call ``plan_all_reduce``).
+    """
+    from repro_torch.core.rma.plan import warn_legacy_once
+
+    warn_legacy_once("repro_torch.core.rma.rma_all_reduce",
+                     "collectives.all_reduce_plan(...).execute (or "
+                     "plan_all_reduce)")
+    return plan_all_reduce(x, axis, axis_size, order=order,
+                           bidirectional=bidirectional, win=win,
+                           declare_op=declare_op)
 
 
 # ---------------------------------------------------------------------------
@@ -436,5 +676,6 @@ def put_signal_pipelined(win: Window, data: torch.Tensor, perm, *,
                                                           config=win.config)
 
 
-__all__ = ["all_reduce_plan", "plan_all_reduce", "lower_ring_all_reduce",
+__all__ = ["ring_reduce_scatter", "ring_all_gather", "rma_all_reduce",
+           "all_reduce_plan", "plan_all_reduce", "lower_ring_all_reduce",
            "put_signal", "put_signal_pipelined"]

@@ -31,9 +31,16 @@ A prefetch edge (:meth:`RmaPlan.prefetch`) issues a transport op early on
 the window's last declared stream and places its completion epoch, the
 ``prefetch-wait``, right before its consumer; on the card that stream is a
 column of the completion counters, and the wait one K3 wait on it (all
-launches still share one CUDA stream).  Only the ``rma`` backend is ported;
-the gspmd/interpret/auto backends raise ``NotImplementedError`` (ROADMAP
-queue 1).
+launches still share one CUDA stream).
+
+``compile(backend=)`` picks the lowering target per recorded macro
+(:mod:`repro_torch.core.rma.backends`): ``"rma"`` keeps everything on the
+substrate; ``"gspmd"`` collapses every lowerable macro into one step that
+computes its collective (a library operation on the stacked layout, billed
+0 phases); ``"auto"`` decides per macro from the latency table measured on
+the card; ``"interpret"`` tags the schedule for
+:meth:`CompiledPlan.interpret`, a walk on stacked tensors.  K5 and the
+K4/K6 pairs lower only ranges that stayed on the substrate.
 
 Values in a plan are stacked: a binding or an op result is ``(n, ...)``,
 row r = rank r, and recorded closures see the rank vector as ``env.ranks``.
@@ -57,11 +64,6 @@ Perm = Sequence[tuple[int, int]]
 
 class PlanError(ValueError):
     """A build-time declaration violation in an :class:`RmaPlan`."""
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1, {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,32 +136,40 @@ class _PlanWindow:
 class _Step:
     """One entry of the compiled schedule."""
 
-    kind: str            # "op" | "flush" | "entry" | "fused"
+    kind: str            # "op" | "flush" | "entry" | "fused" | "gspmd"
     window: str | None = None
     stream: int | None = None
     op: _Op | None = None
     group: tuple = ()
     phases: int = 0
     tier: str = "inter"
+    macro: "_Macro | None" = None  # gspmd: the macro this step computes
     pwait: bool = False  # flush placed by a prefetch edge (the late wait
                          # right before the consumer)
 
 
 @dataclasses.dataclass(frozen=True)
 class _Macro:
-    """A bracketed op range recorded by :meth:`RmaPlan.ring_all_reduce`:
-    ops ``[lo, hi)`` realize the ring on the substrate; a kernel that
-    computes the whole pattern may take the range over."""
+    """A bracketed op range recorded by a collective macro
+    (:meth:`RmaPlan.ring_all_reduce` / :meth:`RmaPlan.all_to_all`) — the
+    unit of backend selection.  Ops ``[lo, hi)`` realize the pattern on the
+    substrate; a backend that recognizes it (or kernel K5, for a declared
+    flat ring) may take the whole range over and produce ``results``."""
 
-    lo: int
-    hi: int
+    kind: str                      # "ring" | "a2a"
+    lo: int                        # first recorded op idx (inclusive)
+    hi: int                        # one past the last recorded op idx
+    axis: str
     n: int
+    shape: tuple                   # one rank's payload shape
     dtype: Any
     op: str | None
     source: Any
-    hier: bool
+    counts: Any = None             # a2a: counts binding/OpRef
+    chunks: int = 1
+    hier: bool = False             # the hierarchical rewrite was recorded
     windows: tuple = ()
-    results: tuple = ()
+    results: tuple = ()            # OpRefs downstream consumers may use
     label: str = ""
 
 
@@ -367,12 +377,22 @@ class RmaPlan:
         per-source arrival flags.  Under a declared ``g×l`` topology with
         ``g > 1 and l > 1`` (and ``chunks == 1``, ``op in (None, "sum")``)
         the exchange is the hierarchical two-stage relay; otherwise the
-        flat per-peer exchange."""
+        flat per-peer exchange.  The recorded range is bracketed as a
+        macro for backend selection at :meth:`compile`."""
         from repro_torch.core.rma import alltoall as _a2a
 
-        return _a2a.lower_all_to_all(
+        lo = len(self._ops)
+        hier = _a2a.hier_applies(self.topology, n, chunks=chunks, op=op)
+        out, cnts, bells = _a2a.lower_all_to_all(
             self, data_window, hdr_window, source, counts, axis, n,
             shape=tuple(shape), dtype=dtype, op=op, chunks=chunks)
+        self._macros.append(_Macro(
+            kind="a2a", lo=lo, hi=len(self._ops), axis=axis, n=n,
+            shape=tuple(shape), dtype=as_dtype(dtype), op=op, source=source,
+            counts=counts, chunks=chunks, hier=hier,
+            windows=(data_window, hdr_window), results=(out, cnts, bells),
+            label=f"a2a[{data_window}]"))
+        return out, cnts, bells
 
     def ring_all_reduce(self, window: str, source, axis: str, n: int, *,
                         shape, dtype, op: str = "sum", stream: int = 0,
@@ -382,7 +402,9 @@ class RmaPlan:
         declared ``g×l`` topology with ``g > 1 and l > 1`` the ring is
         rewritten hierarchically (2(g−1) inter-node phases instead of
         2(n−1)); otherwise the flat ring is recorded.  Returns the OpRef of
-        the reduced result."""
+        the reduced result.  The recorded range is bracketed as a macro:
+        a backend may take it over at :meth:`compile`, and kernel K5 a
+        declared flat ring that stays on the substrate."""
         from repro_torch.core.rma import collectives as _coll
 
         lo = len(self._ops)
@@ -390,8 +412,9 @@ class RmaPlan:
             self, window, source, axis, n, shape=tuple(shape), dtype=dtype,
             op=op, stream=stream)
         self._macros.append(_Macro(
-            lo=lo, hi=len(self._ops), n=n, dtype=as_dtype(dtype), op=op,
-            source=source, hier=hier, windows=(window,), results=(out,),
+            kind="ring", lo=lo, hi=len(self._ops), axis=axis, n=n,
+            shape=tuple(shape), dtype=as_dtype(dtype), op=op, source=source,
+            hier=hier, windows=(window,), results=(out,),
             label=label or f"ring[{window}]"))
         return out
 
@@ -443,19 +466,22 @@ class RmaPlan:
             return "rma", f"K5 reduces float32, not {mac.dtype}"
         return "k5", "declared flat sum ring"
 
-    def _signal_lowering(self, ops, steps, fused_of, in_kernel, naive_flush):
+    def _signal_lowering(self, ops, steps, fused_of, in_kernel, naive_flush,
+                         collective=frozenset()):
         """Pair every ``signal`` with the payload op it chains behind (an
         ``after`` edge to a put/send/hop/accumulate on the same perm and
         stream) and decide whether one kernel launch carries both: K4 for
-        a put or send, K6 for a sum accumulate or hop.  Returns
+        a put or send, K6 for a sum accumulate or hop.  Ops a backend
+        collective took over (``collective``) pair with nothing.  Returns
         ``[(data idx, signal idx, kernel, hoisted value idx, reason)]``."""
         pos = {s.op.idx: k for k, s in enumerate(steps) if s.kind == "op"}
         pairs, used = [], set()
         for sig in ops:
-            if sig.kind != "signal":
+            if sig.kind != "signal" or sig.idx in collective:
                 continue
             cand = [ops[r.idx] for r in sig.after
-                    if ops[r.idx].kind in ("put", "send", "hop", "accumulate")
+                    if r.idx not in collective
+                    and ops[r.idx].kind in ("put", "send", "hop", "accumulate")
                     and ops[r.idx].perm == sig.perm
                     and ops[r.idx].stream == sig.stream]
             if not cand:
@@ -504,10 +530,25 @@ class RmaPlan:
                 backend: str = "rma") -> "CompiledPlan":
         """Run the planner passes and freeze the schedule.
         ``naive_flush=True`` builds the conservative baseline (an epoch
-        after every transport op).  ``backend``: only ``"rma"`` is ported."""
-        if backend in ("gspmd", "interpret", "auto"):
-            raise _not_ported(f"backend={backend!r}", "item 12")
-        if backend != "rma":
+        after every transport op).
+
+        ``backend`` selects the lowering target per recorded macro:
+
+        * ``"rma"`` (default) — everything on the substrate;
+        * ``"gspmd"`` — every lowerable macro collapses into one step
+          computing its collective, billed 0 phases; a macro that cannot
+          stays on the substrate with the reason in :attr:`CompiledPlan.
+          lowering`;
+        * ``"auto"`` — per macro, the faster of the two in the latency
+          table measured on the card (:mod:`~repro_torch.core.rma.backends.
+          costmodel`); a missing or bad table falls back to ``rma`` with
+          one warning, never an error;
+        * ``"interpret"`` — the substrate schedule, tagged for
+          :meth:`CompiledPlan.interpret`.
+
+        Selection is skipped under ``naive_flush`` (the baseline measures
+        the substrate's per-op epochs, which a collective would erase)."""
+        if backend not in ("rma", "gspmd", "interpret", "auto"):
             raise PlanError(
                 f"unknown backend {backend!r}; expected one of 'auto', "
                 "'rma', 'gspmd', 'interpret'")
@@ -525,6 +566,32 @@ class RmaPlan:
                     "late wait covers)")
             ops[p].prefetch = True
             pf_by_consumer.setdefault(c, []).append(p)
+
+        # backend selection — per recorded macro, whether its whole op range
+        # leaves the substrate for its collective; the verdict and any
+        # decline reason are recorded ("auto" consults the measured table
+        # and never raises)
+        gspmd_idxs: set[int] = set()
+        gspmd_at: dict[int, _Macro] = {}
+        selection: list[tuple] = []
+        if backend in ("gspmd", "auto") and not naive_flush:
+            from repro_torch.core.rma.backends import costmodel as _costmodel
+            from repro_torch.core.rma.backends import gspmd as _gspmd
+            for mac in self._macros:
+                ok, why = _gspmd.macro_lowerable(self, mac)
+                if not ok:
+                    selection.append((mac.label, "rma", why))
+                    continue
+                if backend == "auto":
+                    target, reason = _costmodel.choose(mac.kind)
+                else:
+                    target, reason = "gspmd", "forced by backend='gspmd'"
+                selection.append((mac.label, target, reason))
+                if target == "gspmd":
+                    gspmd_idxs.update(range(mac.lo, mac.hi))
+                    gspmd_at[mac.lo] = mac
+        resolved_backend = ("interpret" if backend == "interpret"
+                            else "gspmd" if gspmd_at else "rma")
 
         # pass 0 — dependency graph + cycle check (value vs completion edges)
         for o in ops:
@@ -692,6 +759,8 @@ class RmaPlan:
         steps: list[_Step] = []
         flushed: set[int] = {o.idx for o in ops
                              if o.kind != "compute" and o.tier == "intra"}
+        # ops of a collective step never touch the substrate: born completed
+        flushed.update(i for i in gspmd_idxs if ops[i].kind != "compute")
         pending: dict[tuple, list[int]] = {}
         used_streams: dict[str, set] = {w: set() for w in self._windows}
         inter_streams: dict[str, set] = {w: set() for w in self._windows}
@@ -714,7 +783,8 @@ class RmaPlan:
             # compile: 0 predicted); omitted under a single-host topology
             if w.entry_epoch and (tdecl is None or tdecl.hosts > 1):
                 strs = sorted({o.stream for o in ops
-                               if o.kind != "compute" and o.window == wname})
+                               if o.kind != "compute" and o.window == wname
+                               and o.idx not in gspmd_idxs})
                 for s in strs:
                     steps.append(_Step(kind="entry", window=wname, stream=s))
 
@@ -725,6 +795,14 @@ class RmaPlan:
             for p in pf_by_consumer.get(idx, ()):
                 if p not in flushed:
                     emit_flush(ops[p].window, ops[p].stream, pwait=True)
+            if idx in gspmd_idxs:
+                # a backend-selected macro: its whole range is one
+                # collective step at the range head (topo order is index
+                # order, so every value the macro consumes exists)
+                mac = gspmd_at.get(idx)
+                if mac is not None:
+                    steps.append(_Step(kind="gspmd", macro=mac, phases=0))
+                continue
             if o.kind == "compute":
                 steps.append(_Step(kind="op", op=o))
                 continue
@@ -734,6 +812,8 @@ class RmaPlan:
             group = fused_groups[gid] if gid is not None else [idx]
             for member in group:
                 for d in sorted(ops[member].comm_sync):
+                    if d in gspmd_idxs:
+                        continue    # a collective step completes at once
                     u = ops[d]
                     if (not self._windows[u.window].order) and d not in flushed:
                         emit_flush(u.window, u.stream)
@@ -766,14 +846,18 @@ class RmaPlan:
             elif inter_streams[wname]:
                 emit_flush(wname, None)
 
+        # the port's kernels lower what stayed on the substrate: K5 a declared
+        # flat ring, K4/K6 a payload and its chained doorbell
+        rings = [mac for mac in self._macros
+                 if mac.kind == "ring" and mac.lo not in gspmd_at]
         ring_low = [(mac.label, *self._k5_lowering(mac, naive_flush))
-                    for mac in self._macros]
-        kernel_macros = tuple(mac for mac, low in zip(self._macros, ring_low)
+                    for mac in rings]
+        kernel_macros = tuple(mac for mac, low in zip(rings, ring_low)
                               if low[1] == "k5")
         in_kernel = {i for mac in kernel_macros for i in range(mac.lo, mac.hi)}
         pairs = self._signal_lowering(ops, steps, fused_of, in_kernel,
-                                      naive_flush)
-        lowering = tuple(ring_low) + tuple(
+                                      naive_flush, gspmd_idxs)
+        lowering = tuple(selection) + tuple(ring_low) + tuple(
             (f"{ops[d].label or ops[d].kind}+{ops[g].label or 'signal'}", k,
              why) for d, g, k, _, why in pairs)
         return CompiledPlan(
@@ -782,7 +866,8 @@ class RmaPlan:
             outputs=tuple(self._outputs),
             used_streams={w: tuple(sorted(s))
                           for w, s in used_streams.items()},
-            naive=naive_flush, topology=self.topology, lowering=lowering,
+            naive=naive_flush, topology=self.topology,
+            backend=resolved_backend, lowering=lowering,
             kernel_macros=kernel_macros,
             signal_pairs=tuple(p for p in pairs if p[2] != "rma"))
 
@@ -834,8 +919,13 @@ class CompiledPlan:
     used_streams: dict[str, tuple]
     naive: bool = False
     topology: Topology | None = None
-    #: lowering record of every ring macro and every payload+doorbell pair:
-    #: (label, "k5" | "k4" | "k6" | "rma", reason)
+    #: resolved lowering target: "rma", "gspmd" (at least one macro taken
+    #: over by its collective) or "interpret" (the walker's tag)
+    backend: str = "rma"
+    #: (label, target, reason) records: first the backend selection of
+    #: every macro (under "gspmd"/"auto"; target "rma" | "gspmd"), then
+    #: the kernel lowering of every ring macro left on the substrate and
+    #: of every payload+doorbell pair ("k5" | "k4" | "k6" | "rma")
     lowering: tuple = ()
     kernel_macros: tuple = ()
     #: the pairs one kernel carries: (data idx, signal idx, kernel,
@@ -856,11 +946,18 @@ class CompiledPlan:
 
     def phase_table(self) -> list[tuple[str, int]]:
         """Per-step (label, predicted phases); node-local steps are tagged
-        ``[intra]``."""
+        ``[intra]``.  A backend other than ``rma`` leads with a
+        ``backend[...]`` row, and collective steps read
+        ``gspmd:psum[...]`` / ``gspmd:all_to_all[...]``."""
         rows = []
+        if self.backend != "rma":
+            rows.append((f"backend[{self.backend}]", 0))
         for s in self.steps:
             tag = " [intra]" if s.tier == "intra" else ""
-            if s.kind == "flush":
+            if s.kind == "gspmd":
+                coll = "psum" if s.macro.kind == "ring" else "all_to_all"
+                rows.append((f"gspmd:{coll}[{s.macro.label}]", s.phases))
+            elif s.kind == "flush":
                 word = "prefetch-wait" if s.pwait else "flush"
                 rows.append((f"{word}[{s.window}/{s.stream}]", s.phases))
             elif s.kind == "entry":
@@ -936,6 +1033,12 @@ class CompiledPlan:
         by_idx = {s.op.idx: s for s in self.steps if s.kind == "op"}
         done: set[int] = set()      # ops a paired launch already carried
         for step in self.steps:
+            if step.kind == "gspmd":
+                from repro_torch.core.rma.backends.gspmd import execute_macro
+
+                env.values.update(execute_macro(
+                    step.macro, lambda spec: self._resolve(spec, env)))
+                continue
             if step.kind in ("entry", "flush"):
                 w = views[step.window]
                 w.substrate.flush(scope=self.windows[step.window].scope,
@@ -970,6 +1073,19 @@ class CompiledPlan:
                                                config=windows[wname].config)
                     for wname in self.windows}
         return PlanResult(windows=restored, outputs=outputs, err_count=errs)
+
+    def interpret(self, buffers, bindings=None, *, axis: str = "x",
+                  regs=None):
+        """Walk this schedule on stacked tensors with no substrate: every
+        window buffer and binding is the stacked ``(n, ...)`` tensor of all
+        ranks.  ``regs`` maps handle windows to stacked ``(n, slots, 3)``
+        registration tables — needed to model ``put_handle``/``get_handle``
+        (stale drops and zero-masks counted per rank); without it those
+        raise.  Returns an ``InterpretResult`` (see
+        :mod:`repro_torch.core.rma.backends.interpret`)."""
+        from repro_torch.core.rma.backends.interpret import interpret_plan
+
+        return interpret_plan(self, buffers, bindings, axis=axis, regs=regs)
 
     def _run_kernel_macro(self, mac: _Macro, views, env: PlanEnv,
                           donate) -> None:

@@ -10,7 +10,9 @@ layers over ``ep_ranks`` stacked expert-parallel ranks through the
 one-sided all-to-all.  ``n_layers`` cuts depth and ``num_experts`` the
 experts held (never a width) to fit a configuration on one card;
 ``remat`` overrides the config's rematerialization (``"block"`` by
-default, as in the reference).
+default, as in the reference).  ``backend`` lowers the ring gradient sync
+and ``ep_backend`` the MoE exchanges (``"rma"``, ``"gspmd"`` or
+``"auto"``).
 
 Fault tolerance, as in the JAX launcher:
 
@@ -83,6 +85,7 @@ def train(arch: str, *, tiny: bool = True, steps: int = 100,
           dp_ranks: int = 1, n_layers: int | None = None,
           moe_ep: str | None = None, ep_ranks: int = 1,
           num_experts: int | None = None, remat: str | None = None,
+          backend: str = "rma", ep_backend: str | None = None,
           device="cuda") -> TrainRun:
     dev = resolve_device(device)
     cfg = tiny_config(arch) if tiny else get_config(arch)
@@ -93,6 +96,9 @@ def train(arch: str, *, tiny: bool = True, steps: int = 100,
     if num_experts is not None:
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
                                                   num_experts=num_experts))
+    if ep_backend is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  ep_backend=ep_backend))
     model = build_model(cfg)
     warm = min(20, steps // 5) if warmup_steps is None else warmup_steps
     opt_cfg = OptimizerConfig(peak_lr=peak_lr, warmup_steps=warm,
@@ -114,7 +120,7 @@ def train(arch: str, *, tiny: bool = True, steps: int = 100,
 
     step_fn = make_train_step(
         model, opt_cfg, grad_sync=grad_sync, data_axis="data",
-        data_axis_size=dp_ranks, moe_ep=moe_ep,
+        data_axis_size=dp_ranks, backend=backend, moe_ep=moe_ep,
         ep_ranks=ep_ranks if cfg.moe is not None else None)
     monitor = StragglerMonitor(threshold=3.0)
     losses, step_ms, part_ms, phases = [], [], [], None

@@ -183,13 +183,10 @@ def _moe_ep_shard(params: dict, xt: torch.Tensor, cfg, *, n: int,
     from repro_torch.core.rma.topology import default_topology
 
     mo = cfg.moe
-    if mo.ep_backend in ("auto", "gspmd"):
-        raise NotImplementedError(
-            f"ep_backend={mo.ep_backend!r} is not ported to repro_torch yet "
-            "(ROADMAP queue 1, item 3)")
-    if mo.ep_backend != "rma":
+    ep_backend = mo.ep_backend
+    if ep_backend not in ("auto", "rma", "gspmd"):
         raise ValueError(
-            f"ep_backend={mo.ep_backend!r} invalid for the expert-parallel "
+            f"ep_backend={ep_backend!r} invalid for the expert-parallel "
             "dispatch; expected 'auto', 'rma', or 'gspmd'")
     topo = default_topology(n) if n > 1 else None
     _, Tl, d = xt.shape
@@ -239,7 +236,8 @@ def _moe_ep_shard(params: dict, xt: torch.Tensor, cfg, *, n: int,
     # dispatch: the declared one-sided all-to-all
     if n > 1:
         res = plan_all_to_all(payload, "expert", n, counts=send_counts,
-                              order=True, declare=True, topology=topo)
+                              order=True, declare=True, topology=topo,
+                              backend=ep_backend)
         recv, recv_counts = res.data, res.counts
     else:
         recv, recv_counts = payload, send_counts
@@ -276,7 +274,7 @@ def _moe_ep_shard(params: dict, xt: torch.Tensor, cfg, *, n: int,
     if n > 1:
         y_ret = plan_all_to_all(y_back, "expert", n, counts=recv_counts,
                                 op="sum", order=True, declare=True,
-                                topology=topo).data
+                                topology=topo, backend=ep_backend).data
     else:
         y_ret = y_back
 

@@ -56,7 +56,8 @@ def transfer_plan(pool_pages: int, pages: tuple, page_elems: int, dtype,
     and 2 for the epoch, never a per-page ack.  ``topology`` (part of the
     cache key) classifies a push that stays on one host into the
     shared-memory tier.  ``backend``: ``"auto"`` resolves to ``"rma"`` (a
-    page push records no collective macro); only ``"rma"`` is ported."""
+    page push records no collective macro, so ``"gspmd"`` compiles the
+    substrate schedule too, and ``"interpret"`` tags it for the walker)."""
     from repro_torch.core.rma.plan import RmaPlan
     from repro_torch.core.rma.topology import topology_fingerprint
 

@@ -15,7 +15,9 @@ Two gradient-synchronization modes, over a stacked data-parallel axis:
   one-sided ring all-reduce on a **sum-specialized dup** of that gradient
   window (``same_op="sum"``, paper §2.3 hints × P4) sums the rows — a
   declarative-plan replay that the planner lowers to one launch of kernel
-  K5 — and the gradients are that sum over n.
+  K5 (``backend="rma"``) or to one library sum over the rank axis
+  (``backend="gspmd"``; ``"auto"`` picks from the table measured on the
+  card) — and the gradients are that sum over n.
 """
 from __future__ import annotations
 
@@ -44,7 +46,10 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
 
     ``topology``: the data axis's host×device factorization (``None``
     consults ``RMA_TOPOLOGY``); a non-degenerate one makes the ring
-    hierarchical.  ``backend``: only ``"rma"`` is ported.  ``moe_ep``:
+    hierarchical.  ``backend``: the lowering target of the ``"rma_ring"``
+    gradient-sync plan (``"auto" | "rma" | "gspmd"``); ``"interpret"``
+    walks a plan off the substrate and is invalid in a train step.
+    ``moe_ep``:
     override the MoE dispatch mode (``"gspmd"`` | ``"rma"``) of the step's
     model; requires an MoE config.  ``ep_ranks``: its expert-parallel
     ranks (default: the model's).
@@ -69,10 +74,11 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
             "layout's one parameter tree cannot hold; use "
             "repro_torch.train.compress.compressed_all_reduce on stacked "
             "gradients instead")
-    if backend != "rma":
-        raise NotImplementedError(
-            f"backend={backend!r} is not ported to repro_torch yet (ROADMAP "
-            "queue 1, item 12)")
+    if backend not in ("auto", "rma", "gspmd"):
+        raise ValueError(
+            f"backend={backend!r} invalid for a train step; expected "
+            "'auto', 'rma', or 'gspmd' (the interpret target runs host-side "
+            "with no mesh)")
     if moe_ep is not None or ep_ranks is not None:
         from repro_torch.models import build_model
 
@@ -164,7 +170,7 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
         sumwin = win.dup_with_info(same_op="sum")
         mark("grads", "sync")
         red = plan_all_reduce(mat, axis, n, order=True, win=sumwin,
-                              topology=topo, donate=True)
+                              topology=topo, backend=backend, donate=True)
         metrics["phases"] = win.ledger.total
         vec = red[0, :size] / n   # every row holds the sum
         out, off = [], 0

@@ -165,11 +165,23 @@ def test_exchange_gradient_is_the_exchange(op, topology):
         plan_all_to_all(w, "x", n, op=op).data, want, rtol=0, atol=0)
 
 
-def test_exchange_rejects_unported_backends():
-    x = torch.zeros(2, 4, 1)
+def test_exchange_rejects_unported_backends(monkeypatch):
+    """Every backend the exchange once refused now runs and lands the
+    ``rma`` exchange's data, counts and bells bit for bit (``auto`` with no
+    table falls back to ``rma``); only ``interpret`` on a lent window is
+    refused, as in the reference."""
+    monkeypatch.setenv("RMA_TORCH_BACKEND_BENCH_JSON", "/nonexistent")
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(-9, 9, (2, 4, 1)).astype(np.float32))
+    cnts = torch.tensor([[2, 1], [0, 2]], dtype=torch.int32)
+    want = plan_all_to_all(x, "x", 2, counts=cnts)
     for backend in ("gspmd", "auto", "interpret"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            plan_all_to_all(x, "x", 2, backend=backend)
+        got = plan_all_to_all(x, "x", 2, counts=cnts, backend=backend)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), backend
+    lent = T.Window.allocate(torch.zeros(2, 4, 1), "x", 2)
+    with pytest.raises(ValueError, match="lent window"):
+        plan_all_to_all(x, "x", 2, backend="interpret", win=lent)
 
 
 # ---------------------------------------------------------------------------

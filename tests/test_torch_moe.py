@@ -141,15 +141,26 @@ def test_moe_config_and_family_guards():
                         ep_ranks=3)
     with pytest.raises(ValueError, match="ep_mode"):
         t_moe.moe_apply({}, torch.zeros(1, 4, 64), cfg, ep_mode="ring")
-    for backend in ("auto", "gspmd"):
+    # every ep_backend the reference takes runs, and lands the rma
+    # exchange's output bit for bit ("auto" with no table: rma)
+    params = build_model(cfg).init(0, device="cpu")["stack"]["scan"]
+    blk = {k: ({kk: vv[0] for kk, vv in v.items()} if isinstance(v, dict)
+               else v[0]) for k, v in params["l1"]["moe"].items()}
+    xin = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, 4, 64)).astype(np.float32))
+    outs = {}
+    for backend in ("rma", "auto", "gspmd"):
         bcfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
                                                    ep_backend=backend))
-        params = build_model(bcfg).init(0, device="cpu")["stack"]["scan"]
-        blk = {k: v[0] for k, v in params["l1"]["moe"].items()
-               if k != "shared"}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_moe.moe_apply(blk, torch.zeros(1, 4, 64), bcfg, ep_mode="rma",
-                            ep_ranks=2)
+        outs[backend] = t_moe.moe_apply(blk, xin, bcfg, ep_mode="rma",
+                                        ep_ranks=2)
+    for backend in ("auto", "gspmd"):
+        for a, b in zip(outs[backend], outs["rma"]):
+            assert torch.equal(a, b), backend
+    bad = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                              ep_backend="interpret"))
+    with pytest.raises(ValueError, match="ep_backend"):
+        t_moe.moe_apply(blk, xin, bad, ep_mode="rma", ep_ranks=2)
     for family in ("hybrid", "ssm"):
         # the reference builds both (attention mixers: no ssm config; no
         # FFN under "ssm"), and so does the port, with its plan

@@ -429,13 +429,39 @@ def test_plan_errors_agree():
             p.compile()
 
 
-def test_unported_surface_raises_not_implemented():
-    p = T.RmaPlan("x")
-    p.window("w")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p.compile(backend="gspmd")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.all_to_all_plan("x", 2, (2,), "float32", backend="gspmd")
+def test_unported_surface_raises_not_implemented(monkeypatch):
+    """The backends this surface once refused now compile: a plan with no
+    macro stays on the substrate under ``gspmd`` (as the reference's does),
+    and the all-to-all macro collapses to one collective step whose result
+    equals the substrate's bit for bit."""
+    monkeypatch.setenv("RMA_BACKEND_BENCH_JSON", "/nonexistent")
+    monkeypatch.setenv("RMA_TORCH_BACKEND_BENCH_JSON", "/nonexistent")
+    tables = []
+    for mod in (J, T):
+        p = mod.RmaPlan("x")
+        p.window("w")
+        p.bind("g", (2,), "float32")
+        p.put("w", "g", [(0, 1), (1, 0)])
+        c = p.compile(backend="gspmd")
+        assert c.backend == "rma" and c.lowering[:1] == ()
+        tables.append(c.phase_table())
+    assert tables[0] == tables[1]
+    c = T.all_to_all_plan("x", 2, (2,), "float32", backend="gspmd")
+    rma = T.all_to_all_plan("x", 2, (2,), "float32", backend="rma")
+    assert c.backend == "gspmd" and c.phases == 0
+    assert c.phase_table() == [("backend[gspmd]", 0),
+                               ("gspmd:all_to_all[a2a[data]]", 0)]
+    x = torch.arange(4, dtype=torch.float32).view(2, 2)
+    cnts = torch.tensor([[1, 1], [0, 1]], dtype=torch.int32)
+    outs = []
+    for compiled in (c, rma):
+        wins = {"data": T.Window.allocate(x.clone(), "x", 2),
+                "hdr": T.Window.allocate(torch.zeros(2, 4, dtype=torch.int32),
+                                         "x", 2, T.WindowConfig(
+                                             same_op="sum"))}
+        outs.append(compiled.execute(wins, {"x": x, "counts": cnts}).outputs)
+    for name in ("out", "counts", "bells"):
+        assert torch.equal(outs[0][name], outs[1][name]), name
 
 
 def test_fused_puts_agree_and_land():
