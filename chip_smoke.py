@@ -182,12 +182,35 @@
    then ``ring_all_gather`` on a lent window at the gradient's shape —
    equal to K5's sum bit for bit, ledgers equal to the cost model, K3
    launches and waits counted — and ``rma_all_reduce`` warning once.
-3. Prints the kernels' record as one JSON line, the card's name and power
+   The dry-run against the card (``[dryrun-card]``, after ``[train]``):
+   ``launch/dryrun.py::run_cell`` of the ``[train]`` configuration
+   (``qwen3-4b`` x2, batch 8 x 512, bf16 parameters and compute) on a
+   1 x 1 mesh — its argument bytes equal, exactly, what the caching
+   allocator is asked for when the same parameters, AdamW state and
+   batch are made on the card (``memory_allocated`` grows by the same
+   tensors in 512-byte blocks, plus the segment tails under 1 MiB the
+   allocator keeps whole), its meta run's dot FLOPs equal
+   ``FlopCounterMode``'s count of one real step on the card, exactly; the
+   measured step ms beside the roofline's ``compute_s`` and ``memory_s``,
+   the MFU (model FLOPs over step s × 989e12, with the card's name and
+   power limit) and the predicted peak beside ``max_memory_allocated`` —
+   and on a 4 x 1 mesh under ``rma_ring``: the ring's predicted phases
+   equal the phase ledger of each card step, K5 once a step.
+3. The dry-run sweep (``[dryrun]``): ``python -m repro_torch.launch.dryrun
+   --arch all --both-meshes`` runs on the ``meta`` device in a subprocess
+   that sees no card, started after the build and run beside the card
+   phases; every runnable arch x shape cell ``ok`` on the 16 x 16 mesh and
+   the 2 x 16 x 16 one (from the same meta run), ``long_500k`` of a
+   full-attention stack ``skipped`` with the reference's reason, one line a
+   cell (arguments and peak GiB a device, FLOPs a device, the useful
+   ratio, the roofline terms, the dominant one) and the sweep's time.
+4. Prints the kernels' record as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result;
 so it does without a CUDA device, or without the repository around it.
 """
+import atexit
 import dataclasses
 import gc
 import inspect
@@ -322,6 +345,16 @@ BACKEND_LOSS_RTOL = 1e-3
 # the walker's ring, informational: (4, 2^24) float32 (its gathered and
 # placed copies of the whole gradient would not fit beside it)
 INTERPRET_ELEMS = 1 << 24
+# the dry-run: the full sweep (every arch x shape, both production meshes
+# from one meta run a cell) runs in a CPU-only subprocess beside the card
+# phases; [dryrun-card] holds the dry-run of the [train] configuration
+# (qwen3-4b x2, batch 8 x 512, bf16 parameters and compute) against the
+# card: 3 timed steps on a 1 x 1 mesh (gspmd), 2 ring steps on a 4 x 1 mesh
+DRYRUN_TIMEOUT_S = 900
+DRYRUN_CARD_STEPS, DRYRUN_RING_STEPS = 3, 2
+#: the caching allocator's block: a request is rounded up to 512 bytes, and
+#: a segment's tail under 1 MiB stays with the block it was cut for
+ALLOC_BLOCK, ALLOC_SPLIT_MIN = 512, 1 << 20
 
 
 def bound_ms(nbytes: float, ops: float = 0.0,
@@ -407,6 +440,190 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def dryrun_card(torch, dev, smi, n, K, get_config, path_counts) -> None:
+    """[dryrun-card]: the dry-run of the [train] configuration held against
+    the card.  On a 1 x 1 mesh (gspmd): its argument bytes are what the
+    allocator is asked for when the same parameters, optimizer state and
+    batch are made on the card (each rounded up to the allocator's block:
+    what ``memory_allocated`` grows by, but for segment tails under 1 MiB
+    the allocator keeps with their block); its meta run's dot FLOPs are
+    ``FlopCounterMode``'s count of one real step; the step's measured ms
+    beside the roofline's terms, the MFU, the predicted peak beside
+    ``max_memory_allocated``.  On a 4 x 1 mesh (rma_ring): the ring's
+    predicted phases are the card step's ledger, and K5 launches once a
+    step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import hlo_analysis as HA
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.trainstep import make_train_step
+    from repro_torch.tree import leaves
+
+    shape = ShapeConfig("train_8x512", SEQ_LEN, GLOBAL_BATCH, "train")
+    over = {"n_layers": N_LAYERS}
+    t0 = time.perf_counter()
+    rec1 = DR.run_cell("qwen3-4b", shape, cfg_overrides=over,
+                       mesh=make_host_mesh())
+    rec4 = DR.run_cell("qwen3-4b", shape, cfg_overrides=over,
+                       grad_sync="rma_ring", mesh=make_host_mesh(data=n))
+    dry_s = time.perf_counter() - t0
+    check(rec1["status"] == "ok" and rec4["status"] == "ok",
+          "[dryrun-card] a cell failed")
+    for rec in (rec1, rec4):
+        print(DR.cell_line(f"qwen3-4b x{N_LAYERS} x {shape.name} x "
+                           f"{rec['mesh']} ({rec['grad_sync']})", rec),
+              flush=True)
+    cfg = get_config("qwen3-4b").replace(n_layers=N_LAYERS,
+                                         dtype="bfloat16",
+                                         param_dtype="bfloat16")
+    model = build_model(cfg)
+
+    # the arguments, made on the card
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    stats0 = torch.cuda.memory_stats()
+    params = model.init(0, device=dev)
+    opt_state = init_opt_state(params)
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab, (GLOBAL_BATCH, SEQ_LEN),
+                              generator=gen).to(dev, torch.int32)
+             for k in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    stats1 = torch.cuda.memory_stats()
+    made = leaves(params) + leaves(opt_state) + list(batch.values())
+    nbytes = [t.numel() * t.element_size() for t in made]
+    blocks = [-(-b // ALLOC_BLOCK) * ALLOC_BLOCK for b in nbytes]
+    requested = (stats1["requested_bytes.all.current"]
+                 - stats0["requested_bytes.all.current"])
+    allocated = (stats1["allocated_bytes.all.current"]
+                 - stats0["allocated_bytes.all.current"])
+    args = rec1["bytes_per_device"]["arguments"]
+    check(args == sum(nbytes),
+          f"[dryrun-card] arguments {args} != the card tensors' "
+          f"{sum(nbytes)} bytes")
+    check(requested == args,
+          f"[dryrun-card] the allocator was asked for {requested} bytes, "
+          f"the dry-run predicts {args}")
+    check(sum(blocks) <= allocated < sum(blocks) + ALLOC_SPLIT_MIN * len(made),
+          f"[dryrun-card] memory_allocated grew {allocated} bytes against "
+          f"{sum(blocks)} in 512-byte blocks")
+    print(f"[dryrun-card] arguments: dry-run {args} bytes = allocator "
+          f"requests {requested} bytes exactly ({len(made)} tensors); "
+          f"memory_allocated grew {allocated} = {sum(blocks)} in 512-byte "
+          f"blocks + {allocated - sum(blocks)} of segment tails kept whole "
+          f"(dry-run {dry_s:.1f} s for both cells)", flush=True)
+
+    # one real step under the FLOP counter, then timed steps without it
+    step = make_train_step(model, OptimizerConfig())
+    with FlopCounterMode(display=False) as fc:
+        step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    meta_flops = rec1["hlo_flops"] * rec1["chips"]
+    check(card_flops == meta_flops,
+          f"[dryrun-card] the card step's dot FLOPs {card_flops} != the "
+          f"meta run's {meta_flops}")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step_ms = []
+    for _ in range(DRYRUN_CARD_STEPS):
+        t1 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    best = min(step_ms[1:])
+    roof = rec1["roofline"]
+    mfu = rec1["model_flops"] / (best * 1e-3 * HA.PEAK_FLOPS)
+    pred_peak = rec1["bytes_per_device"]["peak"]
+    print(f"[dryrun-card] dot FLOPs: meta run {meta_flops:.6g} = card step "
+          f"{card_flops:.6g} exactly; step ms {[round(v, 1) for v in step_ms]}"
+          f" (host clock, synchronized) beside compute_s "
+          f"{roof['compute_s'] * 1e3:.2f} ms and memory_s "
+          f"{roof['memory_s'] * 1e3:.2f} ms (dominant {roof['dominant']}); "
+          f"MFU {mfu:.4f} (model FLOPs {rec1['model_flops']:.6g} over "
+          f"{best:.1f} ms at {HA.PEAK_FLOPS:.3g} FLOP/s, {smi}); peak: "
+          f"predicted {pred_peak / 2**30:.2f} GiB (arguments "
+          f"{args / 2**30:.2f} + transient {rec1['bytes_per_device']['temp'] / 2**30:.2f}) "
+          f"vs max_memory_allocated {peak / 2**30:.2f} GiB "
+          f"({pred_peak / peak:.3f} x; {base / 2**30:.2f} GiB held before "
+          f"the steps)", flush=True)
+
+    # the ring over 4 stacked ranks: predicted phases = the card's ledger
+    ring_step = make_train_step(model, OptimizerConfig(),
+                                grad_sync="rma_ring", data_axis="data",
+                                data_axis_size=n)
+    coll = rec4["collectives"]
+    check(coll is not None and coll["ranks"] == n,
+          "[dryrun-card] the ring cell has no ring")
+    K.reset_launch_counts()
+    ledgers = []
+    for _ in range(DRYRUN_RING_STEPS):
+        _, _, metrics = ring_step(params, opt_state, batch)
+        ledgers.append(metrics["phases"])
+    torch.cuda.synchronize()
+    counts = path_counts("[dryrun-card] ring step", ("ring_all_reduce",))
+    check(counts["ring_all_reduce"] == DRYRUN_RING_STEPS,
+          "[dryrun-card] K5 did not run once a step")
+    check(all(p == coll["phases"] for p in ledgers),
+          f"[dryrun-card] the card's ledgers {ledgers} != the dry-run's "
+          f"{coll['phases']} phases")
+    print(f"[dryrun-card] ring on {n} ranks: predicted {coll['phases']} "
+          f"phases ({coll['phase_table']}) = the card's ledger {ledgers} a "
+          f"step; K5 {counts['ring_all_reduce']} in {DRYRUN_RING_STEPS} "
+          f"steps; ring bytes a rank {coll['total_bytes']:.6g}, "
+          f"collective_s {rec4['roofline']['collective_s'] * 1e3:.3f} ms "
+          f"at NVLink's {HA.NVLINK_BW:.3g} B/s", flush=True)
+    del params, opt_state, batch, made, step, ring_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def collect_dryrun(proc, log, out_path, t0, get_config) -> None:
+    """[dryrun]: wait for the sweep, print its lines, and hold its records:
+    every runnable cell ``ok`` on both meshes, ``long_500k`` on a
+    full-attention stack ``skipped`` with the reference's reason."""
+    from repro_torch.configs import SHAPES, cell_is_runnable, list_archs
+    from repro_torch.launch.dryrun import cell_line
+
+    try:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError("[dryrun] the sweep did not end in "
+                             f"{DRYRUN_TIMEOUT_S} s")
+    log.close()
+    wall = time.perf_counter() - t0
+    with open(log.name) as f:
+        tail = [ln for ln in f.read().splitlines()
+                if ln.startswith("[dryrun] done")]
+    recs = [json.loads(ln) for ln in open(out_path)]
+    check(rc == 0, f"[dryrun] the sweep exited {rc}: {tail}")
+    by_cell = {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
+    for arch in list_archs():
+        for shape in sorted(SHAPES):
+            ok, why = cell_is_runnable(get_config(arch), SHAPES[shape])
+            for mesh in ("16x16", "2x16x16"):
+                r = by_cell.get((arch, shape, mesh))
+                check(r is not None, f"[dryrun] no record of {arch} x "
+                      f"{shape} x {mesh}")
+                want = "ok" if ok else "skipped"
+                check(r["status"] == want, f"[dryrun] {arch} x {shape} x "
+                      f"{mesh}: {r['status']} ({r.get('error')})")
+                check(ok or r["why"] == why, f"[dryrun] {arch} x {shape}: "
+                      f"skip reason {r.get('why')!r}")
+                print(cell_line(f"{arch} x {shape} x {mesh}", r),
+                      flush=True)
+    print(f"[dryrun] {len(recs)} cells, 0 failures; {tail[-1]}; "
+          f"{wall:.1f} s wall beside the card phases", flush=True)
+
+
 def main() -> int:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -442,6 +659,18 @@ def main() -> int:
     _build.build()
     print(f"[build] {len(_build.SOURCES)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # [dryrun]: the full sweep on the meta device, in a subprocess that sees
+    # no card, beside the card phases; collected before the record
+    dry_dir = tempfile.mkdtemp(prefix="dryrun_")
+    dry_out = os.path.join(dry_dir, "cells.jsonl")
+    dry_log = open(os.path.join(dry_dir, "sweep.log"), "w")
+    dry_t0 = time.perf_counter()
+    dry_proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all",
+         "--both-meshes", "--out", dry_out], cwd=HERE, stdout=dry_log,
+        stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=src, CUDA_VISIBLE_DEVICES=""))
+    atexit.register(lambda: dry_proc.poll() is None and dry_proc.kill())
     for tag, name, kernel in (("K1", "accumulate", "acc_kernel"),
                               ("K5", "ring_allreduce", "ring_ar_kernel")):
         report = _build.ptxas_report(name, kernel)
@@ -1990,6 +2219,9 @@ def main() -> int:
     ring_run = dict(losses=run.losses, step_ms=run.step_ms, peak=peak_gib)
     del run
     torch.cuda.empty_cache()
+
+    # ---- [dryrun-card] the dry-run of [train]'s configuration on the card --
+    dryrun_card(torch, dev, smi, n, K, get_config, path_counts)
 
     # ---- [backends] the plan backends at the [train] shapes ----------------
     from repro_torch.core.rma import RmaPlan, plan_all_to_all
@@ -4040,6 +4272,10 @@ def main() -> int:
         step_logits, frames, enc_model
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- [dryrun] the full sweep's records ---------------------------------
+    collect_dryrun(dry_proc, dry_log, dry_out, dry_t0, get_config)
+    shutil.rmtree(dry_dir, ignore_errors=True)
 
     # ---- 3. the record ------------------------------------------------------
     replaces = {

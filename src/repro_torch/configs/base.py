@@ -125,6 +125,27 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One dry-run shape: sequence length, global batch and step kind."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 
 
@@ -147,5 +168,14 @@ def list_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-__all__ = ["MoEConfig", "MLAConfig", "SSMConfig", "ModelConfig", "register",
-           "get_config", "list_archs"]
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether (arch, shape) is a runnable dry-run cell, and why not if not."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("pure full-attention architecture: 512k-token decode "
+                       "requires sub-quadratic attention (documented skip)")
+    return True, ""
+
+
+__all__ = ["MoEConfig", "MLAConfig", "SSMConfig", "ModelConfig",
+           "ShapeConfig", "SHAPES", "register", "get_config", "list_archs",
+           "cell_is_runnable"]

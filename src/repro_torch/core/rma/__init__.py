@@ -14,7 +14,8 @@ rows of stacked ``(n, ...)`` tensors):
   :func:`win_from_memhandle`, :class:`MemhandleWindow`;
 * :func:`win_op_intrinsic` and the accumulate engine (:func:`route_accumulate`,
   :func:`routed_accumulate`, :func:`crossover_elems`, :func:`accumulate_signal`);
-* :class:`Topology` and :func:`default_topology`;
+* :class:`Topology`, :func:`default_topology`, :func:`topology_from_mesh`
+  (over ``repro_torch.sharding.Mesh``) and :func:`classify_cp` (HLO text);
 * :class:`RmaPlan` / :class:`CompiledPlan` — declarative plans;
 * :func:`all_reduce_plan` / :func:`plan_all_reduce` — the planned ring
   (:func:`rma_all_reduce`: its deprecated imperative form);
@@ -47,8 +48,10 @@ from repro_torch.core.rma.accumulate import (PATH_INTRINSIC, PATH_SOFTWARE,
                                              apply_op, crossover_elems,
                                              route_accumulate,
                                              routed_accumulate)
-from repro_torch.core.rma.topology import (Topology, default_topology,
-                                           topology_fingerprint)
+from repro_torch.core.rma.topology import (Topology, classify_cp,
+                                           default_topology,
+                                           topology_fingerprint,
+                                           topology_from_mesh)
 from repro_torch.core.rma.plan import (CompiledPlan, OpRef, PlanEnv,
                                        PlanError, PlanResult, RmaPlan)
 from repro_torch.core.rma.collectives import (all_reduce_plan,
@@ -73,6 +76,7 @@ __all__ = [
     "INTRINSIC_MAX_COUNT", "PATH_INTRINSIC", "PATH_TILED", "PATH_SOFTWARE",
     "apply_op", "route_accumulate", "routed_accumulate", "accumulate_signal",
     "crossover_elems", "Topology", "default_topology", "topology_fingerprint",
+    "topology_from_mesh", "classify_cp",
     "RmaPlan", "CompiledPlan", "PlanEnv", "PlanResult", "PlanError", "OpRef",
     "all_reduce_plan", "plan_all_reduce", "put_signal",
     "put_signal_pipelined", "all_to_all_plan", "plan_all_to_all",

@@ -17,7 +17,8 @@ import os
 import re
 from typing import Iterable
 
-__all__ = ["Topology", "default_topology", "topology_fingerprint"]
+__all__ = ["Topology", "default_topology", "topology_fingerprint",
+           "topology_from_mesh", "classify_cp"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,3 +102,81 @@ def default_topology(axis_size: int, *, env: str | None = None
             f"RMA_TOPOLOGY={spec} declares {topo.axis_size} ranks but the "
             f"axis has {axis_size}")
     return topo
+
+
+def topology_from_mesh(mesh, axis: str) -> "Topology | None":
+    """Discover the host×device factorization of one mesh axis.
+
+    Groups the axis's devices by ``process_index`` (a multi-host run has
+    one process per host).  Returns a :class:`Topology` when the devices
+    tile host-major into equal same-process groups (a multi-host mesh laid
+    out host by host) and ``None`` when they don't (an interleaved layout gets the safe flat treatment, not a wrong
+    one).  Single-process meshes fall back to :func:`default_topology`, so
+    ``RMA_TOPOLOGY`` can pin a factorization.  ``mesh`` is
+    ``repro_torch.sharding.Mesh`` (or anything with ``shape``,
+    ``axis_names`` and a ``devices`` array).
+    """
+    if axis not in getattr(mesh, "shape", {}):
+        return None
+    devs = mesh.devices
+    try:
+        import numpy as np
+        axes = list(mesh.axis_names)
+        moved = np.moveaxis(devs, axes.index(axis), -1)
+        lanes = moved.reshape(-1, devs.shape[axes.index(axis)])
+    except Exception:
+        return None
+    n = lanes.shape[1]
+    procs = [[getattr(d, "process_index", 0) for d in lane] for lane in lanes]
+    if len({tuple(p) for p in procs}) != 1:
+        return None  # different lanes see different layouts: stay flat
+    seq = procs[0]
+    if len(set(seq)) == 1:
+        return default_topology(n)  # single process: env override or flat
+    # host-major check: equal-size contiguous runs, one per process
+    run_lens: list[int] = []
+    last, count = None, 0
+    seen: set = set()
+    for p in seq:
+        if p == last:
+            count += 1
+        else:
+            if p in seen:
+                return None  # process appears in two runs: interleaved
+            seen.add(p)
+            if last is not None:
+                run_lens.append(count)
+            last, count = p, 1
+    run_lens.append(count)
+    if len(set(run_lens)) != 1:
+        return None
+    return Topology(hosts=len(run_lens), local=run_lens[0])
+
+
+_CP_PAIRS = re.compile(r"source_target_pairs=\{((?:\{\d+,\d+\},?)+)\}")
+_PAIR = re.compile(r"\{(\d+),(\d+)\}")
+
+
+def classify_cp(hlo_text: str, topo: "Topology | None"
+                ) -> tuple[int, int]:
+    """Split an HLO text's ``collective-permute(`` count into ``(inter,
+    intra)`` under ``topo``.
+
+    A permute is intra iff *every* ``{src,tgt}`` pair in its
+    ``source_target_pairs`` stays on one host; with ``topo=None``
+    everything counts as inter.  The total always equals
+    ``hlo_text.count("collective-permute(")``.  A pure text function, the
+    JAX package's, so both packages read the same HLO the same way.
+    """
+    inter = intra = 0
+    for line in hlo_text.splitlines():
+        if "collective-permute(" not in line:
+            continue
+        m = _CP_PAIRS.search(line)
+        pairs = [(int(a), int(b)) for a, b in _PAIR.findall(m.group(1))] \
+            if m else []
+        if topo is not None and pairs and topo.perm_is_intra(pairs):
+            intra += 1
+        else:
+            inter += 1
+    return inter, intra

@@ -8,7 +8,9 @@ store into another rank's row, and a kernel runs only on the card.
 
 Dispatch rule: a wrapper given CPU tensors computes its plain PyTorch
 version; given CUDA tensors it launches its kernel or raises — never the
-plain version.
+plain version.  Tensors on the ``meta`` device (the dry-run's shape-only
+build) take the plain version too, which there carries shapes alone, and
+count no launch.
 """
 from __future__ import annotations
 
@@ -117,8 +119,9 @@ class LaunchCounter:
 
 def on_device(*tensors: torch.Tensor) -> bool:
     """True when the tensors lie on a CUDA device (the wrapper must launch
-    its kernel), False when they lie on the CPU (the wrapper computes its
-    plain version).  Mixed placements raise (K3's one exception:
+    its kernel), False when they lie on the CPU or on ``meta`` (the
+    wrapper computes its plain version; on ``meta`` that carries shapes
+    only).  Mixed placements raise (K3's one exception:
     :func:`host_window`)."""
     kinds = {t.device.type for t in tensors}
     if len(kinds) != 1:
@@ -126,9 +129,33 @@ def on_device(*tensors: torch.Tensor) -> bool:
     kind = kinds.pop()
     if kind == "cuda":
         return True
-    if kind == "cpu":
+    if kind in ("cpu", "meta"):
         return False
     raise ValueError(f"unsupported device type {kind!r}")
+
+
+#: observers of a plain version run on ``meta`` (the dry-run's traffic
+#: counter, ``launch.dryrun.TrafficMode``): each has ``kernel_enter()`` and
+#: ``kernel_exit(operands, results)``
+META_KERNEL_OBSERVERS: list = []
+
+
+def plain(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` — a wrapper's plain version.  On ``meta``
+    tensors an active observer sees the call as one kernel, as the card runs
+    it: its operands read once and its results written once, none of the
+    plain version's temporaries."""
+    obs = META_KERNEL_OBSERVERS[-1] if META_KERNEL_OBSERVERS else None
+    if obs is None or not any(isinstance(a, torch.Tensor) and a.is_meta
+                              for a in args):
+        return fn(*args, **kwargs)
+    obs.kernel_enter()
+    out = None
+    try:
+        out = fn(*args, **kwargs)
+    finally:
+        obs.kernel_exit((args, kwargs), out)
+    return out
 
 
 #: pinned host storages K3 reaches at a device-mapped address: storage
@@ -181,7 +208,8 @@ def stream_ptr(device: torch.device) -> int:
 __all__ = [
     "ATOMIC_KERNEL_OPS", "ACC_OPS", "BITWISE_OPS", "OP_CODES", "DTYPE_CODES",
     "as_dtype", "is_integer", "combine_op", "cdiv", "round_up",
-    "LaunchCounter", "on_device", "host_window", "pinned_host",
+    "LaunchCounter", "on_device", "plain", "META_KERNEL_OBSERVERS",
+    "host_window", "pinned_host",
     "MAPPED_HOST", "check_launch",
     "stream_ptr",
 ]

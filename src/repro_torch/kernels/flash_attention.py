@@ -133,8 +133,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     view of a (B, S, H, D) tensor, a view of one too."""
     _check(q, k, v, block_q, block_kv)
     if not _common.on_device(q, k, v):
-        return flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
-                                     block_kv=block_kv, sm_scale=sm_scale)
+        return _common.plain(flash_attention_plain, q, k, v, causal=causal,
+                             block_q=block_q, block_kv=block_kv,
+                             sm_scale=sm_scale)
     if q.dtype not in VARIANTS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"K7 takes float32 or bfloat16 q/k/v of one dtype, "
                         f"got {q.dtype}/{k.dtype}/{v.dtype}")

@@ -26,12 +26,12 @@ def ssd_scan_plain(xdt, a, Bm, Cm, *, chunk: int, nheads: int, headdim: int,
         Bm = F.pad(Bm, (0, 0, 0, pad))
         Cm = F.pad(Cm, (0, 0, 0, pad))
     lp = length + pad
-    y_intra, states, cum = ssd_intra_chunk_plain(
-        xdt.reshape(b, lp, h * p), a, Bm, Cm, chunk=chunk, nheads=nheads,
-        headdim=headdim)
-    y, final = ssd_pass_plain(y_intra, states, cum, Cm, chunk=chunk,
-                              nheads=nheads, headdim=headdim,
-                              initial_state=initial_state)
+    y_intra, states, cum = _common.plain(
+        ssd_intra_chunk_plain, xdt.reshape(b, lp, h * p), a, Bm, Cm,
+        chunk=chunk, nheads=nheads, headdim=headdim)
+    y, final = _common.plain(ssd_pass_plain, y_intra, states, cum, Cm,
+                             chunk=chunk, nheads=nheads, headdim=headdim,
+                             initial_state=initial_state)
     return y[:, :length], final
 
 

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers
+from repro_torch.sharding import logical_constraint
 
 NEG_INF = -2.0**30  # large-but-finite: avoids NaNs from (-inf) - (-inf)
 
@@ -52,6 +53,22 @@ def init_gqa(gen, cfg, device) -> dict:
         p["bk"] = torch.zeros((KV, hd), dtype=pd, device=device)
         p["bv"] = torch.zeros((KV, hd), dtype=pd, device=device)
         p["bo"] = torch.zeros((d,), dtype=pd, device=device)
+    return p
+
+
+def gqa_spec(cfg) -> dict:
+    p = {
+        "wq": ("embed", "heads", None),
+        "wk": ("embed", "kv_heads", None),
+        "wv": ("embed", "kv_heads", None),
+        "wo": ("heads", None, "embed"),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = layers.rmsnorm_spec()
+        p["k_norm"] = layers.rmsnorm_spec()
+    if cfg.attn_bias:
+        p.update({"bq": ("heads", None), "bk": ("kv_heads", None),
+                  "bv": ("kv_heads", None), "bo": ("embed",)})
     return p
 
 
@@ -201,6 +218,8 @@ def _cached_attention(q, k, v, cache: dict, *, prefill: bool) -> torch.Tensor:
         _write_dense(cache["k"], k, pos, cols)
         _write_dense(cache["v"], v, pos, cols)
         ck, cv = cache["k"], cache["v"]
+    ck = logical_constraint(ck, "batch", "kv_seq", "kv_heads", None)
+    cv = logical_constraint(cv, "batch", "kv_seq", "kv_heads", None)
     pos += S
     if prefill:
         return flash_prefill(q, k, v)
@@ -283,6 +302,7 @@ def gqa_attention(params: dict, x: torch.Tensor, cfg, *,
                 f"with init_cache(..., enc_len={k.shape[1]})")
         cache["k"].copy_(k)
         cache["v"].copy_(v)
+    out = logical_constraint(out, "batch", "seq", "heads", None)
     proj = torch.einsum("bshk,hkd->bsd", out.to(dt), params["wo"].to(dt))
     if "bo" in params:
         proj = proj + params["bo"].to(dt)
@@ -339,6 +359,20 @@ def init_mla(gen, cfg, device) -> dict:
     }
 
 
+def mla_spec(cfg) -> dict:
+    return {
+        "w_dq": ("embed", "q_lora"),
+        "q_norm": layers.rmsnorm_spec(),
+        "w_uq": ("q_lora", "heads", None),
+        "w_dkv": ("embed", "kv_lora"),
+        "kv_norm": layers.rmsnorm_spec(),
+        "w_kr": ("embed", None),
+        "w_uk": ("kv_lora", "heads", None),
+        "w_uv": ("kv_lora", "heads", None),
+        "wo": ("heads", None, "embed"),
+    }
+
+
 def mla_attention(params: dict, x: torch.Tensor, cfg, *,
                   positions: torch.Tensor, cache: dict | None = None,
                   prefill: bool = False) -> torch.Tensor:
@@ -390,6 +424,7 @@ def mla_attention(params: dict, x: torch.Tensor, cfg, *,
     # attend in the latent space, then expand once: out_h = (w·c) @ W_uv
     ctx = torch.einsum("bhst,btr->bshr", w.to(dt), c_kv)
     out = torch.einsum("bshr,rhv->bshv", ctx, params["w_uv"].to(dt))
+    out = logical_constraint(out, "batch", "seq", "heads", None)
     return torch.einsum("bshv,hvd->bsd", out, params["wo"].to(dt))
 
 
@@ -412,8 +447,8 @@ def mla_cache_spec(cfg) -> dict:
     }
 
 
-__all__ = ["init_gqa", "gqa_attention", "full_attention",
+__all__ = ["init_gqa", "gqa_spec", "gqa_attention", "full_attention",
            "blockwise_attention", "flash_prefill", "init_gqa_cache",
-           "gqa_cache_spec", "init_paged_gqa_cache", "init_mla",
+           "gqa_cache_spec", "init_paged_gqa_cache", "init_mla", "mla_spec",
            "mla_attention", "init_mla_cache", "mla_cache_spec",
            "PREFILL_BLOCK"]

@@ -3,9 +3,12 @@ positions.
 
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts (``wi`` is ``(d, 2·ff)``, a linear maps ``x @ W``), so converted
-reference parameters drop straight in.  ``cfg.dtype`` is the compute dtype,
-``cfg.param_dtype`` the storage dtype; weights are cast at use, as in the
-reference.
+reference parameters drop straight in.  Every ``init_*`` has a ``*_spec``
+twin returning a tree of the same structure whose leaves are tuples of
+logical axis names, one per dim (``None`` = replicated), the JAX package's
+specs; ``repro_torch.sharding`` maps the names to mesh axes.
+``cfg.dtype`` is the compute dtype, ``cfg.param_dtype`` the storage dtype;
+weights are cast at use, as in the reference.
 """
 from __future__ import annotations
 
@@ -36,6 +39,10 @@ def init_rmsnorm(d: int, dtype, device) -> dict:
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
+def rmsnorm_spec() -> dict:
+    return {"scale": ("embed",)}
+
+
 def rms_norm(x: torch.Tensor, params: dict, eps: float = 1e-6) -> torch.Tensor:
     dtype = x.dtype
     x = x.float()
@@ -47,6 +54,10 @@ def rms_norm(x: torch.Tensor, params: dict, eps: float = 1e-6) -> torch.Tensor:
 def init_layernorm(d: int, dtype, device) -> dict:
     return {"scale": torch.ones((d,), dtype=dtype, device=device),
             "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm_spec() -> dict:
+    return {"scale": ("embed",), "bias": ("embed",)}
 
 
 def layer_norm(x: torch.Tensor, params: dict, eps: float = 1e-5) -> torch.Tensor:
@@ -64,6 +75,10 @@ def init_embed(gen, vocab: int, d: int, dtype, device) -> dict:
     return {"table": trunc_normal(gen, (vocab, d), 1.0, dtype, device)}
 
 
+def embed_spec() -> dict:
+    return {"table": ("vocab", "embed")}
+
+
 def embed(tokens: torch.Tensor, params: dict, dtype) -> torch.Tensor:
     # gather, then cast: the same values as casting the table first, without
     # materializing a cast copy of the whole table
@@ -79,6 +94,10 @@ def init_lm_head(gen, d: int, vocab: int, dtype, device) -> dict:
     return {"kernel": dense_init(gen, d, vocab, dtype, device)}
 
 
+def lm_head_spec() -> dict:
+    return {"kernel": ("embed", "vocab")}
+
+
 def lm_head(x: torch.Tensor, params: dict) -> torch.Tensor:
     """Vocab logits in float32 (a stable softmax and loss)."""
     return x.float() @ params["kernel"].float()
@@ -89,6 +108,10 @@ def lm_head(x: torch.Tensor, params: dict) -> torch.Tensor:
 def init_swiglu(gen, d: int, ff: int, dtype, device) -> dict:
     return {"wi": dense_init(gen, d, 2 * ff, dtype, device),
             "wo": dense_init(gen, ff, d, dtype, device)}
+
+
+def swiglu_spec() -> dict:
+    return {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
 
 
 def swiglu(x: torch.Tensor, params: dict) -> torch.Tensor:
@@ -106,6 +129,14 @@ def init_gelu_mlp(gen, d: int, ff: int, dtype, device, *,
     if bias:
         p["bi"] = torch.zeros((ff,), dtype=dtype, device=device)
         p["bo"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
+
+def gelu_mlp_spec(*, bias: bool = True) -> dict:
+    p = {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    if bias:
+        p["bi"] = ("mlp",)
+        p["bo"] = ("embed",)
     return p
 
 
@@ -154,6 +185,10 @@ def init_learned_pos(gen, max_len: int, d: int, dtype, device) -> dict:
                                 dtype, device)}
 
 
+def learned_pos_spec() -> dict:
+    return {"pos": (None, "embed")}
+
+
 def add_learned_pos(x: torch.Tensor, params: dict, offset: int = 0
                     ) -> torch.Tensor:
     """``x`` (..., seq, d) plus the table's rows ``offset … offset + seq``."""
@@ -162,9 +197,10 @@ def add_learned_pos(x: torch.Tensor, params: dict, offset: int = 0
 
 
 __all__ = [
-    "trunc_normal", "dense_init", "init_rmsnorm", "rms_norm",
-    "init_layernorm", "layer_norm", "init_embed", "embed", "unembed",
-    "init_lm_head", "lm_head", "init_swiglu", "swiglu", "init_gelu_mlp",
-    "gelu_mlp", "rope_frequencies", "apply_rope", "init_learned_pos",
-    "add_learned_pos",
+    "trunc_normal", "dense_init", "init_rmsnorm", "rmsnorm_spec", "rms_norm",
+    "init_layernorm", "layernorm_spec", "layer_norm", "init_embed",
+    "embed_spec", "embed", "unembed", "init_lm_head", "lm_head_spec",
+    "lm_head", "init_swiglu", "swiglu_spec", "swiglu", "init_gelu_mlp",
+    "gelu_mlp_spec", "gelu_mlp", "rope_frequencies", "apply_rope",
+    "init_learned_pos", "learned_pos_spec", "add_learned_pos",
 ]

@@ -24,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, transformer
 from repro_torch.models.transformer import LayerSpec
+from repro_torch.sharding import logical_constraint
 
 
 @dataclasses.dataclass
@@ -72,6 +73,26 @@ class Model:
                 gen, cfg.max_seq, cfg.d_model, pd, dev)
         return params
 
+    def param_specs(self) -> dict:
+        """The parameter tree's logical-axis specs (one tuple of names a
+        leaf), the JAX package's."""
+        cfg = self.cfg
+        spec = {
+            "embed": layers.embed_spec(),
+            "stack": transformer.stack_spec(cfg, self.plan),
+            "final_norm": transformer._norm_spec(cfg),
+        }
+        if not cfg.tie_embeddings:
+            spec["lm_head"] = layers.lm_head_spec()
+        if cfg.enc_layers:
+            spec["encoder"] = {
+                "stack": transformer.stack_spec(cfg, self.enc_plan),
+                "final_norm": transformer._norm_spec(cfg),
+                "pos": layers.learned_pos_spec(),
+            }
+            spec["dec_pos"] = layers.learned_pos_spec()
+        return spec
+
     def _embed_inputs(self, params, batch) -> torch.Tensor:
         """Token embeddings; a VLM's precomputed ``patches`` replace the
         first ``vlm_prefix`` positions, an enc-dec decoder adds its learned
@@ -84,7 +105,7 @@ class Model:
             x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
         if cfg.enc_layers:
             x = layers.add_learned_pos(x, params["dec_pos"])
-        return x
+        return logical_constraint(x, "batch", "seq", "embed")
 
     def _encode(self, params, frames: torch.Tensor, *,
                 prefill: bool = False) -> torch.Tensor:
@@ -112,7 +133,7 @@ class Model:
         if cfg.vocab_padded != cfg.vocab:
             lane = torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab
             logits = torch.where(lane, logits, logits.new_full((), -1e30))
-        return logits
+        return logical_constraint(logits, "batch", "seq", "vocab")
 
     def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward; returns float32 logits and the summed MoE
@@ -194,7 +215,8 @@ class Model:
         logits, aux = self.forward(params, batch)
         labels = batch["labels"]
         logp = torch.log_softmax(logits.float(), dim=-1)
-        ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+        ll = torch.gather(logp, -1,
+                          labels.long().clamp(min=0)[..., None])[..., 0]
         mask = (labels >= 0).float()
         xent = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         return xent + 0.01 * aux, {"xent": xent, "aux": aux}

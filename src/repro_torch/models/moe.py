@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.sharding import logical_constraint
 
 
 def init_moe(gen, cfg, device) -> dict:
@@ -46,6 +47,17 @@ def init_moe(gen, cfg, device) -> dict:
     }
     if mo.n_shared:
         p["shared"] = layers.init_swiglu(gen, d, mo.d_ff_shared, pd, device)
+    return p
+
+
+def moe_spec(cfg) -> dict:
+    p = {
+        "router": ("embed", None),
+        "wi": ("expert", "embed", "mlp_expert"),
+        "wo": ("expert", "mlp_expert", "embed"),
+    }
+    if cfg.moe.n_shared:
+        p["shared"] = layers.swiglu_spec()
     return p
 
 
@@ -130,7 +142,9 @@ def moe_apply(params: dict, x: torch.Tensor, cfg, *, return_aux: bool = False,
 
     buf = xt.new_zeros((E * C + 1, d)).index_put((dest,), xt[tok_of])
     buf = buf[:E * C].reshape(E, C, d)
+    buf = logical_constraint(buf, "expert", None, "embed")
     yb = _experts(buf, params["wi"], params["wo"], dt)
+    yb = logical_constraint(yb, "expert", None, "embed")
 
     y_flat = yb.reshape(E * C, d)
     safe_dest = torch.where(keep, dest, 0)
@@ -325,4 +339,4 @@ def moe_ref(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return out.reshape(B, S, d).to(x.dtype)
 
 
-__all__ = ["init_moe", "moe_apply", "moe_ref"]
+__all__ = ["init_moe", "moe_spec", "moe_apply", "moe_ref"]

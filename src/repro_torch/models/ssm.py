@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_scan_ref
 from repro_torch.models import layers
+from repro_torch.sharding import logical_constraint
 
 
 def _dims(cfg) -> tuple[int, int, int]:
@@ -55,6 +56,19 @@ def init_mamba2(gen, cfg, device) -> dict:
         "dt_bias": torch.zeros((nheads,), dtype=torch.float32, device=device),
         "norm": layers.init_rmsnorm(d_inner, pd, device),
         "out_proj": layers.trunc_normal(gen, (d_inner, d), 1.0, pd, device),
+    }
+
+
+def mamba2_spec(cfg) -> dict:
+    return {
+        "in_proj": ("embed", "mlp"),
+        "conv_w": ("mlp", None),
+        "conv_b": ("mlp",),
+        "A_log": (None,),
+        "D": (None,),
+        "dt_bias": (None,),
+        "norm": {"scale": ("mlp",)},
+        "out_proj": ("mlp", "embed"),
     }
 
 
@@ -208,6 +222,7 @@ def mamba2_apply(params: dict, x: torch.Tensor, cfg, *,
 
     y = (y.float() + params["D"][None, None, :, None] * xh.float()).to(dt_)
     y = y.reshape(B, S, d_inner)
+    y = logical_constraint(y, "batch", "seq", "mlp")
     gated = y * F.silu(z.float()).to(dt_)
     gated = layers.rms_norm(gated, params["norm"], cfg.norm_eps)
     return gated @ params["out_proj"].to(dt_)
@@ -232,7 +247,7 @@ def mamba2_cache_spec(cfg) -> dict:
 
 
 __all__ = [
-    "init_mamba2", "mamba2_apply",
+    "init_mamba2", "mamba2_spec", "mamba2_apply",
     "init_mamba2_cache", "mamba2_cache_spec",
     "ssd_chunked", "ssd_ref", "causal_conv1d", "causal_conv1d_step",
 ]

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention, layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
+from repro_torch.sharding import logical_constraint, map_specs
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
@@ -92,6 +93,11 @@ def _norm_init(cfg, device):
     return layers.init_rmsnorm(cfg.d_model, cfg.parameter_dtype, device)
 
 
+def _norm_spec(cfg):
+    return (layers.layernorm_spec() if cfg.norm == "layernorm"
+            else layers.rmsnorm_spec())
+
+
 def _norm(x, p, cfg):
     if cfg.norm == "layernorm":
         return layers.layer_norm(x, p, cfg.norm_eps)
@@ -125,6 +131,28 @@ def init_block(gen, spec: LayerSpec, cfg, device) -> dict:
                                         bias=cfg.attn_bias)
     else:
         p["mlp"] = layers.init_swiglu(gen, cfg.d_model, d_ff, pd, device)
+    return p
+
+
+def block_spec(spec: LayerSpec, cfg) -> dict:
+    """The logical-axis spec tree of one block's parameters."""
+    p: dict = {"norm_mixer": _norm_spec(cfg)}
+    if spec.mixer == "gqa":
+        p["attn"] = attention.gqa_spec(cfg)
+    elif spec.mixer == "mla":
+        p["attn"] = attention.mla_spec(cfg)
+    elif spec.mixer == "mamba":
+        p["mamba"] = ssm.mamba2_spec(cfg)
+    if spec.cross:
+        p["norm_cross"] = _norm_spec(cfg)
+        p["cross"] = attention.gqa_spec(cfg)
+    if spec.ffn == "dense":
+        p["norm_ffn"] = _norm_spec(cfg)
+        p["mlp"] = (layers.gelu_mlp_spec(bias=cfg.attn_bias)
+                    if cfg.act == "gelu" else layers.swiglu_spec())
+    elif spec.ffn == "moe":
+        p["norm_ffn"] = _norm_spec(cfg)
+        p["moe"] = moe_lib.moe_spec(cfg)
     return p
 
 
@@ -164,14 +192,16 @@ def apply_block(params: dict, spec: LayerSpec, x: torch.Tensor, cfg, *,
             prefill=prefill, kv_input=enc_out if enc_out is not None else h,
             cross_cached=cross_cached)
     aux = x.new_zeros((), dtype=torch.float32)
-    if spec.ffn == "none":
-        return x, aux
-    h = _norm(x, params["norm_ffn"], cfg)
-    if spec.ffn == "moe":
-        out, aux = moe_lib.moe_apply(params["moe"], h, cfg, ep_ranks=ep_ranks)
-        return x + out, aux
-    mlp = layers.gelu_mlp if cfg.act == "gelu" else layers.swiglu
-    return x + mlp(h, params["mlp"]), aux
+    if spec.ffn != "none":
+        h = _norm(x, params["norm_ffn"], cfg)
+        if spec.ffn == "moe":
+            out, aux = moe_lib.moe_apply(params["moe"], h, cfg,
+                                         ep_ranks=ep_ranks)
+        else:
+            mlp = layers.gelu_mlp if cfg.act == "gelu" else layers.swiglu
+            out = mlp(h, params["mlp"])
+        x = x + out
+    return logical_constraint(x, "batch", "seq", "embed"), aux
 
 
 def init_block_cache(spec: LayerSpec, cfg, batch: int, max_seq: int, dtype,
@@ -225,6 +255,21 @@ def init_stack(gen, cfg, device, plan: list[LayerSpec] | None = None) -> dict:
                 del blk
         params["scan"] = scan
     return params
+
+
+def stack_spec(cfg, plan: list[LayerSpec] | None = None) -> dict:
+    """The stack's parameter spec tree: the prefix blocks', then the
+    scanned blocks' with a leading (stacked, unsharded) layer axis."""
+    plan = plan if plan is not None else layer_plan(cfg)
+    prefix, period = stage_plan(plan)
+    count = (len(plan) - prefix) // period
+    spec: dict = {"prefix": [block_spec(plan[i], cfg) for i in range(prefix)]}
+    if count:
+        spec["scan"] = map_specs(
+            lambda names: (None, *names),
+            {f"l{j}": block_spec(plan[prefix + j], cfg)
+             for j in range(period)})
+    return spec
 
 
 def init_stack_cache(cfg, batch: int, max_seq: int, dtype, device,
@@ -328,6 +373,6 @@ def apply_stack(params: dict, x: torch.Tensor, cfg, *,
 
 
 __all__ = ["LayerSpec", "layer_plan", "stage_plan", "init_block",
-           "apply_block", "init_block_cache", "block_cache_spec",
-           "init_stack", "apply_stack", "init_stack_cache",
-           "stack_cache_spec"]
+           "block_spec", "apply_block", "init_block_cache",
+           "block_cache_spec", "init_stack", "stack_spec", "apply_stack",
+           "init_stack_cache", "stack_cache_spec"]

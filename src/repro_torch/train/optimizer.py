@@ -47,6 +47,11 @@ def init_opt_state(params: Any) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def opt_state_specs(param_specs: Any) -> dict:
+    """Optimizer-state sharding mirrors the parameter sharding."""
+    return {"m": param_specs, "v": param_specs, "step": ()}
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     sq = [x.float().square().sum() for x in leaves(tree)]
     return torch.sqrt(torch.stack(sq).sum())
@@ -90,5 +95,5 @@ def adamw_update(grads: Any, opt_state: dict, params: Any,
     return params, opt_state, {"lr": lr, "grad_norm": gnorm}
 
 
-__all__ = ["OptimizerConfig", "lr_at", "init_opt_state", "global_norm",
-           "adamw_update"]
+__all__ = ["OptimizerConfig", "lr_at", "init_opt_state", "opt_state_specs",
+           "global_norm", "adamw_update"]
