@@ -195,7 +195,16 @@
    the MFU (model FLOPs over step s × 989e12, with the card's name and
    power limit) and the predicted peak beside ``max_memory_allocated`` —
    and on a 4 x 1 mesh under ``rma_ring``: the ring's predicted phases
-   equal the phase ledger of each card step, K5 once a step.
+   equal the phase ledger of each card step, K5 once a step.  The four
+   examples (``[examples]``, last): ``examples_torch/{quickstart,
+   rma_patterns,serve_decode,train_lm}.py``'s ``main()`` in this process
+   with their default arguments, on the card, each with the launch
+   counters at 0 just before it — its own asserts hold (``train_lm``'s
+   loss falls below ln(vocab) - 1 over its 300 steps), its ``*_OK`` line
+   is printed, the kernels it reaches launched (``EXAMPLE_KERNELS``), its
+   wall seconds and launches by kernel printed; ``rma_patterns``'s ledger
+   counts on the card equal its counts from a ``--device cpu`` run in this
+   process.
 3. The dry-run sweep (``[dryrun]``): ``python -m repro_torch.launch.dryrun
    --arch all --both-meshes`` runs on the ``meta`` device in a subprocess
    that sees no card, started after the build and run beside the card
@@ -352,6 +361,21 @@ INTERPRET_ELEMS = 1 << 24
 # card: 3 timed steps on a 1 x 1 mesh (gspmd), 2 ring steps on a 4 x 1 mesh
 DRYRUN_TIMEOUT_S = 900
 DRYRUN_CARD_STEPS, DRYRUN_RING_STEPS = 3, 2
+#: [examples]: the kernels each example's run on the card must launch.
+#: quickstart: the ordered put + signal (K4), its thread flush (K3's wait),
+#: the planned ring all-reduce (K5); rma_patterns: puts (K3), intrinsic
+#: accumulates (K2), put + signal pairs (K4), the fused accumulate + signal
+#: (K6), flushes, the ring (K5); serve_decode: every prefill (K7) and the
+#: paged window's handle put and flush (guarded K3, its wait); train_lm:
+#: none (a dense step with the gspmd sync: no RMA kernel, and training
+#: attention is blockwise, as in the JAX package)
+EXAMPLE_KERNELS = {
+    "quickstart": ("put_signal", "put_wait", "ring_all_reduce"),
+    "rma_patterns": ("ring_put", "put_wait", "ring_accumulate", "put_signal",
+                     "accumulate_signal", "ring_all_reduce"),
+    "serve_decode": ("flash_attention", "ring_put", "put_wait"),
+    "train_lm": (),
+}
 #: the caching allocator's block: a request is rounded up to 512 bytes, and
 #: a segment's tail under 1 MiB stays with the block it was cut for
 ALLOC_BLOCK, ALLOC_SPLIT_MIN = 512, 1 << 20
@@ -622,6 +646,92 @@ def collect_dryrun(proc, log, out_path, t0, get_config) -> None:
                       flush=True)
     print(f"[dryrun] {len(recs)} cells, 0 failures; {tail[-1]}; "
           f"{wall:.1f} s wall beside the card phases", flush=True)
+
+
+class _Tee:
+    """stdout that also keeps what was written (an example's lines are
+    printed and searched for its marker)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a module (the directory is no
+    package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}",
+        os.path.join(HERE, "examples_torch", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(torch, smi, K, path_counts) -> None:
+    """[examples]: the four examples' ``main()`` with their default
+    arguments (the card), in this process, each with every launch counter
+    at 0 just before it; each must print its marker, and its own asserts
+    fail the smoke.  ``rma_patterns``'s ledger counts on the card must
+    equal its counts from a ``--device cpu`` run in this process."""
+    import contextlib
+    import io
+
+    patterns = load_example("rma_patterns")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu_counts = patterns.main(["--device", "cpu"])
+    train_lm = load_example("train_lm")
+    ckpt_dir = os.path.join(tempfile.gettempdir(),
+                            "repro_torch_train_lm_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    for name, mod, marker, must in (
+            ("quickstart", load_example("quickstart"), "QUICKSTART OK",
+             EXAMPLE_KERNELS["quickstart"]),
+            ("rma_patterns", patterns, "RMA_PATTERNS OK",
+             EXAMPLE_KERNELS["rma_patterns"]),
+            ("serve_decode", load_example("serve_decode"), "SERVE_DECODE OK",
+             EXAMPLE_KERNELS["serve_decode"]),
+            ("train_lm", train_lm, "TRAIN_LM OK",
+             EXAMPLE_KERNELS["train_lm"])):
+        K.reset_launch_counts()
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            out = mod.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(marker in tee.text(), f"[examples] {name}: no {marker!r} line")
+        counts = path_counts(f"[examples] {name}", must)
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"[examples] {name}: {wall:.2f} s wall, launches by kernel "
+              f"{launched} ({smi})", flush=True)
+        if name == "rma_patterns":
+            check(out == cpu_counts,
+                  f"[examples] rma_patterns: card ledger {out} != the CPU "
+                  f"run's {cpu_counts}")
+            print(f"[examples] rma_patterns ledger on the card = the CPU "
+                  f"run's: {out}", flush=True)
+        if name == "train_lm":
+            print(f"[examples] train_lm loss {out['first']:.4f} -> "
+                  f"{out['last']:.4f} against the uniform baseline "
+                  f"ln(vocab) = {out['uniform']:.4f} over 300 steps, "
+                  f"{out['n_params'] / 1e6:.1f} M parameters, stragglers "
+                  f"{out['stragglers']} ({smi})", flush=True)
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
 def main() -> int:
@@ -4272,6 +4382,9 @@ def main() -> int:
         step_logits, frames, enc_model
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- [examples] examples_torch/ on the card -----------------------------
+    examples_phase(torch, smi, K, path_counts)
 
     # ---- [dryrun] the full sweep's records ---------------------------------
     collect_dryrun(dry_proc, dry_log, dry_out, dry_t0, get_config)

@@ -23,7 +23,8 @@ rows of stacked ``(n, ...)`` tensors):
   rings;
 * :func:`put_signal` / :func:`put_signal_pipelined` — payload then doorbell;
 * :func:`all_to_all_plan` / :func:`plan_all_to_all` — the planned MoE
-  all-to-all (:func:`rma_all_to_all`: its deprecated imperative form);
+  all-to-all (:func:`rma_all_to_all`: its deprecated imperative form;
+  :func:`hier_applies`: whether a topology takes the hierarchical relay);
 * the plan backends (:mod:`repro_torch.core.rma.backends`):
   :data:`BACKEND_NAMES`, the :class:`Backend` protocol, the calibrated
   picker :func:`choose_backend`, and the walker :func:`interpret_plan` with
@@ -61,7 +62,8 @@ from repro_torch.core.rma.collectives import (all_reduce_plan,
                                               ring_reduce_scatter,
                                               rma_all_reduce)
 from repro_torch.core.rma.alltoall import (AllToAllResult, all_to_all_plan,
-                                           plan_all_to_all, rma_all_to_all)
+                                           hier_applies, plan_all_to_all,
+                                           rma_all_to_all)
 from repro_torch.core.rma.backends import (BACKEND_NAMES, Backend,
                                            InterpretResult, choose_backend,
                                            interpret_plan, vmapped_execute)
@@ -80,7 +82,7 @@ __all__ = [
     "RmaPlan", "CompiledPlan", "PlanEnv", "PlanResult", "PlanError", "OpRef",
     "all_reduce_plan", "plan_all_reduce", "put_signal",
     "put_signal_pipelined", "all_to_all_plan", "plan_all_to_all",
-    "rma_all_to_all", "AllToAllResult", "ring_reduce_scatter",
+    "rma_all_to_all", "hier_applies", "AllToAllResult", "ring_reduce_scatter",
     "ring_all_gather", "rma_all_reduce", "BACKEND_NAMES", "Backend",
     "InterpretResult", "choose_backend", "interpret_plan", "vmapped_execute",
 ]

@@ -34,13 +34,16 @@ import torch
 
 from repro_torch.core.rma.intrinsic import INTRINSIC_MAX_COUNT, op_is_intrinsic
 from repro_torch.kernels.accumulate import accumulate_rows
-from repro_torch.kernels.common import ATOMIC_KERNEL_OPS, combine_op
+from repro_torch.kernels.common import ACC_OPS, ATOMIC_KERNEL_OPS, combine_op
 
 Perm = Sequence[tuple[int, int]]
 
 PATH_INTRINSIC = "intrinsic"
 PATH_TILED = "tiled"
 PATH_SOFTWARE = "software"
+
+#: Ops the tiled kernel (K1) implements.
+TILED_OPS = frozenset(ACC_OPS)
 
 _calibration_cache: dict[str, int | None] = {}
 
@@ -240,7 +243,7 @@ def acc_hop(sub, config, cur: torch.Tensor, piece: torch.Tensor, perm: Perm,
 
 
 __all__ = [
-    "PATH_INTRINSIC", "PATH_TILED", "PATH_SOFTWARE", "apply_op",
+    "PATH_INTRINSIC", "PATH_TILED", "PATH_SOFTWARE", "TILED_OPS", "apply_op",
     "route", "route_accumulate", "path_combine", "routed_accumulate",
     "accumulate_signal", "default_flag_value", "acc_hop", "crossover_elems",
     "declared_envelope", "calibrated_crossover",

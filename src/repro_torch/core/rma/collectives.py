@@ -416,10 +416,13 @@ def _record_hier_ring(plan, window: str, source, topo: Topology, dshape,
 
 
 def lower_ring_all_reduce(plan, window: str, source, axis: str, n: int, *,
-                          shape, dtype, op: str = "sum", stream: int = 0):
+                          shape, dtype, op: str = "sum", stream: int = 0,
+                          label: str = ""):
     """Lower ``RmaPlan.ring_all_reduce``: the hierarchical pass under a
     non-degenerate ``g×l`` topology matching the axis, else the flat ring.
-    Returns ``(out, hierarchical)``."""
+    Returns ``(out, hierarchical)``.  ``label`` is accepted and ignored, as
+    the JAX package's is (the recorders emit their own labels)."""
+    del label
     dshape, dt = tuple(shape), as_dtype(dtype)
     topo = plan.topology
     if (topo is not None and topo.axis_size == n

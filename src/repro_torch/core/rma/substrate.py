@@ -58,6 +58,7 @@ calls.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Sequence
 
@@ -162,6 +163,29 @@ class PhaseLedger:
         return self.inter + self.intra
 
 
+#: the ledgers of the dup families allocated inside :func:`recorded_ledgers`
+#: (None outside it)
+_recording: list | None = None
+
+
+@contextlib.contextmanager
+def recorded_ledgers():
+    """Collect the phase ledger of every dup family allocated inside the
+    ``with`` block, windows a call makes for itself included: the phases
+    of everything the block runs, as the JAX package counts the collective
+    permutes of a function's lowered program.  Yields the list of ledgers;
+    a block nested in another also reports to the outer one."""
+    global _recording
+    outer, ledgers = _recording, []
+    _recording = ledgers
+    try:
+        yield ledgers
+    finally:
+        _recording = outer
+        if outer is not None:
+            outer.extend(ledgers)
+
+
 @dataclasses.dataclass(frozen=True)
 class CompletionToken:
     """A point in a window family's issue order, for ordering work on
@@ -261,10 +285,12 @@ class Substrate:
                 f"{dev}: only pinned host memory beside the card")
         counters = torch.zeros((axis_size, n_streams), dtype=torch.int32,
                                device=dev)
+        ledger = PhaseLedger()
+        if _recording is not None:
+            _recording.append(ledger)
         return cls(buffer, axis, axis_size, FlushQueues(), n_streams,
                    counters, [[0] * n_streams for _ in range(axis_size)],
-                   torch.zeros(1, dtype=torch.int32, device=dev),
-                   PhaseLedger(),
+                   torch.zeros(1, dtype=torch.int32, device=dev), ledger,
                    torch.zeros(axis_size + 2, dtype=torch.int32, device=dev))
 
     @property
@@ -732,4 +758,4 @@ class Substrate:
 
 
 __all__ = ["SCOPE_PROCESS", "SCOPE_THREAD", "CompletionToken", "FlushQueues",
-           "PhaseLedger", "Substrate"]
+           "PhaseLedger", "Substrate", "recorded_ledgers"]

@@ -1,14 +1,22 @@
 """Public wrappers that compose kernels (the JAX package's ``kernels/ops.py``
 layer): the full SSD scan, K8 (intra-chunk) then the SSD state pass (the
-inter-chunk recurrence and read-out)."""
+inter-chunk recurrence and read-out).  The kernel wrappers are re-exported
+here under the JAX package's names, as its ``ops.py`` does."""
 from __future__ import annotations
 
 import torch.nn.functional as F
 
 from repro_torch.kernels import common as _common
+from repro_torch.kernels.accumulate import accumulate, op_identity
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.intrinsic import ring_accumulate
+from repro_torch.kernels.ordered_put_signal import accumulate_signal, put_signal
+from repro_torch.kernels.ring_allreduce import ring_all_reduce
+from repro_torch.kernels.rma_put import ring_put
 from repro_torch.kernels.ssd_pass import launch_pass, ssd_pass_plain
 from repro_torch.kernels.ssd_scan import (check_shapes, launch_intra_chunk,
-                                          refuse_grad, ssd_intra_chunk_plain)
+                                          refuse_grad, ssd_intra_chunk,
+                                          ssd_intra_chunk_plain)
 
 
 def ssd_scan_plain(xdt, a, Bm, Cm, *, chunk: int, nheads: int, headdim: int,
@@ -64,4 +72,8 @@ def ssd_scan(xdt, a, Bm, Cm, *, chunk: int, nheads: int, headdim: int,
                        headdim=headdim, initial_state=initial_state)
 
 
-__all__ = ["ssd_scan", "ssd_scan_plain"]
+__all__ = [
+    "flash_attention", "accumulate", "op_identity", "ring_put",
+    "ring_accumulate", "put_signal", "accumulate_signal",
+    "ring_all_reduce", "ssd_scan", "ssd_intra_chunk", "ssd_scan_plain",
+]

@@ -86,7 +86,10 @@ def train(arch: str, *, tiny: bool = True, steps: int = 100,
           moe_ep: str | None = None, ep_ranks: int = 1,
           num_experts: int | None = None, remat: str | None = None,
           backend: str = "rma", ep_backend: str | None = None,
-          device="cuda") -> TrainRun:
+          mesh=None, device="cuda") -> TrainRun:
+    """``mesh`` is accepted and unused, as the JAX package's is: the ranks
+    of one card are stacked rows (``dp_ranks``, ``ep_ranks``)."""
+    del mesh
     dev = resolve_device(device)
     cfg = tiny_config(arch) if tiny else get_config(arch)
     if n_layers is not None:

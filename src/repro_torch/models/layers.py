@@ -79,10 +79,10 @@ def embed_spec() -> dict:
     return {"table": ("vocab", "embed")}
 
 
-def embed(tokens: torch.Tensor, params: dict, dtype) -> torch.Tensor:
+def embed(x_tokens: torch.Tensor, params: dict, dtype) -> torch.Tensor:
     # gather, then cast: the same values as casting the table first, without
     # materializing a cast copy of the whole table
-    return F.embedding(tokens, params["table"]).to(dtype)
+    return F.embedding(x_tokens, params["table"]).to(dtype)
 
 
 def unembed(x: torch.Tensor, params: dict) -> torch.Tensor:

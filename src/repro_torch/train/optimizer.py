@@ -57,6 +57,17 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
+def clip_by_global_norm(grads: Any, max_norm: float
+                        ) -> tuple[Any, torch.Tensor]:
+    """The gradients scaled to at most ``max_norm`` global norm, in their
+    own dtype, and that norm (before clipping).  A new tree: the train step
+    does not call this, :func:`adamw_update` folds the same scale into its
+    sliced pass instead of materializing a clipped copy of every leaf."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+
+
 #: elements updated at once (bounds the update's temporaries)
 SLICE = 1 << 24
 
@@ -96,4 +107,4 @@ def adamw_update(grads: Any, opt_state: dict, params: Any,
 
 
 __all__ = ["OptimizerConfig", "lr_at", "init_opt_state", "opt_state_specs",
-           "global_norm", "adamw_update"]
+           "global_norm", "clip_by_global_norm", "adamw_update"]

@@ -218,7 +218,9 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
     return train_step
 
 
-def init_train_state(model, seed: int = 0, *, device="cuda"):
+def init_train_state(model, seed: int = 0, opt_cfg=None, *, device="cuda"):
+    """Parameters from ``seed`` and their AdamW state; ``opt_cfg`` is
+    accepted and unused, as the JAX package's is."""
     params = model.init(seed, device=device)
     return params, init_opt_state(params)
 
