@@ -47,12 +47,18 @@
    put's source overwritten right after the flush, what landed intact).
    K3 on a pinned host window (the tiered KV pool's cold tier): a guarded
    put into pinned host memory and a guarded read out of it at one
-   ``qwen3-4b`` page payload, a ragged size at an odd offset and a stale
-   handle (put dropped, read zeroed, each counted), bit for bit against its
+   ``qwen3-4b`` page payload, a ragged size at an odd offset, a stale
+   handle (put dropped, read zeroed, each counted) and a length past a
+   whole number of the grid's strides, bit for bit against its
    plain version; an unpinned CPU buffer beside card tensors raises; one
    page each way by graph replay beside ``copy_`` to and from pinned
    memory, its bound the bytes over the host link's nominal rate (PCIe
-   generation and width from ``nvidia-smi``).  K4 at the doorbell's shape
+   generation and width from ``nvidia-smi``); what bounds it
+   (``benchmarks_torch/host_link.py``'s ``[host-link]`` lines): a read's
+   round trip, K3's loop over the grid with its bytes in flight, a second
+   pinned buffer.  K3 and K2 under the
+   guard also with handles whose slot word differs by rank (the addressed
+   rank's own slot decides).  K4 at the doorbell's shape
    (8, 1) int32 and K3 at a pushed page's, (8, 1,179,648) bf16 through
    memory handles, each against its plain version, timed beside the launch
    floor and ``index_copy_``.
@@ -666,14 +672,12 @@ class _Tee:
         return "".join(self.parts)
 
 
-def load_example(name: str):
-    """``examples_torch/<name>.py`` as a module (the directory is no
-    package)."""
+def load_script(name: str, folder: str = "examples_torch"):
+    """``<folder>/<name>.py`` as a module (the directory is no package)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        f"examples_torch_{name}",
-        os.path.join(HERE, "examples_torch", f"{name}.py"))
+        f"{folder}_{name}", os.path.join(HERE, folder, f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -688,19 +692,19 @@ def examples_phase(torch, smi, K, path_counts) -> None:
     import contextlib
     import io
 
-    patterns = load_example("rma_patterns")
+    patterns = load_script("rma_patterns")
     with contextlib.redirect_stdout(io.StringIO()):
         cpu_counts = patterns.main(["--device", "cpu"])
-    train_lm = load_example("train_lm")
+    train_lm = load_script("train_lm")
     ckpt_dir = os.path.join(tempfile.gettempdir(),
                             "repro_torch_train_lm_ckpt")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     for name, mod, marker, must in (
-            ("quickstart", load_example("quickstart"), "QUICKSTART OK",
+            ("quickstart", load_script("quickstart"), "QUICKSTART OK",
              EXAMPLE_KERNELS["quickstart"]),
             ("rma_patterns", patterns, "RMA_PATTERNS OK",
              EXAMPLE_KERNELS["rma_patterns"]),
-            ("serve_decode", load_example("serve_decode"), "SERVE_DECODE OK",
+            ("serve_decode", load_script("serve_decode"), "SERVE_DECODE OK",
              EXAMPLE_KERNELS["serve_decode"]),
             ("train_lm", train_lm, "TRAIN_LM OK",
              EXAMPLE_KERNELS["train_lm"])):
@@ -1095,6 +1099,15 @@ def main() -> int:
     regs_c[:, 1, 0] = 5
     regs_c[2, 1, 0] = 6                  # rank 2 re-registered: stale there
     hnd_c = torch.tensor([[5, 2, 0, 1]] * n, dtype=torch.int32, device=dev)
+    # per-rank slot words: rank 0's handle names slot 2 (live epoch 7), the
+    # others' slot 1 (5); the guard takes the addressed rank's own slot, so
+    # on the ring only the operation whose window is rank 0's goes stale
+    regs_s = regs_c.clone()
+    regs_s[2, 1, 0] = 5
+    regs_s[:, 2, 0] = 7
+    hnd_s = hnd_c.clone()
+    hnd_s[0, 3] = 2
+    slot_err = [1] + [0] * (n - 1)
     variants = 0
     for dtype in (torch.float32, torch.int32, torch.bfloat16):
         for L, m in ((64, 5), (1 << 16, 1000), (M, M // 4)):
@@ -1103,7 +1116,8 @@ def main() -> int:
                                 device=dev)
             for kw in (dict(disp=disp), dict(disp=disp, handles=hnd_c),
                        dict(disp=disp, handles=hnd_c, regs=regs_c),
-                       dict(handles=hnd_c, regs=regs_c, offset=4)):
+                       dict(handles=hnd_c, regs=regs_c, offset=4),
+                       dict(disp=disp, handles=hnd_s, regs=regs_s)):
                 for read in (False, True):
                     src, dst0 = (big, small) if read else (small, big)
                     outs = []
@@ -1120,6 +1134,10 @@ def main() -> int:
                         f"{sorted(kw)}")
                     check("regs" not in kw or outs[0][1].sum().item() == 1,
                           "K3's guard counted wrong")
+                    check(kw.get("regs") is not regs_s
+                          or outs[0][1].tolist() == slot_err,
+                          f"K3's guard did not take the addressed rank's "
+                          f"slot: {outs[0][1]}")
                     variants += 1
     for dtype in (torch.float32, torch.float64, torch.int32, torch.int64):
         for op in k2.ATOMIC_KERNEL_OPS:
@@ -1130,7 +1148,8 @@ def main() -> int:
                 disp = torch.tensor([0, 4, 60, -3], dtype=torch.int32,
                                     device=dev)
                 for kw in (dict(offset=3), dict(disp=disp),
-                           dict(disp=disp, handles=hnd_c, regs=regs_c)):
+                           dict(disp=disp, handles=hnd_c, regs=regs_c),
+                           dict(disp=disp, handles=hnd_s, regs=regs_s)):
                     outs = []
                     for fn in (k2.accumulate_rows_atomic,
                                k2.accumulate_rows_atomic_plain):
@@ -1141,11 +1160,16 @@ def main() -> int:
                     check(torch.equal(outs[0][0], outs[1][0])
                           and torch.equal(outs[0][1], outs[1][1]),
                           f"K2 {op} {dtype} m={m} {sorted(kw)}")
+                    check(kw.get("regs") is not regs_s
+                          or outs[0][1].tolist() == slot_err,
+                          f"K2's guard did not take the target's slot: "
+                          f"{outs[0][1]}")
                     variants += 1
     print(f"[kernels] K3 and K2 with device displacements and the handle "
           f"guard equal their plain versions: {variants} cases (clamped and "
           f"negative rows, stale puts dropped, stale reads zeroed, counts "
-          f"equal)", flush=True)
+          f"equal; handles whose slot word differs by rank checked against "
+          f"the addressed rank's own slot)", flush=True)
 
     # the variants at the [p5] tour's shapes: a (4, 2^20) float32 put into
     # the (4, 2^24) dynamic pool, and K2's (4, 8) float32 sum, at per-rank
@@ -1280,9 +1304,14 @@ def main() -> int:
         return torch.tensor([[epoch, offset, page_e, slot]],
                             dtype=torch.int32, device=dev)
 
+    # a length past a whole number of the grid's strides (20,528 bytes: 2
+    # blocks of 256 threads walk 8,192 bytes a step), 16-byte aligned
+    steps_e = 5 * 2048 + 24
     host_cases = (("one page", page_e, handle_at(2, page_e, 1), 0),
                   ("ragged", page_e - 7, handle_at(1, 0, 0), 3),
-                  ("stale", page_e, handle_at(3, 2 * page_e, 2), 0))
+                  ("stale", page_e, handle_at(3, 2 * page_e, 2), 0),
+                  ("past whole strides", steps_e, handle_at(4, page_e, 2),
+                   8))
     for what, m, hnd, off in host_cases:
         stale = what == "stale"
         payload = rand((1, m), torch.bfloat16)
@@ -1315,7 +1344,7 @@ def main() -> int:
             if stale and not read:
                 check(torch.equal(outs[0][0], seed_pool),
                       "a stale put into host memory landed")
-    check(K.COUNTERS["ring_put"].by_variant.get("guarded-host", 0) >= 6,
+    check(K.COUNTERS["ring_put"].by_variant.get("guarded-host", 0) >= 8,
           "K3 did not launch on the pinned host window")
     unpinned = torch.zeros((1, 4 * page_e), dtype=torch.bfloat16)
     for what, call in (
@@ -1371,6 +1400,11 @@ def main() -> int:
                                                         non_blocking=True)),
         read_copy=graph_ms(torch, lambda: back.copy_(region_h,
                                                      non_blocking=True)))
+    # what bounds the host path: a read's round trip, K3's loop over the
+    # grid, a second pinned buffer (benchmarks_torch/host_link.py prints its
+    # [host-link] lines)
+    link = load_script("host_link", "benchmarks_torch").measure(
+        torch, log=lambda line: print(line, flush=True))
     link_after = pcie_link()
     #: nominal GB/s a lane carries each way, by PCIe generation (encoding
     #: included: 8b/10b to gen 2, 128b/130b from gen 3)
@@ -1387,6 +1421,7 @@ def main() -> int:
                     "sheet's host interface, PCIe gen5 x16")
     link_rate = lane_gbs[link_gen] * link_width * 1e9
     nbytes = page_e * 2
+    blocks_h = k3.launch_blocks(nbytes)
     record["ring_put_host"] = dict(
         ms=host_ms["put"], read_ms=host_ms["read"],
         plain_ms=time_ms(torch, lambda: k3.put_rows_plain(
@@ -1395,13 +1430,18 @@ def main() -> int:
         max_abs_err=0.0, shape=[1, page_e], dtype="bfloat16",
         bound_ms=nbytes / link_rate * 1e3, bound_by="bytes",
         link=f"PCIe gen{link_gen} x{link_width}, {link_rate / 1e9:.2f} "
-             f"GB/s nominal each way ({link_src})")
+             f"GB/s nominal each way ({link_src})",
+        launch=dict(blocks=blocks_h,
+                    inflight=blocks_h * k3.PUT_THREADS * 16),
+        sweep_best=link["best"], latency_ns=link["latency_ns"]["host"])
     rh = record["ring_put_host"]
     print(f"[kernels] K3 on a pinned host window equals its plain version "
           f"bit for bit: put and read of one qwen3-4b page ({page_e} bf16), "
           f"a ragged {page_e - 7} at offset 3, a stale handle (put dropped, "
-          f"read zeroed, each counted once); an unpinned CPU buffer beside "
-          f"card tensors raises.  One page by graph replay: put "
+          f"read zeroed, each counted once), {steps_e} (past whole grid "
+          f"strides); an unpinned CPU buffer beside card tensors raises.  "
+          f"The launch: {blocks_h} blocks ({rh['launch']['inflight']} bytes "
+          f"in flight).  One page by graph replay: put "
           f"{rh['ms']:.4f} ms ({nbytes / rh['ms'] / 1e6:.2f} GB/s), copy_ "
           f"to pinned {rh['library_ms']:.4f}; read {rh['read_ms']:.4f} ms "
           f"({nbytes / rh['read_ms'] / 1e6:.2f} GB/s), copy_ from pinned "
@@ -3001,6 +3041,28 @@ def main() -> int:
             seq_pay, non_blocking=True), reps=3),
         promote_copy=time_ms(torch, lambda: landed.copy_(
             host_seq, non_blocking=True), reps=3))
+    # the steps' K3 work alone: the same guarded launches, one a page at
+    # the tier's own handles, back to back in a CUDA graph (card time; a
+    # step is host-bound)
+    win_h = tier.pool.window
+    tgt0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    hnds = [tier.pool.handles[:, s].contiguous() for s in seq_slots]
+
+    def k3_seq(read: bool):
+        for i, h in enumerate(hnds):
+            if read:
+                k3.put_rows(win_h.buffer, landed[i:i + 1], tgt0, handles=h,
+                            regs=win_h.regs, err=tier.err_count, read=True)
+            else:
+                k3.put_rows(seq_pay[i:i + 1], win_h.buffer, tgt0, handles=h,
+                            regs=win_h.regs, err=tier.err_count)
+    landed.zero_()
+    k3_seq(True)
+    torch.cuda.synchronize()
+    check(torch.equal(landed, seq_pay), "the K3 promotes of one sequence "
+          "differ from what was demoted")
+    seq_ms["demote_k3"] = graph_ms(torch, lambda: k3_seq(False), reps=2)
+    seq_ms["promote_k3"] = graph_ms(torch, lambda: k3_seq(True), reps=2)
     check(int(tier.err_count.sum()) == 0, "the timed tier steps went stale")
     tier.free(seq_slots)
     seq_bytes = pps * e_page * 2
@@ -3031,8 +3093,12 @@ def main() -> int:
           f"pinned {seq_ms['demote_copy']:.2f} ms ({gbs['demote_copy']:.1f} "
           f"GB/s); promote {seq_ms['promote']:.2f} ms ({gbs['promote']:.1f} "
           f"GB/s), copy_ from pinned {seq_ms['promote_copy']:.2f} ms "
-          f"({gbs['promote_copy']:.1f} GB/s)", flush=True)
-    del eng, tier, host_buf, host_seq, seq_pay, landed, timed
+          f"({gbs['promote_copy']:.1f} GB/s); the steps' {pps} K3 launches "
+          f"alone by graph replay: demote {seq_ms['demote_k3']:.2f} ms "
+          f"({gbs['demote_k3']:.1f} GB/s), promote "
+          f"{seq_ms['promote_k3']:.2f} ms ({gbs['promote_k3']:.1f} GB/s)",
+          flush=True)
+    del eng, tier, host_buf, host_seq, seq_pay, landed, timed, win_h, hnds
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4469,7 +4535,8 @@ def main() -> int:
                                        "first_ms", "library_first_ms",
                                        "floor_ms", "floor_serial_ms",
                                        "pair_ms", "fig12_ms", "read_ms",
-                                       "read_library_ms", "link",
+                                       "read_library_ms", "link", "launch",
+                                       "sweep_best", "latency_ns",
                                        "tier_seq_ms", "index_copy_ms",
                                        "copy_ms", "path_ms")
                if key in r}})

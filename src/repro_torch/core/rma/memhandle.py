@@ -15,8 +15,10 @@ window's device, row s the handle origin s holds (:func:`memhandle_create`
 gives each rank its own registration; permute the rows to hand peers'
 handles around).  Lifetime guarantees, at two levels as in the reference:
 
-* **On the card** (always): the kernels compare the handle's epoch with
-  the target's live ``regs[t, slot, 0] > 0``.  A stale put or accumulate is
+* **On the card** (always): the kernels compare the origin's handle epoch
+  with the target's live ``regs[t, slot, 0] > 0``, ``slot`` the one the
+  target's own handle row names (as the reference reads ``handle[3]`` on
+  the rank that owns the window).  A stale put or accumulate is
   dropped, a stale read returns zeros, and each adds one to the target's
   entry of :attr:`MemhandleWindow.err_count`.
 * **At call time** (with ``slot=``): :func:`win_from_memhandle` records the

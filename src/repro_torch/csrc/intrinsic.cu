@@ -25,7 +25,9 @@
 // for origin r, placed as lax.dynamic_update_slice places it when it has a
 // device part (a negative row counts from the end once, then the row is
 // clamped to [0, rows_total - m]);
-// with regs, a stale handle's update is dropped and adds one to err[t].
+// with regs, an update whose handle epoch (the origin's) is not the live
+// one of the slot target t's own handle names is stale: it is dropped and
+// adds one to err[t].
 //
 // Layout: update (n, m * inner) contiguous; origin r with targets[r] >= 0
 // folds update[r] into buf[targets[r] * buf_stride + rows * inner + i].
@@ -123,8 +125,9 @@ struct AccArgs {
 // float32 sum, else 1).  Every thread resolves its origin's address itself.
 // Its update words, its handle and the target map load together, before it
 // knows whether the origin sends or the handle is fresh (none of their
-// addresses depends on either), so one dependent load (the registration
-// entry, only under the guard) stands before the reduction.
+// addresses depends on either); under the guard the target's handle and
+// a registration entry load together, and a second entry only where the
+// target's slot differs from the origin's.
 template <typename T>
 __global__ void ring_acc_kernel(AccArgs a, int vec) {
   const int len = (int)(a.m * a.inner);
@@ -148,8 +151,17 @@ __global__ void ring_acc_kernel(AccArgs a, int vec) {
     if (a.disp) rows += (int64_t)a.disp[r] * a.disp_unit;
     bool fresh = true;
     if (a.regs) {
-      const int slot = min(max(h.w, 0), a.max_attach - 1);
-      const int32_t live = a.regs[((int64_t)t * a.max_attach + slot) * 3];
+      // the slot the target's own handle names, as the reference's guard
+      // reads it at the target; the epoch is the origin's.  The entry of
+      // the origin's slot (the same whenever every rank's handle names one
+      // slot) is fetched in the same breath as the target's handle, and a
+      // second load is paid only where the two slots differ
+      const int32_t* entry = a.regs + (int64_t)t * a.max_attach * 3;
+      const int guess = min(max(h.w, 0), a.max_attach - 1);
+      int32_t live = rt_ld_issued(entry + guess * 3);
+      const int slot =
+          min(max(reinterpret_cast<const int4*>(a.handles)[t].w, 0), a.max_attach - 1);
+      if (slot != guess) live = entry[slot * 3];
       fresh = h.x == live && live > 0;
     }
     if (a.disp || a.handles)

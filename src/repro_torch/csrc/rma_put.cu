@@ -32,9 +32,13 @@
 // by the wrapper.  With regs (int32 (n, max_attach, 3) registration tables) the
 // kernel guards the handle's lifetime: the handle's epoch must equal the live
 // entry regs[w, slot, 0] > 0 of the rank w whose window the operation
-// addresses.  A stale put writes nothing, a stale read's response writes
-// zeros, and either adds one to err[w] — the target's count, as the JAX
-// memory-handle window counts it (repro/core/rma/memhandle.py:168-179).
+// addresses.  The slot is the one w's own handle names (handles[w].slot):
+// the reference checks the epoch that rode the packet against the slot of
+// the target's own handle (self.handle[3] in _lifetime_guard,
+// repro/core/rma/memhandle.py:168-177); only the epoch and the offset come
+// from the origin's handle.  A stale put writes nothing, a stale read's
+// response writes zeros, and either adds one to err[w] — the target's
+// count, as the JAX memory-handle window counts it.
 //
 // A window row may also lie in pinned host memory (the tiered KV pool's
 // cold tier): src or dst is then the device-mapped address of that memory,
@@ -42,6 +46,10 @@
 // unit crosses the host link.  Nothing else changes: the control words
 // (targets, handles, regs, err, counters) stay in device memory, and every
 // byte offset is 64-bit (a 512-page qwen3-4b host pool is 1.2e9 bytes).
+// The same loop serves it: benchmarks_torch/host_link.py finds that past
+// ~130 KB of reads in flight (this launch keeps 589 KB at a page) the SMs'
+// reads over the link stop at one rate per host machine, whatever the grid,
+// the loads a thread keeps in flight, the load flavour or a bulk copy.
 //
 // Layout: sender row r at src + r * src_stride, receiver row t = targets[r]
 // at dst + t * dst_stride (bytes).  A put writes m rows of row_bytes at the
@@ -111,21 +119,32 @@ __device__ __forceinline__ int widest_unit(uint64_t bits) {
 __global__ void put_kernel(PutArgs a) {
   rt_launch_dependents();
   const int r = blockIdx.y;
-  // a put's origin is this block's sender, so its handle row loads beside
-  // the target map; a read's origin is the receiver, known only after it
-  int4 h = make_int4(0, 0, 0, 0);
-  if (a.handles && !a.read) h = reinterpret_cast<const int4*>(a.handles)[r];
+  // this block's sender's handle row loads beside the target map: a put's
+  // origin, a read's addressed rank; the receiver's row only after it
+  const int4* hs = reinterpret_cast<const int4*>(a.handles);
+  int4 hr = make_int4(0, 0, 0, 0), ht = hr;
+  if (hs) hr = hs[r];
   const int t = a.targets[r];
   if (t < 0) return;
-  if (a.handles && a.read) h = reinterpret_cast<const int4*>(a.handles)[t];
   const int w = a.read ? r : t;  // the rank whose window the operation addresses
-  int64_t rows = a.offset + h.y;
+  // the guard's slot is the one w's own handle names.  A put reads that
+  // handle (the target's) only now, so the entry of the sender's slot (the
+  // same whenever every rank's handle names one slot, as memhandle_create
+  // gives) is fetched in the same breath, and a second load is paid only
+  // where the two slots differ
+  const int32_t* entry = a.regs ? a.regs + (int64_t)w * a.max_attach * 3 : nullptr;
+  const int guess = min(max(hr.w, 0), a.max_attach - 1);
+  int32_t live = 0;
+  if (entry) live = rt_ld_issued(entry + guess * 3);
+  if (hs && (a.read || a.regs)) ht = hs[t];
+  const int4 ho = a.read ? ht : hr;  // the origin's handle: epoch and offset
+  int64_t rows = a.offset + ho.y;
   if (a.disp) rows += (int64_t)a.disp[a.read ? t : r] * a.disp_unit;
   bool fresh = true;
-  if (a.regs) {
-    const int slot = min(max(h.w, 0), a.max_attach - 1);
-    const int32_t live = a.regs[((int64_t)w * a.max_attach + slot) * 3];
-    fresh = h.x == live && live > 0;
+  if (entry) {
+    const int slot = min(max((a.read ? hr : ht).w, 0), a.max_attach - 1);
+    if (slot != guess) live = entry[slot * 3];
+    fresh = ho.x == live && live > 0;
   }
   if (a.disp || a.handles)
     rows = min(max(rows < 0 ? rows + a.span : rows, (int64_t)0), a.span - a.m);

@@ -38,6 +38,15 @@ __device__ __forceinline__ void rt_st_release(unsigned* p, unsigned v) {
   asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
+// A load the compiler issues where it stands even when a later load makes
+// it redundant: a guess fetched beside the word that decides whether it is
+// needed.
+__device__ __forceinline__ int32_t rt_ld_issued(const int32_t* p) {
+  int32_t v;
+  asm volatile("ld.global.s32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
 __device__ __forceinline__ void rt_red_release_add(unsigned* p, unsigned v) {
   asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }

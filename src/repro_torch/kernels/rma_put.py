@@ -19,7 +19,10 @@ is one launch, as an allocated put is, and the host reads nothing.
 A window buffer (``src`` of a read, ``dst`` of a put) may also lie in pinned
 host memory beside control tensors on the card — the tiered KV pool's cold
 tier: K3 then reads or writes it at its device-mapped address
-(:func:`map_host`), and the launch counts as a ``-host`` variant.
+(:func:`map_host`), and the launch counts as a ``-host`` variant.  Its
+launch is the device path's: the SMs' reads over the link stop at a rate
+set by the host machine once ~130 KB are in flight, and a page's launch
+keeps 589,824 bytes in flight (``benchmarks_torch/host_link.py``).
 
 Replaces ``repro/kernels/rma_put.py::ring_put`` (the ``pallas_call`` at
 ``rma_put.py:47``; ``rdma.start()`` is the put, ``rdma.wait()`` the flush).
@@ -47,6 +50,13 @@ WAIT_COUNTER = LaunchCounter("put_wait")
 
 #: ranks one wait launch can cover (RT_MAX_WAIT_RANKS in csrc/rma_put.cu)
 MAX_WAIT_RANKS = 256
+
+#: threads of a K3 block (blockDim.x of every launch in csrc/rma_put.cu)
+PUT_THREADS = 256
+#: payload bytes a K3 block copies (HBM's grain: 4 x 16-byte units a thread)
+BLOCK_BYTES = 16 * 1024
+#: the most blocks of one launch, all senders together
+MAX_BLOCKS = 512
 
 #: (n, device) -> completion counters for callers that keep none
 _SCRATCH_COUNTERS: dict = {}
@@ -138,15 +148,18 @@ def resolve_rows(o: int, w: int, *, offset: int, disp, disp_unit: int,
     rule, on host values (the plain versions' arithmetic).  A row with a
     device part is placed as ``lax.dynamic_update_slice`` places it: a
     negative row counts from the end of the ``span``-row window row once,
-    then it is clamped to ``[0, span - m]``."""
+    then it is clamped to ``[0, span - m]``.  The guard compares the
+    origin's handle epoch with the live entry of the slot that ``w``'s own
+    handle names, as the reference's guard reads ``self.handle[3]`` on the
+    rank that owns the window."""
     rows, fresh = offset, True
     if disp is not None:
         rows += int(disp[o]) * disp_unit
     if handles is not None:
-        epoch, hoff, _, slot = (int(v) for v in handles[o])
+        epoch, hoff = int(handles[o, 0]), int(handles[o, 1])
         rows += hoff
         if regs is not None:
-            slot = min(max(slot, 0), regs.shape[1] - 1)
+            slot = min(max(int(handles[w, 3]), 0), regs.shape[1] - 1)
             live = int(regs[w, slot, 0])
             fresh = epoch == live and live > 0
     if disp is not None or handles is not None:
@@ -183,6 +196,16 @@ def put_rows_plain(src, dst, targets, *, offset: int = 0, counters=None,
         if counters is not None:
             counters[r, stream] += 1
     return 1
+
+
+def launch_blocks(nbytes: int, n: int = 1) -> int:
+    """Blocks a sender of a K3 launch gets (``gridDim.x``; the ``n``
+    senders ride ``gridDim.y``) for ``nbytes`` bytes a sender: one per
+    ``BLOCK_BYTES``, at most ``MAX_BLOCKS`` over all senders, never none.
+    The kernel's grid-stride loop copies every unit once for any count."""
+    if nbytes < 1 or n < 1:
+        raise ValueError(f"{nbytes} bytes a sender over {n} senders")
+    return max(1, min(cdiv(nbytes, BLOCK_BYTES), MAX_BLOCKS // n))
 
 
 def map_host(t: torch.Tensor) -> int:
@@ -278,7 +301,7 @@ def put_rows(src: torch.Tensor, dst: torch.Tensor, targets, *,
     row_b = es
     for d in src.shape[2:]:
         row_b *= d
-    blocks = max(1, min(cdiv(m * row_b, 16 * 1024), 512 // n))
+    blocks = launch_blocks(m * row_b, n)
     ptr = lambda t: 0 if t is None else t.data_ptr()   # noqa: E731
     fn = _build.lib("rma_put")
     rc = fn(device_pointer(src), src.stride(0) * es, device_pointer(dst),
@@ -369,4 +392,5 @@ def ring_put(x: torch.Tensor, *, axis_size: int, shift: int = 1
 __all__ = ["ring_put", "put_rows", "put_rows_plain", "wait_counters",
            "wait_counters_plain", "perm_targets", "targets_tensor",
            "shift_targets", "resolve_rows", "map_host", "device_pointer",
-           "COUNTER", "WAIT_COUNTER", "MAX_WAIT_RANKS"]
+           "launch_blocks", "COUNTER", "WAIT_COUNTER", "MAX_WAIT_RANKS",
+           "PUT_THREADS", "BLOCK_BYTES", "MAX_BLOCKS"]

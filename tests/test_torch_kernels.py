@@ -478,3 +478,42 @@ def test_entry_points_raise_on_cuda_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     model.init(0, device="cpu")          # the CPU only when asked for
+
+
+# ---------------------------------------------------------------------------
+# K3's launch shape (the device path's and the host path's alike)
+# ---------------------------------------------------------------------------
+
+#: bytes a sender moves: tiny, around a block's share, a qwen3-4b page and a
+#: ragged one, past 2^31
+PUT_SIZES = (1, 2, 15, 16, 17, 16383, 16384, 16385, 2_359_296 - 14,
+             2_359_296, (1 << 31) - 16, 1 << 31, 1 << 40)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 512, 513, 65535])
+def test_k3_launch_blocks_stay_within_the_grid(n):
+    """Every sender gets at least one block and no more than its bytes ask
+    for; the n senders together stay within MAX_BLOCKS (or one block each
+    past it) and gridDim.x's limit; a larger payload never gets fewer."""
+    from repro_torch.kernels.rma_put import (BLOCK_BYTES, MAX_BLOCKS,
+                                             launch_blocks)
+
+    last = 0
+    for nbytes in PUT_SIZES:
+        blocks = launch_blocks(nbytes, n)
+        assert 1 <= blocks <= -(-nbytes // BLOCK_BYTES)
+        assert blocks * n <= max(MAX_BLOCKS, n) and blocks <= 2**31 - 1
+        assert blocks >= last
+        last = blocks
+
+
+def test_k3_launch_blocks_at_a_page_and_refusals():
+    """A qwen3-4b page (2,359,296 bytes) from one sender takes 144 blocks,
+    from 8 senders 64 each; no bytes or no sender is refused."""
+    from repro_torch.kernels.rma_put import launch_blocks
+
+    assert launch_blocks(2_359_296) == 144
+    assert launch_blocks(2_359_296, 8) == 64
+    for bad in ((0, 1), (16, 0)):
+        with pytest.raises(ValueError):
+            launch_blocks(*bad)

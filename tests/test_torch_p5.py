@@ -280,6 +280,76 @@ def test_memhandle_accumulate_every_route(op, count, dtype, declared, path,
     assert mhw.err_count.tolist() == ([1] * N if stale else [0] * N)
 
 
+def _mixed_slot_pair(pool, *, stale, **cfg):
+    """Handles whose slot word differs by rank: rank 0 holds slot 1's
+    registration, the others slot 0's, attached under different epochs
+    (1 and 2).  ``stale``: slot 0 released and re-attached after the
+    handles were taken."""
+
+    def jwin(b):
+        w = _jdyn(b, **cfg).attach(0, 5, 16).attach(1, 0, 4)
+        h0, h1 = J.memhandle_create(w, 0), J.memhandle_create(w, 1)
+        if stale:
+            w = J.memhandle_release(w, 0).attach(0, 5, 16)
+        mh = jnp.where(jax.lax.axis_index("x") == 0, h1, h0)
+        return J.win_from_memhandle(w, mh, disp_unit=2)
+
+    w = _tdyn(pool, **cfg).attach(0, 5, 16).attach(1, 0, 4)
+    h0, h1 = T.memhandle_create(w, 0), T.memhandle_create(w, 1)
+    if stale:
+        T.memhandle_release(w, 0)
+        w.attach(0, 5, 16)
+    mh = h0.clone()
+    mh[0] = h1[0]
+    return jwin, T.win_from_memhandle(w, mh, disp_unit=2)
+
+
+@pytest.mark.usefixtures("plain_tiled_reference")
+@pytest.mark.parametrize("stale", [False, True])
+@pytest.mark.parametrize("kind", ["put", "get", "accumulate"])
+def test_guard_reads_the_slot_of_the_targets_own_handle(kind, stale):
+    """The lifetime guard checks the epoch that rode the operation against
+    the slot the addressed rank's own handle names, as the reference's
+    ``_lifetime_guard`` reads ``self.handle[3]`` at the target: with slot
+    words that differ by rank, the buffers, the read and ``err_count``
+    equal the reference's exactly (intrinsic route for the accumulate)."""
+    pool, rng = _pool(9)
+    count = 4 if kind == "accumulate" else 3
+    data = rng.standard_normal((N, count)).astype(np.float32)
+    cfg = dict(scope="thread")
+    if kind == "accumulate":
+        cfg.update(accumulate_ops=("sum",), max_atomic_elems=8, same_op="sum")
+        assert T.route_accumulate("sum", count, "float32",
+                                  T.WindowConfig(**cfg)) == "intrinsic"
+    jwin, mhw = _mixed_slot_pair(pool, stale=stale, **cfg)
+
+    def jstep(b, d):
+        m, got = jwin(b), jnp.zeros((4,), jnp.float32)
+        if kind == "put":
+            m = m.put(d, RING, offset=3)
+        elif kind == "get":
+            m, got = m.get(SHIFT2, offset=3, size=4)
+        else:
+            m = m.accumulate(d, RING, op="sum", offset=3)
+        return m.flush(0).parent.buffer, got, m.err_count
+
+    want = _jax_vmapped(jstep, pool, data)
+    got = torch.zeros((N, 4))
+    if kind == "put":
+        mhw.put(_t(data), RING, offset=3)
+    elif kind == "get":
+        _, got = mhw.get(SHIFT2, offset=3, size=4)
+    else:
+        mhw.accumulate(_t(data), RING, op="sum", offset=3)
+    mhw.flush(0)
+    np.testing.assert_array_equal(mhw.parent.buffer.numpy(), want[0])
+    np.testing.assert_array_equal(got.numpy(), want[1])
+    np.testing.assert_array_equal(mhw.err_count.numpy(), want[2])
+    # the slot words decide even where no handle was released: the ranks
+    # whose own slot is not the one the arriving epoch was taken from
+    assert want[2].sum() > 0
+
+
 def test_handle_phase_counts_equal_the_reference():
     """put 2, get 2, accumulate 2 (intrinsic/tiled) or 3 (software): the
     reference's collective permutes, whatever the displacement."""
@@ -492,23 +562,30 @@ def test_plan_handle_ops_need_a_dynamic_window():
 # K3 and K2 plain versions: device displacements and the guard
 # ---------------------------------------------------------------------------
 
-def _guard_case(seed, L=20):
+def _guard_case(seed, L=20, by_rank=False):
+    """``by_rank``: rank 1's handle names slot 2 (live epoch 7 everywhere),
+    the others' slot 1, so the addressed rank's own slot decides."""
     rng = np.random.default_rng(seed)
     regs = torch.zeros((N, 3, 3), dtype=torch.int32)
     regs[:, 1, 0] = 5
     regs[2, 1, 0] = 6                       # rank 2 re-registered: stale there
     handles = torch.tensor([[5, 2, 0, 1]] * N, dtype=torch.int32)
+    if by_rank:
+        regs[:, 2, 0] = 7
+        handles[1, 3] = 2
     disp = torch.tensor([0, 3, L, -5], dtype=torch.int32)
     return rng, regs, handles, disp
 
 
 def _oracle_rows(o, w, L, m, offset, disp, unit, handles, regs):
+    """Origin o's row on rank w's window and whether its handle is fresh:
+    o's epoch against the live entry of the slot w's own handle names."""
     rows = offset + (int(disp[o]) * unit if disp is not None else 0)
     fresh = True
     if handles is not None:
         rows += int(handles[o, 1])
         if regs is not None:
-            live = int(regs[w, int(handles[o, 3]), 0])
+            live = int(regs[w, int(handles[w, 3]), 0])
             fresh = live == int(handles[o, 0]) and live > 0
     if disp is not None or handles is not None:
         rows = max(0, min(rows + L if rows < 0 else rows, L - m))
@@ -516,16 +593,18 @@ def _oracle_rows(o, w, L, m, offset, disp, unit, handles, regs):
 
 
 @pytest.mark.parametrize("read", [False, True])
-@pytest.mark.parametrize("parts", ["disp", "handles", "guard"])
+@pytest.mark.parametrize("parts", ["disp", "handles", "guard",
+                                   "guard, slots by rank"])
 def test_k3_plain_address_and_guard_match_a_loop(read, parts):
     L, m, tg = 20, 4, [1, 2, 3, -1]
-    rng, regs, handles, disp = _guard_case(11, L)
+    by_rank = parts.endswith("by rank")
+    rng, regs, handles, disp = _guard_case(11, L, by_rank)
     big = torch.from_numpy(rng.standard_normal((N, L)).astype(np.float32))
     small = torch.from_numpy(rng.standard_normal((N, m)).astype(np.float32))
     kw = dict(disp=disp, disp_unit=2, offset=1)
     if parts != "disp":
         kw["handles"] = handles
-    if parts == "guard":
+    if parts.startswith("guard"):
         kw.update(regs=regs, err=torch.zeros(N, dtype=torch.int32))
     src, dst = (big, small.clone()) if read else (small, big.clone())
     want, werr = dst.clone(), torch.zeros(N, dtype=torch.int32)
@@ -544,16 +623,31 @@ def test_k3_plain_address_and_guard_match_a_loop(read, parts):
     put_rows(src, dst, tg, counters=cnt, read=read, **kw)
     assert torch.equal(dst, want)
     assert cnt[:, 0].tolist() == [1, 1, 1, 0]
-    if parts == "guard":
-        assert torch.equal(kw["err"], werr) and int(werr.sum()) == 1
+    if parts.startswith("guard"):
+        # rank 2 re-registered; by rank, rank 1's own slot 2 too
+        assert torch.equal(kw["err"], werr)
+        assert werr.tolist() == [0, int(by_rank), 1, 0]
 
 
-@pytest.mark.parametrize("op,dtype", [("sum", torch.float32),
-                                      ("max", torch.int32),
-                                      ("bxor", torch.int64)])
+K2_OPS = [("sum", torch.float32), ("max", torch.int32),
+          ("bxor", torch.int64)]
+
+
+@pytest.mark.parametrize("op,dtype", K2_OPS)
 def test_k2_plain_address_and_guard_match_a_loop(op, dtype):
+    _k2_loop_case(op, dtype, by_rank=False)
+
+
+@pytest.mark.parametrize("op,dtype", K2_OPS)
+def test_k2_plain_guard_takes_the_addressed_ranks_slot(op, dtype):
+    """Handles whose slot word differs by rank: the target's own slot
+    decides, as the loop oracle takes it."""
+    _k2_loop_case(op, dtype, by_rank=True)
+
+
+def _k2_loop_case(op, dtype, *, by_rank):
     L, m, tg = 20, 3, [2, 3, 0, 1]
-    rng, regs, handles, disp = _guard_case(12, L)
+    rng, regs, handles, disp = _guard_case(12, L, by_rank)
     buf = torch.from_numpy(rng.integers(-9, 9, (N, L))).to(dtype)
     upd = torch.from_numpy(rng.integers(-9, 9, (N, m))).to(dtype)
     err = torch.zeros(N, dtype=torch.int32)
@@ -569,6 +663,7 @@ def test_k2_plain_address_and_guard_match_a_loop(op, dtype):
     accumulate_rows_atomic(upd, buf, tg, op=op, disp=disp, handles=handles,
                            regs=regs, err=err)
     assert torch.equal(buf, want) and torch.equal(err, werr)
+    assert werr.tolist() == [0, int(by_rank), 1, 0]
     again = accumulate_rows_atomic_plain(upd, want.clone(), tg, op=op,
                                          offset=2)
     assert again.shape == want.shape
