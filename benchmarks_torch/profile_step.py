@@ -14,12 +14,16 @@ ranks, ``moe_ep="rma"`` — global batch 8 × 512, runs two warm-up steps, then
 traces one step with ``torch.profiler`` (CPU and CUDA activities, input
 shapes recorded) and prints:
 
-* the step's wall time, the card's busy time (the sum of its kernels'
-  times) and the idle share 1 − busy / wall;
-* the busy time by part: operators with a vocabulary-sized input (the LM
+* the step's wall time (the traced stretch, the final synchronization
+  included), the card's busy time (the union of its device intervals,
+  ``rmabench.trace.Trace``) and the idle share 1 − busy / wall;
+* the device time by part: operators with a vocabulary-sized input (the LM
   head's products and their gradients, the cross-entropy), the K5 gradient
   ring, the K4/K6 doorbell launches of the all-to-all exchanges, and the
   rest;
+* the port's own spans (``repro_torch.obs``, recorded while the profiler
+  records): each name's count and host time, and the card's idle time by
+  the innermost span open at each idle stretch;
 * the operators with the most device time, with their input shapes, and the
   kernels with the most time.
 
@@ -30,27 +34,27 @@ its layers and published widths behind a dense engine of 4 slots —
 jamba-v0.1-52b`` (one period of 8 layers, ``max_seq`` 2048, 1016-token
 prompts) — admits four requests as warm-up, then traces one prefill (a
 fifth prompt into slot 0) and one decode tick over the four slots, and
-prints for each the wall time, the card's busy time and idle share, the
-kernels' launches and shares of the busy time (K7 where the stack has
-attention; K8 and the SSD pass, the two kernels of the SSD scan, and
-whatever else runs inside ``kernels.ops.ssd_scan``, found through a
-profiler range around it, where it has Mamba2 layers), and the operators
-and kernels with the most device time.
+prints for each the same wall, busy and idle, the kernels' launches and
+shares of the busy time (K7 where the stack has attention; K8 and the SSD
+pass, the two kernels of the SSD scan, where it has Mamba2 layers), the
+port's spans, and the operators and kernels with the most device time.
 
 Needs one CUDA card; exits non-zero without one.
 """
 import argparse
+import contextlib
 import dataclasses
 import os
 import sys
 import time
+import types
+from collections import defaultdict
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
 
 N_LAYERS, N_RANKS, GLOBAL_BATCH, SEQ_LEN, WARMUP = 2, 4, 8, 512, 2
 MOE_EXPERTS = 8
-#: the profiler range ``--serve`` puts around the SSD scan
-SCAN_RANGE = "ssd_scan"
 #: serving configurations: arch → (slots, max_seq, prompt tokens, layers)
 #: (None: all of them)
 SERVE = {"qwen3-4b": (4, 2048, 1016, None),
@@ -58,6 +62,63 @@ SERVE = {"qwen3-4b": (4, 2048, 1016, None),
          "jamba-v0.1-52b": (4, 2048, 1016, 8)}
 #: train configurations besides the default: arch → layers (None: all)
 TRAIN = {"qwen3-4b": N_LAYERS, "mamba2-370m": None}
+
+
+@contextlib.contextmanager
+def traced():
+    """Profile the block (CPU and CUDA, input shapes) from a synchronized
+    start to a synchronized end; afterwards ``out.prof`` is the profiler,
+    ``out.trace`` the device's intervals on the host's clock
+    (``rmabench.trace``) and ``out.spans`` the port's spans inside it
+    (kept until the next traced block)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from rmabench.trace import MARK, _read
+    from repro_torch import obs
+
+    out = types.SimpleNamespace()
+    obs.clear()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        with record_function(MARK):     # ties the profiler's clock
+            t0 = time.perf_counter()
+        yield out
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    out.prof, out.trace = prof, _read(prof, t0, t1)
+    out.spans = [s for s in obs.spans() if t0 <= s.t0 and s.t1 <= t1]
+
+
+def report_busy(what: str, out) -> float:
+    """Wall, busy (a union of device intervals) and idle of a traced
+    stretch; returns busy ms."""
+    tr = out.trace
+    wall_ms, busy_ms = tr.window_s * 1e3, tr.busy_s() * 1e3
+    if busy_ms <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    print(f"[profile] {what}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms, idle {100 * (1 - busy_ms / wall_ms):.1f} %")
+    return busy_ms
+
+
+def report_spans(out, k: int = 12) -> None:
+    """The port's spans: count and host ms by name, and the card's idle ms
+    by the innermost span open at each idle stretch."""
+    from rmabench import program_spans
+
+    by = defaultdict(lambda: [0, 0.0])
+    for s in out.spans:
+        by[s.name][0] += 1
+        by[s.name][1] += (s.t1 - s.t0) * 1e3
+    print("[profile] the port's spans (count, host ms):")
+    for name, (n, ms) in sorted(by.items(), key=lambda kv: -kv[1][1])[:k]:
+        print(f"  {ms:9.2f}  {n:4d}  {name}")
+    idle = program_spans.idle_by_innermost(types.SimpleNamespace(
+        tr=out.trace))
+    print("[profile] idle ms by innermost span: " + ", ".join(
+        f"{n} {t * 1e3:.2f}" for n, t in list(idle.items())[:k]))
 
 
 def self_device_us(evt) -> float:
@@ -83,46 +144,9 @@ def report_tops(ops, kernels, n_ops: int = 16, n_kernels: int = 10) -> None:
         print(f"  {self_device_us(e) / 1e3:9.2f}  {e.count:4d}  {e.key[:90]}")
 
 
-def annotate(module, name: str) -> None:
-    """Run ``module.<name>`` inside a profiler range of the same name."""
-    from torch.profiler import record_function
-
-    fn = getattr(module, name)
-
-    def ranged(*args, **kw):
-        with record_function(name):
-            return fn(*args, **kw)
-    setattr(module, name, ranged)
-
-
-def device_us(evt) -> float:
-    """Device time of a profiler event, its children included."""
-    t = getattr(evt, "device_time_total", None)
-    if t is None:
-        t = getattr(evt, "cuda_time_total", 0.0)
-    return float(t)
-
-
-def operators_inside(prof, name: str) -> dict[str, list]:
-    """The operators and runtime calls the profiler recorded directly
-    inside the ranges ``name``: name → [calls, device ms, their own
-    children's names]."""
-    found: dict[str, list] = {}
-    for e in prof.events():
-        if e.name != name or is_kernel(e):
-            continue
-        for child in e.cpu_children:
-            entry = found.setdefault(child.name, [0, 0.0, set()])
-            entry[0] += 1
-            entry[1] += device_us(child) / 1e3
-            entry[2].update(c.name for c in child.cpu_children)
-    return found
-
-
 def profile_serve(torch, arch: str) -> int:
     """One traced prefill and one traced decode tick of the serving path."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -134,9 +158,6 @@ def profile_serve(torch, arch: str) -> int:
         cfg = cfg.replace(n_layers=layers)
     model = build_model(cfg)
     params = model.init(0, device="cuda")
-    ssm = cfg.ssm is not None
-    if ssm:     # a range around the SSD scan
-        annotate(sys.modules["repro_torch.kernels.ops"], SCAN_RANGE)
     eng = ServeEngine(model, params, n_slots=slots, max_seq=max_seq)
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab, size=prompt_len)
@@ -151,53 +172,29 @@ def profile_serve(torch, arch: str) -> int:
                   tok, 0, [], np.zeros(0, bool))),
              ("decode tick", eng.step))
     for what, fn in parts:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     record_shapes=True) as prof:
-            t0 = time.perf_counter()
+        with traced() as out:
             fn()                      # both end in a host read
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages(group_by_input_shape=True)
-        # the ranges show on the device timeline too, as spans: no kernels
-        kernels = [e for e in events if is_kernel(e) and e.key != SCAN_RANGE]
-        ops = [e for e in events if not is_kernel(e)]
-        busy_ms = sum(self_device_us(e) for e in kernels) / 1e3
-        if busy_ms <= 0:
-            raise AssertionError("the profiler recorded no device time")
+        tr = out.trace
+        busy_ms = report_busy(
+            f"{cfg.name} x{cfg.n_layers} layers d{cfg.d_model}, {slots} "
+            f"slots, max_seq {max_seq}, {prompt_len}-token prompts, one "
+            f"{what}", out)
         shares = []
         tags = ((("K7", "flash_fwd_"),)
                 if any(sp.mixer == "gqa" for sp in model.plan) else ())
-        if ssm:
+        if cfg.ssm is not None:
             tags += (("K8", "ssd_intra"), ("the SSD pass", "ssd_pass"))
         for tag, name in tags:
-            kern = [e for e in kernels if name in e.key]
-            kern_ms = sum(self_device_us(e) for e in kern) / 1e3
-            shares.append(f"{tag} {sum(e.count for e in kern)} launches, "
+            kern_ms = tr.kernel_seconds([name]) * 1e3
+            shares.append(f"{tag} {tr.kernel_count([name])} launches, "
                           f"{kern_ms:.2f} ms ({100 * kern_ms / busy_ms:.1f} "
                           "% of busy)")
-        print(f"[profile] {cfg.name} x{cfg.n_layers} layers d{cfg.d_model}, "
-              f"{slots} slots, max_seq {max_seq}, {prompt_len}-token "
-              f"prompts, one {what}: wall {wall_ms:.1f} ms, device busy "
-              f"{busy_ms:.1f} ms, idle {100 * (1 - busy_ms / wall_ms):.1f} "
-              f"%; {'; '.join(shares)}")
-        if ssm:
-            # the runtime's launch calls are the two kernels' own launches
-            inside = operators_inside(prof, SCAN_RANGE)
-            calls = sum(v[0] for k, v in inside.items() if k.startswith("cuda"))
-            others = {k: v for k, v in inside.items()
-                      if not k.startswith("cuda")}
-            left_ms = sum(v[1] for v in others.values())
-            print(f"[profile] inside kernels.ops.ssd_scan: {calls} launch "
-                  f"calls of the runtime (the two kernels'); beside them "
-                  f"{sum(v[0] for v in others.values())} operators with "
-                  f"{left_ms:.3f} ms of device time "
-                  f"({100 * left_ms / busy_ms:.2f} % of busy)")
-            for op, (n, ms, sub) in sorted(others.items(),
-                                           key=lambda kv: -kv[1][1]):
-                print(f"  {ms:9.3f}  {n:4d}  {op} {sorted(sub)[:4]}")
-        report_tops(ops, kernels)
+        if shares:
+            print(f"[profile] {'; '.join(shares)}")
+        report_spans(out)
+        events = out.prof.key_averages(group_by_input_shape=True)
+        report_tops([e for e in events if not is_kernel(e)],
+                    [e for e in events if is_kernel(e)])
     return 0
 
 
@@ -215,7 +212,7 @@ def main(argv=None) -> int:
     if not args.serve and (args.arch not in TRAIN or args.moe and
                            args.arch != "qwen3-4b"):
         ap.error(f"--arch trains one of {sorted(TRAIN)}, without --moe")
-    sys.path.insert(0, os.path.join(HERE, "..", "src"))
+    sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
     import torch
 
     if not torch.cuda.is_available():
@@ -223,8 +220,6 @@ def main(argv=None) -> int:
         return 2
     if args.serve:
         return profile_serve(torch, args.arch)
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.models import build_model
@@ -262,45 +257,39 @@ def main(argv=None) -> int:
     for i in range(WARMUP):
         params, opt_state, _ = step(params, opt_state, batch(i))
     b = batch(WARMUP)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        t0 = time.perf_counter()
+    with traced() as out:
         params, opt_state, metrics = step(params, opt_state, b)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     loss = float(metrics["loss"])
     if loss != loss:
         raise AssertionError("loss is not finite")
 
-    events = prof.key_averages(group_by_input_shape=True)
+    tr = out.trace
+    busy_ms = report_busy(f"{what}, batch {GLOBAL_BATCH}x{SEQ_LEN}, one "
+                          f"step after {WARMUP}", out)
+    events = out.prof.key_averages(group_by_input_shape=True)
     kernels = [e for e in events if is_kernel(e)]
     ops = [e for e in events if not is_kernel(e)]
-    busy_ms = sum(self_device_us(e) for e in kernels) / 1e3
-    if busy_ms <= 0:
-        raise AssertionError("the profiler recorded no device time")
     vocab = {cfg.vocab, cfg.vocab_padded}
     vocab_ms = sum(self_device_us(e) for e in ops
                    if any(vocab & set(s) for s in e.input_shapes or []
                           if all(isinstance(d, int) for d in s))) / 1e3
-    ring_ms = sum(self_device_us(e) for e in kernels      # K5's kernel
-                  if e.key.startswith("ring_ar_kernel")) / 1e3
-    signal = [e for e in kernels if e.key.startswith("void signal_kernel")
-              or e.key.startswith("signal_kernel")]       # K4 and K6
-    signal_ms = sum(self_device_us(e) for e in signal) / 1e3
+    ring_ms = tr.kernel_seconds(["ring_ar_kernel"]) * 1e3       # K5
+    signal_ms = tr.kernel_seconds(["signal_kernel"]) * 1e3     # K4 and K6
     rest_ms = busy_ms - vocab_ms - ring_ms - signal_ms
-    print(f"[profile] {what}, batch {GLOBAL_BATCH}x{SEQ_LEN}, one step after "
-          f"{WARMUP}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
-          f"idle {100 * (1 - busy_ms / wall_ms):.1f} %")
-    print(f"[profile] busy by part: vocabulary-sized operators "
-          f"{vocab_ms:.1f} ms ({100 * vocab_ms / busy_ms:.1f} %), K5 ring "
-          f"{ring_ms:.1f} ms ({100 * ring_ms / busy_ms:.1f} %), K4/K6 "
-          f"{signal_ms:.3f} ms ({100 * signal_ms / busy_ms:.2f} %), rest "
-          f"{rest_ms:.1f} ms ({100 * rest_ms / busy_ms:.1f} %)")
-    for e in signal:
-        print(f"[profile] {e.key[:60]}: {e.count} launches, "
-              f"{self_device_us(e) / max(1, e.count) / 1e3:.4f} ms each "
-              "(device time)")
+    print(f"[profile] device time by part: vocabulary-sized operators "
+          f"{vocab_ms:.1f} ms ({100 * vocab_ms / busy_ms:.1f} % of busy), "
+          f"K5 ring {ring_ms:.1f} ms ({100 * ring_ms / busy_ms:.1f} %), "
+          f"K4/K6 {signal_ms:.3f} ms ({100 * signal_ms / busy_ms:.2f} %), "
+          f"the rest of busy {rest_ms:.1f} ms "
+          f"({100 * rest_ms / busy_ms:.1f} %)")
+    launches = defaultdict(list)
+    for t0, t1, name in tr.device:
+        if "signal_kernel" in name:
+            launches[name[:60]].append(t1 - t0)
+    for name, times in launches.items():
+        print(f"[profile] {name}: {len(times)} launches, "
+              f"{sum(times) / len(times) * 1e3:.4f} ms each (device time)")
+    report_spans(out)
     report_tops(ops, kernels)
     return 0
 

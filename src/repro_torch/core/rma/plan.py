@@ -53,6 +53,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.rma import accumulate as acc_engine
 from repro_torch.core.rma.substrate import SCOPE_THREAD, _is_static
 from repro_torch.core.rma.topology import Topology
@@ -993,6 +994,10 @@ class CompiledPlan:
         (a zero-copy dup) and comes back with the caller's config.  A
         binding named in ``donate`` may be overwritten (the K5 ring reduces
         it in place instead of copying)."""
+        with obs.span("rma.execute", plan=self.name):
+            return self._replay(windows, bindings, donate)
+
+    def _replay(self, windows, bindings, donate) -> PlanResult:
         bindings = dict(bindings or {})
         n = None
         device = None

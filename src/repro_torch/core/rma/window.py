@@ -26,6 +26,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.rma.substrate import (SCOPE_PROCESS, SCOPE_THREAD,
                                             CompletionToken, FlushQueues,
                                             Substrate)
@@ -143,8 +144,9 @@ class Window:
         if not buffer.is_contiguous():
             raise ValueError("a window exposes a contiguous stacked buffer")
         config = config or WindowConfig()
-        return cls(Substrate.allocate(buffer, axis, axis_size,
-                                      config.max_streams, device), config)
+        with obs.span("rma.allocate"):
+            return cls(Substrate.allocate(buffer, axis, axis_size,
+                                          config.max_streams, device), config)
 
     def dup_with_info(self, **info) -> "Window":
         """``MPIX_Win_dup_with_info`` (paper §3): a new view over the same
@@ -159,8 +161,11 @@ class Window:
                 "window's substrate was allocated with; max_streams sizes "
                 "the per-stream state at allocate time and cannot grow on an "
                 "aliased window — allocate the parent with enough streams")
-        accepted = {k: v for k, v in info.items() if k not in _DUP_IMMUTABLE_KEYS}
-        return dataclasses.replace(self, config=self.config.replace(**accepted))
+        with obs.span("rma.dup"):
+            accepted = {k: v for k, v in info.items()
+                        if k not in _DUP_IMMUTABLE_KEYS}
+            return dataclasses.replace(
+                self, config=self.config.replace(**accepted))
 
     def completion_token(self, stream: int = 0) -> CompletionToken:
         """The stream's completion token: it stands for every operation
@@ -257,7 +262,8 @@ class Window:
         """``MPI_Win_flush`` through the shared epoch engine: process scope
         completes every stream of the dup family (the serialized walk);
         thread scope (P1) only the named stream."""
-        self.substrate.flush(scope=self.config.scope, stream=stream)
+        with obs.span("rma.flush"):
+            self.substrate.flush(scope=self.config.scope, stream=stream)
         return self
 
     def flush_local(self, stream: int | None = None) -> "Window":

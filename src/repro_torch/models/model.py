@@ -20,6 +20,7 @@ from functools import cached_property
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, transformer
@@ -125,14 +126,17 @@ class Model:
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = transformer._norm(x, params["final_norm"], cfg)
-        if cfg.tie_embeddings:
-            logits = layers.unembed(x, params["embed"])
-        else:
-            logits = layers.lm_head(x, params["lm_head"])
-        if cfg.vocab_padded != cfg.vocab:
-            lane = torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab
-            logits = torch.where(lane, logits, logits.new_full((), -1e30))
+        with obs.span("model.head"):
+            x = transformer._norm(x, params["final_norm"], cfg)
+            if cfg.tie_embeddings:
+                logits = layers.unembed(x, params["embed"])
+            else:
+                logits = layers.lm_head(x, params["lm_head"])
+            if cfg.vocab_padded != cfg.vocab:
+                lane = torch.arange(cfg.vocab_padded,
+                                    device=x.device) < cfg.vocab
+                logits = torch.where(lane, logits,
+                                     logits.new_full((), -1e30))
         return logical_constraint(logits, "batch", "seq", "vocab")
 
     def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:

@@ -33,6 +33,7 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.models import attention, layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
@@ -169,21 +170,22 @@ def apply_block(params: dict, spec: LayerSpec, x: torch.Tensor, cfg, *,
     rank count.  ``cache`` (the block's, written in place) goes to the
     mixers, ``prefill`` to the attention (a Mamba2 block decodes exactly
     when it has a cache and one token)."""
-    h = _norm(x, params["norm_mixer"], cfg)
-    if spec.mixer == "mamba":
-        x = x + ssm.mamba2_apply(
-            params["mamba"], h, cfg,
-            cache=cache["mamba"] if cache is not None else None)
-    elif spec.mixer == "mla":
-        x = x + attention.mla_attention(
-            params["attn"], h, cfg, positions=positions,
-            cache=cache["attn"] if cache is not None else None,
-            prefill=prefill)
-    else:
-        x = x + attention.gqa_attention(
-            params["attn"], h, cfg, positions=positions, causal=causal,
-            cache=cache["attn"] if cache is not None else None,
-            block_kv=cfg.attn_block_kv, prefill=prefill)
+    with obs.span(f"layer.{spec.mixer}"):
+        h = _norm(x, params["norm_mixer"], cfg)
+        if spec.mixer == "mamba":
+            x = x + ssm.mamba2_apply(
+                params["mamba"], h, cfg,
+                cache=cache["mamba"] if cache is not None else None)
+        elif spec.mixer == "mla":
+            x = x + attention.mla_attention(
+                params["attn"], h, cfg, positions=positions,
+                cache=cache["attn"] if cache is not None else None,
+                prefill=prefill)
+        else:
+            x = x + attention.gqa_attention(
+                params["attn"], h, cfg, positions=positions, causal=causal,
+                cache=cache["attn"] if cache is not None else None,
+                block_kv=cfg.attn_block_kv, prefill=prefill)
     if spec.cross:
         h = _norm(x, params["norm_cross"], cfg)
         x = x + attention.gqa_attention(
@@ -193,14 +195,15 @@ def apply_block(params: dict, spec: LayerSpec, x: torch.Tensor, cfg, *,
             cross_cached=cross_cached)
     aux = x.new_zeros((), dtype=torch.float32)
     if spec.ffn != "none":
-        h = _norm(x, params["norm_ffn"], cfg)
-        if spec.ffn == "moe":
-            out, aux = moe_lib.moe_apply(params["moe"], h, cfg,
-                                         ep_ranks=ep_ranks)
-        else:
-            mlp = layers.gelu_mlp if cfg.act == "gelu" else layers.swiglu
-            out = mlp(h, params["mlp"])
-        x = x + out
+        with obs.span(f"layer.{spec.ffn}"):
+            h = _norm(x, params["norm_ffn"], cfg)
+            if spec.ffn == "moe":
+                out, aux = moe_lib.moe_apply(params["moe"], h, cfg,
+                                             ep_ranks=ep_ranks)
+            else:
+                mlp = layers.gelu_mlp if cfg.act == "gelu" else layers.swiglu
+                out = mlp(h, params["mlp"])
+            x = x + out
     return logical_constraint(x, "batch", "seq", "embed"), aux
 
 
@@ -354,7 +357,10 @@ def apply_stack(params: dict, x: torch.Tensor, cfg, *,
     for c in range(count):
         # the period's parameter slices are taken outside the checkpoint
         # and handed in as its arguments
-        block = tree_map(lambda p: p[c], params["scan"])
+        with obs.span("stack.slice"):
+            block = tree_map(lambda p: p[c], params["scan"])
+            bcache = (tree_map(lambda t: t[c], cache["scan"])
+                      if cache is not None else None)
         if remat:
             # non-reentrant: the step differentiates with autograd.grad,
             # and the first forward runs with grad (a Mamba2 block then
@@ -364,8 +370,6 @@ def apply_stack(params: dict, x: torch.Tensor, cfg, *,
                 remat_period, x, aux_total, *leaves(block),
                 use_reentrant=False, preserve_rng_state=False)
         else:
-            bcache = (tree_map(lambda t: t[c], cache["scan"])
-                      if cache is not None else None)
             x, aux_total = apply_period(x, aux_total, block, bcache)
     if cache is not None:
         cache["step"] += x.shape[1]

@@ -60,6 +60,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.serve import disagg
 from repro_torch.serve.paged import HostKVTier, KVPoolManager
 from repro_torch.serve.scheduler import Scheduler
@@ -166,12 +167,15 @@ class Executor:
     def decode(self, last_tokens: np.ndarray) -> np.ndarray:
         """One decode step over every slot; returns per-slot argmax (one
         host read)."""
-        tokens = torch.as_tensor(last_tokens, dtype=torch.int64,
-                                 device=self.device)
-        logits, self.cache = self.model.decode_step(self.params, self.cache,
-                                                    tokens)
-        return torch.argmax(logits[:, -1, :], dim=-1).to(
-            torch.int32).cpu().numpy()
+        with obs.span("decode.h2d"):
+            tokens = torch.as_tensor(last_tokens, dtype=torch.int64,
+                                     device=self.device)
+        with obs.span("decode.model"):
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache, tokens)
+        with obs.span("decode.read"):
+            return torch.argmax(logits[:, -1, :], dim=-1).to(
+                torch.int32).cpu().numpy()
 
     # -- paged-pool device ops ---------------------------------------------------
     def fork_page(self, slot: int, j: int, src: int, dst: int) -> None:
@@ -431,25 +435,29 @@ class ServeEngine:
         pages about to be written, then one decode step over every slot.
         In tiered mode only active (HBM-resident) slots commit tokens: a
         cold slot's row is parked and its output discarded."""
-        if self.tiered:
-            self._tier_tick()
-        self._admit()
-        if self.slot_req:
-            if self.paged_kv and self.prefix_share:
-                self._cow_tick()
+        with obs.span("serve.tick", tick=self._tick):
             if self.tiered:
-                # every active slot's pages must be hot before decode
-                for slot in sorted(self._active):
-                    self.pool.assert_resident(self.slot_pages[slot])
-            nxt = self.executor.decode(self._last_tokens)
-            for slot in list(self.slot_req):
-                if self.tiered and slot not in self._active:
-                    continue
-                tok = int(nxt[slot])
-                self.slot_generated[slot].append(tok)
-                self.slot_pos[slot] += 1
-                self._last_tokens[slot, 0] = tok
-                self._finish_if_ended(slot)
+                with obs.span("serve.tier"):
+                    self._tier_tick()
+            self._admit()
+            if self.slot_req:
+                if self.paged_kv and self.prefix_share:
+                    with obs.span("serve.cow"):
+                        self._cow_tick()
+                if self.tiered:
+                    # every active slot's pages must be hot before decode
+                    for slot in sorted(self._active):
+                        self.pool.assert_resident(self.slot_pages[slot])
+                with obs.span("serve.decode", rows=len(self.slot_req)):
+                    nxt = self.executor.decode(self._last_tokens)
+                for slot in list(self.slot_req):
+                    if self.tiered and slot not in self._active:
+                        continue
+                    tok = int(nxt[slot])
+                    self.slot_generated[slot].append(tok)
+                    self.slot_pos[slot] += 1
+                    self._last_tokens[slot, 0] = tok
+                    self._finish_if_ended(slot)
         self._tick += 1
 
     def evict_slots(self, slots, *, requeue: bool = True) -> int:
@@ -571,29 +579,30 @@ class ServeEngine:
     def _admit(self) -> None:
         """Admit what the scheduler selects, until it selects nothing (an
         admission-time completion frees its slot within the tick)."""
-        while True:
-            n_free = sum(self.slot_free)
-            if self.tiered:
-                # total-footprint pricing against the whole hierarchy: an
-                # admitted sequence may rotate through the cold tier, but
-                # never lands on capacity that does not exist
-                n_free = min(n_free, self.scheduler.price_admission(
-                    pages_per_seq=self.pages_per_slot,
-                    hbm_free=self.pool.n_free,
-                    host_free=self.pool.host.n_free,
-                    reserve=self.pool.cow_debt))
-            entries = self.scheduler.select(n_free, live=len(self.slot_req),
-                                            tick=self._tick)
-            if not entries:
-                return
-            for idx, entry in enumerate(entries):
-                slot = self.slot_free.index(True)
-                if not self._admit_one(entry, slot):
-                    # pool pressure: hand this and the rest back, front of
-                    # queue, original order — retry next tick
-                    for e in reversed(entries[idx:]):
-                        self.scheduler.requeue(e)
+        with obs.span("serve.admit"):
+            while True:
+                n_free = sum(self.slot_free)
+                if self.tiered:
+                    # total-footprint pricing against the whole hierarchy: an
+                    # admitted sequence may rotate through the cold tier, but
+                    # never lands on capacity that does not exist
+                    n_free = min(n_free, self.scheduler.price_admission(
+                        pages_per_seq=self.pages_per_slot,
+                        hbm_free=self.pool.n_free,
+                        host_free=self.pool.host.n_free,
+                        reserve=self.pool.cow_debt))
+                entries = self.scheduler.select(
+                    n_free, live=len(self.slot_req), tick=self._tick)
+                if not entries:
                     return
+                for idx, entry in enumerate(entries):
+                    slot = self.slot_free.index(True)
+                    if not self._admit_one(entry, slot):
+                        # pool pressure: hand this and the rest back, front of
+                        # queue, original order — retry next tick
+                        for e in reversed(entries[idx:]):
+                            self.scheduler.requeue(e)
+                        return
 
     def _admit_one(self, entry, slot: int) -> bool:
         """Prefill one selected request into ``slot``.  Returns False (no
@@ -632,7 +641,10 @@ class ServeEngine:
                     self.executor.set_pages_hot(fresh, True)
                 self._active.add(slot)
                 self._hot_since[slot] = self._tick
-        first = self.executor.prefill(tokens, slot, phys, write_ok)
+        # submitted → the span's start is the request's queue wait
+        with obs.span("serve.prefill", rid=req.rid, tokens=len(req.prompt),
+                      submitted=entry.t_submit):
+            first = self.executor.prefill(tokens, slot, phys, write_ok)
         self.slot_free[slot] = False
         self.slot_req[slot] = req
         self.slot_generated[slot] = [first]

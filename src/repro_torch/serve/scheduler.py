@@ -43,6 +43,8 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch import obs
+
 POLICIES = ("continuous", "static", "priority", "fair")
 
 
@@ -52,7 +54,7 @@ class SchedEntry:
 
     req: object               # repro_torch.serve.engine.Request
     arrival: int              # engine tick at submission
-    t_submit: float           # wall clock at submission (for latency stats)
+    t_submit: float           # perf_counter at submission (queue wait)
     seq: int                  # monotone submission index (FIFO tiebreak)
     priority: int = 0
     tenant: int = 0
@@ -103,6 +105,13 @@ class Scheduler:
             return []
         if self.policy == "static" and live > 0:
             return []
+        with obs.span("sched.select") as sp:
+            picked = self._pick(free_slots)
+            if sp:
+                sp.attrs["picked"] = [e.req.rid for e in picked]
+        return picked
+
+    def _pick(self, free_slots: int) -> list[SchedEntry]:
         k = min(free_slots, len(self._queue))
         if self.policy == "priority":
             order = sorted(self._queue, key=lambda e: (-e.priority, e.seq))

@@ -40,7 +40,9 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
     """Build ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``batch`` is the global batch.  Parameters and optimizer
     state are updated in place.  On the card, CUDA events bracket the
-    step's parts — gradients, the gradient ring, AdamW
+    step's parts — gradients, the gradient ring, AdamW, and inside the
+    gradients each rank's and micro-batch's forward and backward
+    (``fwd.<rank>.<micro-batch>``, ``bwd.<rank>.<micro-batch>``)
     (``metrics["events"]``, name → (start, end)) — and every all-to-all
     exchange (``metrics["exchange_events"]``).
 
@@ -97,10 +99,13 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
     n = data_axis_size if grad_sync == "rma_ring" else 1
     axis = data_axis or "data"
 
-    def grads_into(params, batch, out: torch.Tensor | None):
+    def grads_into(params, batch, out: torch.Tensor | None, mark, rank=0):
         """Loss and gradients of one batch, averaged over ``accum_steps``
         micro-batches.  With ``out`` (a float32 vector), the gradients are
-        written there in leaf order instead of returned."""
+        written there in leaf order instead of returned.  Each micro-batch
+        ``a`` marks its forward ``fwd.<rank>.<a>`` and its backward (the
+        recompute and the copy of the gradients included)
+        ``bwd.<rank>.<a>``."""
         # differentiable aliases of the parameters (no copy)
         ps = [p.detach().requires_grad_(True) for p in leaves(params)]
         params = unflatten(params, ps)
@@ -113,8 +118,11 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
         loss_sum = None
         for a in range(accum_steps):
             mb = {k: v[a * per:(a + 1) * per] for k, v in batch.items()}
+            fwd, bwd = f"fwd.{rank}.{a}", f"bwd.{rank}.{a}"
+            mark(None, fwd)
             with torch.enable_grad():
                 loss, parts = model.loss(params, mb)
+                mark(fwd, bwd)
                 gs = torch.autograd.grad(loss, ps)
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -130,6 +138,7 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
                     else:
                         seg.add_(g.reshape(-1).float())
                     off += g.numel()
+            mark(bwd, None)
         if accum_steps > 1:
             if out is None:
                 acc = [g / accum_steps for g in acc]
@@ -158,7 +167,7 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
         losses, parts = [], []
         for r in range(n):
             shard = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
-            loss, _, part = grads_into(params, shard, mat[r, :size])
+            loss, _, part = grads_into(params, shard, mat[r, :size], mark, r)
             losses.append(loss)
             parts.append(part)
         topo = topology if topology is not None else default_topology(n)
@@ -203,7 +212,7 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *, accum_steps: int = 1,
                 loss, grads, parts = sync_grads(params, batch, metrics, mark)
                 mark("sync", "adamw")
             else:
-                loss, gs, parts = grads_into(params, batch, None)
+                loss, gs, parts = grads_into(params, batch, None, mark)
                 grads = unflatten(params, gs)
                 mark("grads", "adamw")
         params, opt_state, opt_metrics = adamw_update(grads, opt_state, params,
