@@ -4100,8 +4100,9 @@ def main() -> int:
     # published widths (128 heads, q_lora 1536, kv_lora 512, qk 128 + 64, v
     # 128, 160 routed experts top-6 and 2 shared, vocab 102400), depth cut
     # to MLA_LAYERS of 60 (or one fewer where the card's free memory cannot
-    # hold the weights, one MoE layer drawn beside them, and the bf16 cast of
-    # a MoE layer's experts), parameters made on the card from seed 0; the
+    # hold the weights and one MoE layer drawn beside them), parameters made
+    # on the card from seed 0 (the engine converts its bf16-read leaves in
+    # their own bytes); the
     # [serve] request set through the dense engine — the latent cache is not
     # paged, and the paged engine refuses it as the JAX package's does.  MLA
     # is torch products (no K7: its head dims are none K7 is built for); the
@@ -4118,8 +4119,8 @@ def main() -> int:
         n_mla = sum(p.numel() for p in leaves(build_model(
             cfg_mla.replace(n_layers=mla_layers)).init(0, device="meta")))
         # the float32 weights and one MoE layer drawn beside them (init
-        # copies a layer into its slot), which outweighs serving's bf16
-        # cast of one layer's experts, and 3 GiB for activations and caches
+        # copies a layer into its slot), and 3 GiB for activations and
+        # caches
         need = 4 * (n_mla + moe_layer) + (3 << 30)
         if need <= free_bytes or mla_layers == 2:
             break

@@ -72,6 +72,12 @@ def gqa_spec(cfg) -> dict:
     return p
 
 
+#: the leaves :func:`gqa_attention` reads cast whole to the compute dtype
+#: (the qk-norm scales are read in float32)
+GQA_COMPUTE_DTYPE = frozenset({"wq", "wk", "wv", "wo", "bq", "bk", "bv",
+                               "bo"})
+
+
 def _expand_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     """GQA: repeat KV heads to match query heads, (B,S,KV,hd)->(B,S,KV*rep,hd)."""
     if n_rep == 1:
@@ -373,6 +379,12 @@ def mla_spec(cfg) -> dict:
     }
 
 
+#: the leaves :func:`mla_attention` reads cast whole to the compute dtype
+#: (the two norms' scales are read in float32)
+MLA_COMPUTE_DTYPE = frozenset({"w_dq", "w_uq", "w_dkv", "w_kr", "w_uk",
+                               "w_uv", "wo"})
+
+
 def mla_attention(params: dict, x: torch.Tensor, cfg, *,
                   positions: torch.Tensor, cache: dict | None = None,
                   prefill: bool = False) -> torch.Tensor:
@@ -451,4 +463,4 @@ __all__ = ["init_gqa", "gqa_spec", "gqa_attention", "full_attention",
            "blockwise_attention", "flash_prefill", "init_gqa_cache",
            "gqa_cache_spec", "init_paged_gqa_cache", "init_mla", "mla_spec",
            "mla_attention", "init_mla_cache", "mla_cache_spec",
-           "PREFILL_BLOCK"]
+           "PREFILL_BLOCK", "GQA_COMPUTE_DTYPE", "MLA_COMPUTE_DTYPE"]

@@ -8,7 +8,10 @@ twin returning a tree of the same structure whose leaves are tuples of
 logical axis names, one per dim (``None`` = replicated), the JAX package's
 specs; ``repro_torch.sharding`` maps the names to mesh axes.
 ``cfg.dtype`` is the compute dtype, ``cfg.param_dtype`` the storage dtype;
-weights are cast at use, as in the reference.
+weights are cast at use, as in the reference.  Beside each spec, a
+``*_COMPUTE_DTYPE`` set names the leaves that every read casts whole to
+the compute dtype: the serving engine holds those in that dtype
+(``repro_torch.serve.engine.own_weights``), so the casts become no-ops.
 """
 from __future__ import annotations
 
@@ -114,6 +117,10 @@ def swiglu_spec() -> dict:
     return {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
 
 
+#: the leaves :func:`swiglu` reads cast whole to the compute dtype
+SWIGLU_COMPUTE_DTYPE = frozenset({"wi", "wo"})
+
+
 def swiglu(x: torch.Tensor, params: dict) -> torch.Tensor:
     dtype = x.dtype
     h = x @ params["wi"].to(dtype)
@@ -138,6 +145,10 @@ def gelu_mlp_spec(*, bias: bool = True) -> dict:
         p["bi"] = ("mlp",)
         p["bo"] = ("embed",)
     return p
+
+
+#: the leaves :func:`gelu_mlp` reads cast whole to the compute dtype
+GELU_MLP_COMPUTE_DTYPE = frozenset({"wi", "wo", "bi", "bo"})
 
 
 def gelu_mlp(x: torch.Tensor, params: dict) -> torch.Tensor:
@@ -201,6 +212,7 @@ __all__ = [
     "init_layernorm", "layernorm_spec", "layer_norm", "init_embed",
     "embed_spec", "embed", "unembed", "init_lm_head", "lm_head_spec",
     "lm_head", "init_swiglu", "swiglu_spec", "swiglu", "init_gelu_mlp",
-    "gelu_mlp_spec", "gelu_mlp", "rope_frequencies", "apply_rope",
+    "gelu_mlp_spec", "gelu_mlp", "SWIGLU_COMPUTE_DTYPE",
+    "GELU_MLP_COMPUTE_DTYPE", "rope_frequencies", "apply_rope",
     "init_learned_pos", "learned_pos_spec", "add_learned_pos",
 ]

@@ -94,6 +94,14 @@ class Model:
             spec["dec_pos"] = layers.learned_pos_spec()
         return spec
 
+    def compute_dtype_leaves(self) -> list[tuple]:
+        """Paths of the decoder stack's leaves that every read casts whole
+        to ``cfg.activation_dtype``: the leaves a server may hold in that
+        dtype.  The embedding table is gathered before its cast; the
+        head, the norms' scales and the router are read in float32."""
+        return [("stack",) + p for p in
+                transformer.stack_compute_dtype_leaves(self.cfg, self.plan)]
+
     def _embed_inputs(self, params, batch) -> torch.Tensor:
         """Token embeddings; a VLM's precomputed ``patches`` replace the
         first ``vlm_prefix`` positions, an enc-dec decoder adds its learned

@@ -61,6 +61,12 @@ def moe_spec(cfg) -> dict:
     return p
 
 
+#: the leaves :func:`_experts` reads cast whole to the compute dtype (the
+#: router is read in float32; the shared expert is a SwiGLU,
+#: ``layers.SWIGLU_COMPUTE_DTYPE``)
+MOE_COMPUTE_DTYPE = frozenset({"wi", "wo"})
+
+
 def _route(xt: torch.Tensor, router: torch.Tensor, mo):
     """Router probabilities, top-k gates and expert ids (float32)."""
     logits = xt.float() @ router
@@ -339,4 +345,5 @@ def moe_ref(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return out.reshape(B, S, d).to(x.dtype)
 
 
-__all__ = ["init_moe", "moe_spec", "moe_apply", "moe_ref"]
+__all__ = ["init_moe", "moe_spec", "moe_apply", "moe_ref",
+           "MOE_COMPUTE_DTYPE"]

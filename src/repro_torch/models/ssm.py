@@ -72,6 +72,12 @@ def mamba2_spec(cfg) -> dict:
     }
 
 
+#: the leaves :func:`mamba2_apply` reads cast whole to the compute dtype
+#: (``A_log``, ``D``, ``dt_bias`` and the norm's scale are read in float32;
+#: a prefill reads ``conv_w`` a column at a time)
+MAMBA2_COMPUTE_DTYPE = frozenset({"in_proj", "out_proj", "conv_b"})
+
+
 # ---------------------------------------------------------------------------
 # causal depthwise conv
 # ---------------------------------------------------------------------------
@@ -247,7 +253,7 @@ def mamba2_cache_spec(cfg) -> dict:
 
 
 __all__ = [
-    "init_mamba2", "mamba2_spec", "mamba2_apply",
+    "init_mamba2", "mamba2_spec", "mamba2_apply", "MAMBA2_COMPUTE_DTYPE",
     "init_mamba2_cache", "mamba2_cache_spec",
     "ssd_chunked", "ssd_ref", "causal_conv1d", "causal_conv1d_step",
 ]

@@ -157,6 +157,27 @@ def block_spec(spec: LayerSpec, cfg) -> dict:
     return p
 
 
+def block_compute_dtype_leaves(spec: LayerSpec, cfg) -> list[tuple]:
+    """Paths in one block's parameters of the leaves that every read casts
+    whole to the compute dtype, gathered from the sets each module keeps
+    beside its spec; a path the block lacks (a bias the config leaves out)
+    names nothing."""
+    mixer = {"gqa": (("attn",), attention.GQA_COMPUTE_DTYPE),
+             "mla": (("attn",), attention.MLA_COMPUTE_DTYPE),
+             "mamba": (("mamba",), ssm.MAMBA2_COMPUTE_DTYPE)}
+    parts = [mixer[spec.mixer]]
+    if spec.cross:
+        parts.append((("cross",), attention.GQA_COMPUTE_DTYPE))
+    if spec.ffn == "moe":
+        parts += [(("moe",), moe_lib.MOE_COMPUTE_DTYPE),
+                  (("moe", "shared"), layers.SWIGLU_COMPUTE_DTYPE)]
+    elif spec.ffn == "dense":
+        parts.append((("mlp",), layers.GELU_MLP_COMPUTE_DTYPE
+                      if cfg.act == "gelu" else layers.SWIGLU_COMPUTE_DTYPE))
+    return [where + (name,) for where, names in parts
+            for name in sorted(names)]
+
+
 def apply_block(params: dict, spec: LayerSpec, x: torch.Tensor, cfg, *,
                 positions: torch.Tensor, causal: bool = True,
                 ep_ranks: int = 1, cache: dict | None = None,
@@ -275,6 +296,21 @@ def stack_spec(cfg, plan: list[LayerSpec] | None = None) -> dict:
     return spec
 
 
+def stack_compute_dtype_leaves(cfg, plan: list[LayerSpec] | None = None
+                               ) -> list[tuple]:
+    """:func:`block_compute_dtype_leaves` of every block, as paths in the
+    stack's parameter tree (a scanned leaf holds every period's layer)."""
+    plan = plan if plan is not None else layer_plan(cfg)
+    prefix, period = stage_plan(plan)
+    count = (len(plan) - prefix) // period
+    paths = [("prefix", i) + p for i in range(prefix)
+             for p in block_compute_dtype_leaves(plan[i], cfg)]
+    if count:
+        paths += [("scan", f"l{j}") + p for j in range(period)
+                  for p in block_compute_dtype_leaves(plan[prefix + j], cfg)]
+    return paths
+
+
 def init_stack_cache(cfg, batch: int, max_seq: int, dtype, device,
                      enc_len: int = 0, plan: list[LayerSpec] | None = None
                      ) -> dict:
@@ -377,6 +413,7 @@ def apply_stack(params: dict, x: torch.Tensor, cfg, *,
 
 
 __all__ = ["LayerSpec", "layer_plan", "stage_plan", "init_block",
-           "block_spec", "apply_block", "init_block_cache",
-           "block_cache_spec", "init_stack", "stack_spec", "apply_stack",
-           "init_stack_cache", "stack_cache_spec"]
+           "block_spec", "block_compute_dtype_leaves", "apply_block",
+           "init_block_cache", "block_cache_spec", "init_stack", "stack_spec",
+           "stack_compute_dtype_leaves", "apply_stack", "init_stack_cache",
+           "stack_cache_spec"]

@@ -51,6 +51,14 @@ prefetch edges beside the demote traffic
 page.  Only active slots commit tokens each tick; greedy decode is
 row-independent and a promotion restores the slot's pages, table row and
 position exactly, so the committed tokens equal the all-HBM engine's.
+
+The engine owns the parameter tree it is handed.  At construction every
+leaf the model only ever reads cast whole to its compute dtype
+(``Model.compute_dtype_leaves``), where that dtype is narrower than the
+leaf's, is converted once inside the leaf's own bytes
+(:func:`own_weights`): every holder of the tree then sees it in the
+compute dtype, holding the values the model computed with, so the
+per-call casts launch nothing and memory does not grow.
 """
 from __future__ import annotations
 
@@ -64,6 +72,7 @@ from repro_torch import obs
 from repro_torch.serve import disagg
 from repro_torch.serve.paged import HostKVTier, KVPoolManager
 from repro_torch.serve.scheduler import Scheduler
+from repro_torch.tree import leaves_with_paths
 
 
 #: why an enc-dec stack is not served: the engine's prefill feeds prompt
@@ -93,6 +102,86 @@ class Completion:
     finished: bool = True       # False: run() ran out of ticks (partial)
     arrival_tick: int = 0
     done_tick: int = 0
+
+
+#: elements one chunk of a conversion casts through its temporary; at least
+#: CONVERT_ALIGN / 2, so a chunk's writes, which start at most
+#: CONVERT_ALIGN - 1 bytes into the leaf, never reach bytes not yet read
+CONVERT_CHUNK = 1 << 24
+#: the byte boundary a converted leaf starts on where its bytes leave room
+#: (a float32 leaf of n elements has 2n bytes to spare): cuBLAS then finds
+#: the alignment of the freshly allocated cast it replaces
+CONVERT_ALIGN = 256
+
+
+def _byte_range(t: torch.Tensor) -> tuple:
+    """(device, first byte, one past the last byte) that ``t`` spans."""
+    n = 1 + sum((s - 1) * st for s, st in zip(t.shape, t.stride()))
+    start = t.data_ptr()
+    return (str(t.device), start,
+            start + (n * t.element_size() if t.numel() else 0))
+
+
+def _convert(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t``'s values in ``dtype``, written over the front of ``t``'s own
+    bytes (a contiguous leaf of a wider dtype) chunk by chunk: each chunk
+    is read whole into a temporary before it is written, and the writes
+    trail the reads.  Returns the contiguous view that holds them."""
+    n = t.numel()
+    start = t.data_ptr()
+    room = n * (t.element_size() - dtype.itemsize)
+    align = CONVERT_ALIGN
+    while -start % align > room:
+        align //= 2
+    storage = t.untyped_storage()
+    offset = (start + -start % align - storage.data_ptr()) // dtype.itemsize
+    out = t.new_empty(0, dtype=dtype).set_(storage, offset, t.shape)
+    src, dst = t.view(-1), out.view(-1)
+    for i in range(0, n, CONVERT_CHUNK):
+        dst[i:i + CONVERT_CHUNK] = src[i:i + CONVERT_CHUNK].to(dtype)
+    return out
+
+
+def own_weights(model, params) -> dict:
+    """Convert, in place, every leaf of ``params`` that the model reads only
+    cast whole to its compute dtype, where that dtype is narrower than the
+    leaf's: each is rewritten in the front of its own bytes
+    (:func:`_convert`) and re-pointed there (``.data``), so every holder of
+    the tree or of the leaf sees a contiguous tensor of the compute dtype
+    holding the values each call computed with.  Leaves that alias the
+    same bytes are converted once; a leaf whose bytes another leaf only
+    partly covers, or that is not contiguous, is left as it is.  Returns
+    the counts ``ServeEngine.stats()`` reports: leaves converted, the bytes
+    they held before, leaves kept in their own dtype."""
+    dtype = model.cfg.activation_dtype
+    named = set(model.compute_dtype_leaves())
+    groups: dict[tuple, list] = {}
+    for path, t in leaves_with_paths(params):
+        groups.setdefault(_byte_range(t), []).append((path, t))
+    spans = sorted(r for r in groups if r[1] < r[2])
+    clash = set()
+    for i, (dev, lo, hi) in enumerate(spans):
+        for other in spans[i + 1:]:
+            if other[0] != dev or other[1] >= hi:
+                break
+            clash |= {spans[i], other}
+    out = {"weights_converted": 0, "weights_converted_bytes": 0,
+           "weights_kept": 0}
+    for span, group in groups.items():
+        t = group[0][1]
+        if (span not in clash and t.numel() and t.is_contiguous()
+                and t.is_floating_point()
+                and t.element_size() > dtype.itemsize
+                and all(p in named and u.dtype == t.dtype
+                        and u.shape == t.shape for p, u in group)):
+            new = _convert(t, dtype)
+            for _, u in group:
+                u.data = new
+            out["weights_converted"] += len(group)
+            out["weights_converted_bytes"] += span[2] - span[1]
+        else:
+            out["weights_kept"] += len(group)
+    return out
 
 
 def _paged_dicts(tree):
@@ -131,7 +220,13 @@ class Executor:
     Decisions live elsewhere — the scheduler picks *what* runs, the pool
     manager *which pages* back it; the executor is handed a slot, a
     physical-page row and a per-page write mask, and runs the model on the
-    device its parameters live on."""
+    device its parameters live on.
+
+    The executor owns the tree it is handed: after construction the
+    caller's tree holds each leaf the model reads only in its compute
+    dtype in that dtype (:func:`own_weights`; ``weight_stats`` keeps the
+    counts), and the caller reads no float32 values from those leaves
+    again."""
 
     def __init__(self, model, params, *, n_slots: int, max_seq: int,
                  paged_kv: bool = False, page_tokens: int = 16):
@@ -153,6 +248,7 @@ class Executor:
                     "no self-attention KV caches to page (MLA/SSM caches "
                     "stay dense) — the paged data plane would be a no-op")
             self.cache = paged_cache
+        self.weight_stats = own_weights(model, params)
 
     # -- the two model calls ----------------------------------------------------
     def prefill(self, tokens: torch.Tensor, slot: int, phys_pages: list,
@@ -352,7 +448,13 @@ class Executor:
 class ServeEngine:
     """Greedy-decoding continuous-batching engine over ``n_slots`` slots —
     the facade wiring scheduler, KV pool manager and executor together.
-    Runs on the device of ``params``."""
+    Runs on the device of ``params``.
+
+    The engine owns the tree it is handed: after construction the caller's
+    tree holds each leaf the model reads only in its compute dtype in that
+    dtype, converted once in its own bytes (:class:`Executor`);
+    ``stats()`` counts them (``weights_converted``,
+    ``weights_converted_bytes``, ``weights_kept``)."""
 
     def __init__(self, model, params, *, n_slots: int, max_seq: int,
                  paged_kv: bool = False, page_tokens: int = 16,
@@ -541,7 +643,8 @@ class ServeEngine:
                "admitted": self.scheduler.admitted,
                "ticks": self._tick, "incomplete": self._incomplete,
                "max_live": self.max_live, "evictions": self.evictions,
-               "offline_slots": len(self._offline)}
+               "offline_slots": len(self._offline),
+               **self.executor.weight_stats}
         if self.paged_kv:
             out.update(pages_allocated=self.pool.allocs,
                        pages_freed=self.pool.frees,
@@ -858,4 +961,5 @@ class ServeEngine:
                 self.pool.free_cold(hs)
 
 
-__all__ = ["ServeEngine", "Executor", "Request", "Completion"]
+__all__ = ["ServeEngine", "Executor", "Request", "Completion",
+           "own_weights"]
