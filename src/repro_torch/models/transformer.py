@@ -347,6 +347,18 @@ def stack_cache_spec(cfg, plan: list[LayerSpec] | None = None) -> dict:
     return spec
 
 
+def _period_slices(tree: dict, count: int) -> list[dict]:
+    """``count`` trees of the stacked ``tree``'s structure, the ``c``-th
+    holding every leaf's ``c``-th slice, taken by one unbind per leaf:
+    its backward stacks the periods' gradients once, where a ``p[c]`` per
+    period gives each period a zero-filled whole-stack gradient and the
+    backward a whole-stack add per period to sum them."""
+    if isinstance(tree, dict):
+        subs = {k: _period_slices(v, count) for k, v in tree.items()}
+        return [{k: s[c] for k, s in subs.items()} for c in range(count)]
+    return torch.unbind(tree)
+
+
 def apply_stack(params: dict, x: torch.Tensor, cfg, *,
                 positions: torch.Tensor, causal: bool = True,
                 plan: list[LayerSpec] | None = None, ep_ranks: int = 1,
@@ -390,13 +402,16 @@ def apply_stack(params: dict, x: torch.Tensor, cfg, *,
              and torch.is_grad_enabled()
              and (x.requires_grad or any(
                  p.requires_grad for p in leaves(params["scan"]))))
-    for c in range(count):
-        # the period's parameter slices are taken outside the checkpoint
+    blocks, bcaches = [], [None] * count
+    if count:
+        # the periods' parameter slices are taken outside the checkpoint
         # and handed in as its arguments
         with obs.span("stack.slice"):
-            block = tree_map(lambda p: p[c], params["scan"])
-            bcache = (tree_map(lambda t: t[c], cache["scan"])
-                      if cache is not None else None)
+            blocks = _period_slices(params["scan"], count)
+            if cache is not None:
+                bcaches = [tree_map(lambda t: t[c], cache["scan"])
+                           for c in range(count)]
+    for block, bcache in zip(blocks, bcaches):
         if remat:
             # non-reentrant: the step differentiates with autograd.grad,
             # and the first forward runs with grad (a Mamba2 block then
