@@ -42,7 +42,7 @@
    handles under the lifetime guard), each against its plain version, and
    at the P5 tour's shapes beside ``index_copy_`` / ``index_add_``; an empty kernel (the
    launch floor, plain and programmatic, from ``csrc/probes.cu``); the
-   put -> wait pair with and without programmatic launch, 0 stalls; stream
+   put -> wait pair beside the put alone, 0 stalls; stream
    order across a thread flush that does not own the put before it (the
    put's source overwritten right after the flush, what landed intact).
    K3 on a pinned host window (the tiered KV pool's cold tier): a guarded
@@ -53,10 +53,8 @@
    plain version; an unpinned CPU buffer beside card tensors raises; one
    page each way by graph replay beside ``copy_`` to and from pinned
    memory, its bound the bytes over the host link's nominal rate (PCIe
-   generation and width from ``nvidia-smi``); what bounds it
-   (``benchmarks_torch/host_link.py``'s ``[host-link]`` lines): a read's
-   round trip, K3's loop over the grid with its bytes in flight, a second
-   pinned buffer.  K3 and K2 under the
+   generation and width from ``nvidia-smi``; what else bounds it is in
+   PERF.md §6, the K3 host row).  K3 and K2 under the
    guard also with handles whose slot word differs by rank (the addressed
    rank's own slot decides).  K4 at the doorbell's shape
    (8, 1) int32 and K3 at a pushed page's, (8, 1,179,648) bf16 through
@@ -454,15 +452,16 @@ def graph_ms(torch, fn, reps: int = 20, replays: int = 5) -> float:
     return a.elapsed_time(b) / (reps * replays)
 
 
-def empty_launch(torch, *, programmatic: bool) -> None:
+def empty_launch(torch, *, as_wait: bool) -> None:
     """Launch a kernel that does nothing (``csrc/probes.cu``), the way the
-    flush wait (``True``) or a plain launch such as K2 (``False``) is
-    launched: the launch floor beside their byte bounds.  Counts nowhere."""
+    flush wait (``as_wait``: programmatic stream serialization) or a plain
+    launch such as K2 is launched: the launch floor beside their byte
+    bounds.  Counts nowhere."""
     from repro_torch import _build
     from repro_torch.kernels import common
 
     common.check_launch("empty", _build.lib("probes", "rt_empty")(
-        int(programmatic), common.stream_ptr(torch.device("cuda"))))
+        int(as_wait), common.stream_ptr(torch.device("cuda"))))
 
 
 def check(cond: bool, what: str) -> None:
@@ -672,12 +671,14 @@ class _Tee:
         return "".join(self.parts)
 
 
-def load_script(name: str, folder: str = "examples_torch"):
-    """``<folder>/<name>.py`` as a module (the directory is no package)."""
+def load_script(name: str):
+    """``examples_torch/<name>.py`` as a module (the directory is no
+    package)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        f"{folder}_{name}", os.path.join(HERE, folder, f"{name}.py"))
+        f"examples_torch_{name}",
+        os.path.join(HERE, "examples_torch", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1242,16 +1243,15 @@ def main() -> int:
 
     # the launch floor beside K2's and the wait's byte bounds: an empty
     # kernel launched as each is (plainly, and programmatically serialized)
-    floor = graph_ms(torch, lambda: empty_launch(torch, programmatic=False))
-    floor_pdl = graph_ms(torch, lambda: empty_launch(torch,
-                                                     programmatic=True))
+    floor = graph_ms(torch, lambda: empty_launch(torch, as_wait=False))
+    floor_pdl = graph_ms(torch, lambda: empty_launch(torch, as_wait=True))
     for name in ("ring_accumulate", "ring_accumulate_device",
                  "ring_accumulate_guarded"):
         record[name]["floor_ms"] = floor
     record["put_wait"]["floor_ms"] = floor_pdl
-    # the put -> wait pair (the thread flush of one put), with the wait
-    # launched programmatically or after the put ends; the counters reset in
-    # each pair, so every replayed wait is a real completion test
+    # the put -> wait pair (the thread flush of one put) beside the put
+    # alone; the counters reset in each pair, so every replayed wait is a
+    # real completion test
     cnt_p = torch.zeros((n, 1), dtype=torch.int32, device=dev)
     stall_p = torch.zeros(1, dtype=torch.int32, device=dev)
     pair = {}
@@ -1259,25 +1259,21 @@ def main() -> int:
         x = upd[:, :size].contiguous()
         y = torch.empty_like(x)
         ticks = k3.put_rows(x, y, tgt, counters=cnt_p)
-        row = {}
-        for mode, prog in (("programmatic", True), ("serial", False)):
-            def put_wait_pair(prog=prog):
-                cnt_p.zero_()
-                k3.put_rows(x, y, tgt, counters=cnt_p)
-                k3.wait_counters(cnt_p, [ticks] * n, stream=0,
-                                 stalls=stall_p, programmatic=prog)
-            row[mode] = graph_ms(torch, put_wait_pair)
-        row["put"] = graph_ms(torch, lambda: (
-            cnt_p.zero_(), k3.put_rows(x, y, tgt, counters=cnt_p)))
-        pair[size] = row
+        def put_wait_pair():
+            cnt_p.zero_()
+            k3.put_rows(x, y, tgt, counters=cnt_p)
+            k3.wait_counters(cnt_p, [ticks] * n, stream=0, stalls=stall_p)
+        pair[size] = dict(pair=graph_ms(torch, put_wait_pair),
+                          put=graph_ms(torch, lambda: (
+                              cnt_p.zero_(),
+                              k3.put_rows(x, y, tgt, counters=cnt_p))))
     check(stall_p.item() == 0, f"the put -> wait pairs stalled "
           f"{stall_p.item()} times")
     record["put_wait"]["pair_ms"] = pair
-    record["put_wait"]["floor_serial_ms"] = floor
     print(f"[kernel] empty launch {floor:.4f} ms, programmatic {floor_pdl:.4f};"
-          f" put -> wait pairs (ms, programmatic / serial / put alone): "
-          + "; ".join(f"{s}: {r['programmatic']:.4f} / {r['serial']:.4f} / "
-                      f"{r['put']:.4f}" for s, r in pair.items())
+          f" put -> wait pairs (ms, pair / put alone): "
+          + "; ".join(f"{s}: {r['pair']:.4f} / {r['put']:.4f}"
+                      for s, r in pair.items())
           + f"; stalls {stall_p.item()}", flush=True)
     del win_buf, upd, got, dst, landed, region
 
@@ -1400,11 +1396,6 @@ def main() -> int:
                                                         non_blocking=True)),
         read_copy=graph_ms(torch, lambda: back.copy_(region_h,
                                                      non_blocking=True)))
-    # what bounds the host path: a read's round trip, K3's loop over the
-    # grid, a second pinned buffer (benchmarks_torch/host_link.py prints its
-    # [host-link] lines)
-    link = load_script("host_link", "benchmarks_torch").measure(
-        torch, log=lambda line: print(line, flush=True))
     link_after = pcie_link()
     #: nominal GB/s a lane carries each way, by PCIe generation (encoding
     #: included: 8b/10b to gen 2, 128b/130b from gen 3)
@@ -1432,8 +1423,7 @@ def main() -> int:
         link=f"PCIe gen{link_gen} x{link_width}, {link_rate / 1e9:.2f} "
              f"GB/s nominal each way ({link_src})",
         launch=dict(blocks=blocks_h,
-                    inflight=blocks_h * k3.PUT_THREADS * 16),
-        sweep_best=link["best"], latency_ns=link["latency_ns"]["host"])
+                    inflight=blocks_h * k3.PUT_THREADS * 16))
     rh = record["ring_put_host"]
     print(f"[kernels] K3 on a pinned host window equals its plain version "
           f"bit for bit: put and read of one qwen3-4b page ({page_e} bf16), "
@@ -1953,8 +1943,7 @@ def main() -> int:
     from repro_torch.models.transformer import layer_plan, stage_plan
 
     launches = {name: 0 for name in K.COUNTERS}
-    #: launches by variant (K3: static / device / guarded; K2 the same;
-    #: the wait: programmatic)
+    #: launches by variant (K3: static / device / guarded; K2 the same)
     variant_launches: dict[tuple, int] = {}
 
     def path_counts(what: str, must) -> dict:
@@ -3375,7 +3364,7 @@ def main() -> int:
                               **bell_kw)
     check(torch.equal(rows_k, rows_p), "K4 at the doorbell's shape")
     words = torch.cat([count_d, bell_kw["flag"]], 1)
-    floor_d = graph_ms(torch, lambda: empty_launch(torch, programmatic=False))
+    floor_d = graph_ms(torch, lambda: empty_launch(torch, as_wait=False))
     record["put_signal_doorbell"] = dict(
         ms=graph_ms(torch, lambda: k46.put_signal_rows(
             count_d, rows_k, tgt8, flag_dst=rows_k, scratch=scr8,
@@ -4534,11 +4523,9 @@ def main() -> int:
                                        "vs_library", "prefill_views_ms",
                                        "past_l2", "design", "tbps_of_2x",
                                        "first_ms", "library_first_ms",
-                                       "floor_ms", "floor_serial_ms",
-                                       "pair_ms", "fig12_ms", "read_ms",
-                                       "read_library_ms", "link", "launch",
-                                       "sweep_best", "latency_ns",
-                                       "tier_seq_ms", "index_copy_ms",
+                                       "floor_ms", "pair_ms", "fig12_ms",
+                                       "read_ms", "read_library_ms", "link",
+                                       "launch", "tier_seq_ms", "index_copy_ms",
                                        "copy_ms", "path_ms")
                if key in r}})
     print(json.dumps({"kernels": rows}))

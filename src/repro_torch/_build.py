@@ -36,8 +36,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "ssd_scan": "ssd_scan.cu",
     "ssd_pass": "ssd_pass.cu",
-    # chip_smoke.py's launch-floor, graph and host-link probes; no port
-    # module loads it
+    # chip_smoke.py's launch-floor and graph probes; no port module loads it
     "probes": "probes.cu",
 }
 
@@ -58,7 +57,7 @@ SIGNATURES = {
     "rma_put": {"rt_put": (_P, _I64, _P, _I64, _I64, _I64, _I64, _I64, _P,
                            _I64, _P, _I64, _P, _P, _I, _P, _I, _P, _I, _I,
                            _I, _P),
-                "rt_put_wait": (_P, _I64, _I, _I, _U32P, _P, _I, _P),
+                "rt_put_wait": (_P, _I64, _I, _I, _U32P, _P, _P),
                 "rt_host_device_pointer": (_P, _P)},
     "ring_allreduce": {"rt_ring_all_reduce":
                        (_P, _I64, _I64, _I64, _P, _I64, _P)},
@@ -81,9 +80,7 @@ SIGNATURES = {
     "ssd_pass": {"rt_ssd_pass":
                  (_P, _P, _P, _P, _P, _I, _P, _P, _I64, _I64, _I64, _I64,
                   _I64, _I64, _I64, _I, _P)},
-    "probes": {"rt_empty": (_I, _P), "rt_graph_programmatic_edges": (_P,),
-               "rt_chase": (_P, _I64, _I64, _I, _P, _P),
-               "rt_copy_loop": (_P, _P, _I64, _I, _I, _P)},
+    "probes": {"rt_empty": (_I, _P), "rt_graph_programmatic_edges": (_P,)},
 }
 
 _loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}

@@ -46,10 +46,10 @@
 // unit crosses the host link.  Nothing else changes: the control words
 // (targets, handles, regs, err, counters) stay in device memory, and every
 // byte offset is 64-bit (a 512-page qwen3-4b host pool is 1.2e9 bytes).
-// The same loop serves it: benchmarks_torch/host_link.py finds that past
-// ~130 KB of reads in flight (this launch keeps 589 KB at a page) the SMs'
-// reads over the link stop at one rate per host machine, whatever the grid,
-// the loads a thread keeps in flight, the load flavour or a bulk copy.
+// The same loop serves it: past ~130 KB of reads in flight (this launch
+// keeps 589 KB at a page) the SMs' reads over the link stop at one rate per
+// host machine, whatever the grid, the loads a thread keeps in flight, the
+// load flavour or a bulk copy (PERF.md §6, the K3 host row).
 //
 // Layout: sender row r at src + r * src_stride, receiver row t = targets[r]
 // at dst + t * dst_stride (bytes).  A put writes m rows of row_bytes at the
@@ -224,11 +224,8 @@ __global__ void put_wait_kernel(const unsigned* __restrict__ counters, int n, in
   rt_wait_primary();
 }
 
-// `programmatic` = 0 (the wait after the put has ended) exists only for
-// chip_smoke.py's with/without comparison; the substrate always passes 1.
 RT_EXPORT int rt_put_wait(const void* counters, int64_t n, int n_streams, int stream,
-                          const uint32_t* owed, void* stalls, int programmatic,
-                          void* stream_ptr) {
+                          const uint32_t* owed, void* stalls, void* stream_ptr) {
   if (n < 1 || n > RT_MAX_WAIT_RANKS || stream < 0 || stream >= n_streams) return RT_BAD_ARGUMENT;
   RtOwed o;
   for (int64_t r = 0; r < n; ++r) o.v[r] = owed[r];
@@ -240,7 +237,7 @@ RT_EXPORT int rt_put_wait(const void* counters, int64_t n, int n_streams, int st
   cfg.blockDim = dim3(256);
   cfg.stream = (cudaStream_t)stream_ptr;
   cfg.attrs = attr;
-  cfg.numAttrs = programmatic ? 1 : 0;
+  cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, put_wait_kernel, (const unsigned*)counters,
                                            (int)n, n_streams, stream, o, (unsigned*)stalls);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();

@@ -40,8 +40,8 @@
 // 0.0155 ms at 3.35 TB/s, against 1.1 GFLOP of read-out products.  It does
 // not reach that: with one CTA an SM the walk is bound by the latency of
 // each chunk's step (the copies' issue and the read-out each add about as
-// much as the other; benchmarks_torch/ssd_ablate.py switches them off one
-// at a time, and PERF.md keeps its readings and the designs tried).
+// much as the other: PERF.md §6 keeps the readings with each part switched
+// off in turn, and the designs tried).
 #include <math.h>
 
 #include "rt_common.cuh"

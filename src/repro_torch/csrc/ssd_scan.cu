@@ -44,8 +44,8 @@
 //   computed once into shared memory.  Shared memory (72 KB with 3 heads a
 //   CTA) and registers let three CTAs share an SM.  The products are not
 //   what is left between this kernel and its bound: the preparation of the
-//   states' operands and their stage-out are (benchmarks_torch/ssd_ablate.py
-//   switches the parts off one at a time; PERF.md keeps the readings).
+//   states' operands and their stage-out are (PERF.md §6 keeps the readings
+//   with each part switched off in turn).
 // * float32 (ssd_intra_simt_kernel): the first version of K8, kept for
 //   float32 inputs (the JAX kernel test's): everything in float32 on the
 //   CUDA cores, B, C and x staged in shared memory as float32 with rows

@@ -22,7 +22,7 @@ tier: K3 then reads or writes it at its device-mapped address
 (:func:`map_host`), and the launch counts as a ``-host`` variant.  Its
 launch is the device path's: the SMs' reads over the link stop at a rate
 set by the host machine once ~130 KB are in flight, and a page's launch
-keeps 589,824 bytes in flight (``benchmarks_torch/host_link.py``).
+keeps 589,824 bytes in flight (PERF.md §6, the K3 host row).
 
 Replaces ``repro/kernels/rma_put.py::ring_put`` (the ``pallas_call`` at
 ``rma_put.py:47``; ``rdma.start()`` is the put, ``rdma.wait()`` the flush).
@@ -45,7 +45,7 @@ from repro_torch.kernels.common import LaunchCounter, cdiv, check_launch
 #: lifetime guard); "-host" appended when an operand is a pinned host
 #: window buffer
 COUNTER = LaunchCounter("ring_put")
-#: wait launches by variant: "programmatic" or "serial"
+#: wait launches (one variant: programmatic stream serialization)
 WAIT_COUNTER = LaunchCounter("put_wait")
 
 #: ranks one wait launch can cover (RT_MAX_WAIT_RANKS in csrc/rma_put.cu)
@@ -343,7 +343,7 @@ def wait_counters_plain(counters, owed, *, stream: int, stalls) -> None:
 
 
 def wait_counters(counters: torch.Tensor, owed, *, stream: int,
-                  stalls: torch.Tensor, programmatic: bool = True) -> None:
+                  stalls: torch.Tensor) -> None:
     """Thread-scope completion of one stream: wait until every rank r's
     counter ``(r, stream)`` has reached ``owed[r]``, the ticks its issued
     puts owe.  On the card the wait is a launch on the current stream that
@@ -351,10 +351,8 @@ def wait_counters(counters: torch.Tensor, owed, *, stream: int,
     adds one to ``stalls[0]`` instead of hanging.  It is launched with
     programmatic stream serialization: it may start while the put before it
     runs, and it ends only after that put has ended, so stream order holds
-    across it.  ``programmatic=False`` (start after that put has ended)
-    exists only for ``chip_smoke.py``'s with/without comparison.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    across it.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
     _check_wait(counters, owed, stream, stalls)
     if not _common.on_device(counters, stalls):
         wait_counters_plain(counters, owed, stream=stream, stalls=stalls)
@@ -366,10 +364,9 @@ def wait_counters(counters: torch.Tensor, owed, *, stream: int,
     fn = _build.lib("rma_put", "rt_put_wait")
     words = (ctypes.c_uint32 * n)(*(o & 0xFFFFFFFF for o in owed))
     rc = fn(counters.data_ptr(), n, counters.shape[1], stream, words,
-            stalls.data_ptr(), int(programmatic),
-            _common.stream_ptr(counters.device))
+            stalls.data_ptr(), _common.stream_ptr(counters.device))
     check_launch("put_wait", rc)
-    WAIT_COUNTER.bump("programmatic" if programmatic else "serial")
+    WAIT_COUNTER.bump()
 
 
 def ring_put(x: torch.Tensor, *, axis_size: int, shift: int = 1

@@ -25,10 +25,13 @@ layer axis, the JAX package's layout — ``{"attn": {k, v, pos}}`` for an
 attention layer, ``{"attn": {c_kv, k_rope, pos}}`` for MLA, ``{"mamba":
 {conv, ssm}}`` for a Mamba2 layer, plus ``{"cross": {k, v}}`` (``enc_len``
 rows) in an enc-dec decoder.  ``apply_stack(cache=...)`` hands each block a
-view of its slice, so the cache is written in place."""
+view of its slice, so the cache is written in place.  ``block_parts`` alone
+decides a block's parts; every block and stack walker maps over them."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from typing import Callable
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -105,77 +108,104 @@ def _norm(x, p, cfg):
     return layers.rms_norm(x, p, cfg.norm_eps)
 
 
-def init_block(gen, spec: LayerSpec, cfg, device) -> dict:
-    pd = cfg.parameter_dtype
-    p: dict = {"norm_mixer": _norm_init(cfg, device)}
-    if spec.mixer == "mamba":
-        p["mamba"] = ssm.init_mamba2(gen, cfg, device)
-    elif spec.mixer == "mla":
-        p["attn"] = attention.init_mla(gen, cfg, device)
-    else:
-        p["attn"] = attention.init_gqa(gen, cfg, device)
+def _d_ff(cfg) -> int:
+    """A dense FFN's width (``d_ff_first_dense`` beside dense-first MoE)."""
+    mo = cfg.moe
+    if mo is not None and mo.first_dense and mo.d_ff_first_dense:
+        return mo.d_ff_first_dense
+    return cfg.d_ff
+
+
+def _cross_cache(cfg, batch, max_seq, dtype, device, enc_len):
+    shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _paths(names, *where) -> tuple:
+    return tuple(where + (name,) for name in sorted(names))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Kind:
+    """A kind of block part: its parameters' init and spec, the paths in
+    them of the leaves every read casts whole to the compute dtype (each
+    module's set, kept beside its casts; a path the part lacks names
+    nothing), and a mixer's cache init and spec."""
+    init: Callable
+    spec: Callable
+    compute_dtype: tuple = ()
+    cache: Callable | None = None
+    cache_spec: Callable | None = None
+
+
+_KINDS = {
+    "norm": _Kind(lambda gen, cfg, device: _norm_init(cfg, device),
+                  _norm_spec),
+    "gqa": _Kind(attention.init_gqa, attention.gqa_spec,
+                 _paths(attention.GQA_COMPUTE_DTYPE),
+                 lambda cfg, b, s, dt, dev, _: attention.init_gqa_cache(
+                     cfg, b, s, dt, dev),
+                 attention.gqa_cache_spec),
+    "mla": _Kind(attention.init_mla, attention.mla_spec,
+                 _paths(attention.MLA_COMPUTE_DTYPE),
+                 lambda cfg, b, s, dt, dev, _: attention.init_mla_cache(
+                     cfg, b, s, dt, dev),
+                 attention.mla_cache_spec),
+    "mamba": _Kind(ssm.init_mamba2, ssm.mamba2_spec,
+                   _paths(ssm.MAMBA2_COMPUTE_DTYPE),
+                   lambda cfg, b, s, dt, dev, _: ssm.init_mamba2_cache(
+                       cfg, b, dt, dev),
+                   ssm.mamba2_cache_spec),
+    # a GQA over the encoder output, its k/v cached for enc_len rows
+    "cross": _Kind(attention.init_gqa, attention.gqa_spec,
+                   _paths(attention.GQA_COMPUTE_DTYPE), _cross_cache,
+                   lambda cfg: {"k": ("batch", None, "kv_heads", None),
+                                "v": ("batch", None, "kv_heads", None)}),
+    "moe": _Kind(moe_lib.init_moe, moe_lib.moe_spec,
+                 _paths(moe_lib.MOE_COMPUTE_DTYPE)
+                 + _paths(layers.SWIGLU_COMPUTE_DTYPE, "shared")),
+    "gelu": _Kind(lambda gen, cfg, device: layers.init_gelu_mlp(
+                      gen, cfg.d_model, _d_ff(cfg), cfg.parameter_dtype,
+                      device, bias=cfg.attn_bias),
+                  lambda cfg: layers.gelu_mlp_spec(bias=cfg.attn_bias),
+                  _paths(layers.GELU_MLP_COMPUTE_DTYPE)),
+    "swiglu": _Kind(lambda gen, cfg, device: layers.init_swiglu(
+                        gen, cfg.d_model, _d_ff(cfg), cfg.parameter_dtype,
+                        device),
+                    lambda cfg: layers.swiglu_spec(),
+                    _paths(layers.SWIGLU_COMPUTE_DTYPE)),
+}
+
+
+def block_parts(spec: LayerSpec, cfg) -> list[tuple[str, str]]:
+    """The ordered ``(key, kind)`` parts of one block, the one place that
+    decides them: ``norm_mixer`` and the mixer (``attn``: GQA or MLA, or
+    ``mamba``), in an enc-dec decoder ``norm_cross`` and ``cross``, then
+    ``norm_ffn`` and ``mlp`` (GELU or SwiGLU) or ``moe``, if any FFN."""
+    parts = [("norm_mixer", "norm"),
+             ("mamba", "mamba") if spec.mixer == "mamba"
+             else ("attn", spec.mixer)]
     if spec.cross:
-        p["norm_cross"] = _norm_init(cfg, device)
-        p["cross"] = attention.init_gqa(gen, cfg, device)
-    if spec.ffn == "none":
-        return p
-    p["norm_ffn"] = _norm_init(cfg, device)
-    if spec.ffn == "moe":
-        p["moe"] = moe_lib.init_moe(gen, cfg, device)
-        return p
-    d_ff = cfg.d_ff
-    if cfg.moe is not None and cfg.moe.first_dense and \
-            cfg.moe.d_ff_first_dense:
-        d_ff = cfg.moe.d_ff_first_dense
-    if cfg.act == "gelu":
-        p["mlp"] = layers.init_gelu_mlp(gen, cfg.d_model, d_ff, pd, device,
-                                        bias=cfg.attn_bias)
-    else:
-        p["mlp"] = layers.init_swiglu(gen, cfg.d_model, d_ff, pd, device)
-    return p
+        parts += [("norm_cross", "norm"), ("cross", "cross")]
+    if spec.ffn != "none":
+        parts += [("norm_ffn", "norm"),
+                  ("moe", "moe") if spec.ffn == "moe"
+                  else ("mlp", "gelu" if cfg.act == "gelu" else "swiglu")]
+    return parts
+
+
+def _kinds(spec: LayerSpec, cfg) -> list[tuple[str, _Kind]]:
+    return [(key, _KINDS[kind]) for key, kind in block_parts(spec, cfg)]
+
+
+def init_block(gen, spec: LayerSpec, cfg, device) -> dict:
+    return {key: k.init(gen, cfg, device) for key, k in _kinds(spec, cfg)}
 
 
 def block_spec(spec: LayerSpec, cfg) -> dict:
     """The logical-axis spec tree of one block's parameters."""
-    p: dict = {"norm_mixer": _norm_spec(cfg)}
-    if spec.mixer == "gqa":
-        p["attn"] = attention.gqa_spec(cfg)
-    elif spec.mixer == "mla":
-        p["attn"] = attention.mla_spec(cfg)
-    elif spec.mixer == "mamba":
-        p["mamba"] = ssm.mamba2_spec(cfg)
-    if spec.cross:
-        p["norm_cross"] = _norm_spec(cfg)
-        p["cross"] = attention.gqa_spec(cfg)
-    if spec.ffn == "dense":
-        p["norm_ffn"] = _norm_spec(cfg)
-        p["mlp"] = (layers.gelu_mlp_spec(bias=cfg.attn_bias)
-                    if cfg.act == "gelu" else layers.swiglu_spec())
-    elif spec.ffn == "moe":
-        p["norm_ffn"] = _norm_spec(cfg)
-        p["moe"] = moe_lib.moe_spec(cfg)
-    return p
-
-
-def block_compute_dtype_leaves(spec: LayerSpec, cfg) -> list[tuple]:
-    """Paths in one block's parameters of the leaves that every read casts
-    whole to the compute dtype, gathered from the sets each module keeps
-    beside its spec; a path the block lacks (a bias the config leaves out)
-    names nothing."""
-    mixer = {"gqa": (("attn",), attention.GQA_COMPUTE_DTYPE),
-             "mla": (("attn",), attention.MLA_COMPUTE_DTYPE),
-             "mamba": (("mamba",), ssm.MAMBA2_COMPUTE_DTYPE)}
-    parts = [mixer[spec.mixer]]
-    if spec.cross:
-        parts.append((("cross",), attention.GQA_COMPUTE_DTYPE))
-    if spec.ffn == "moe":
-        parts += [(("moe",), moe_lib.MOE_COMPUTE_DTYPE),
-                  (("moe", "shared"), layers.SWIGLU_COMPUTE_DTYPE)]
-    elif spec.ffn == "dense":
-        parts.append((("mlp",), layers.GELU_MLP_COMPUTE_DTYPE
-                      if cfg.act == "gelu" else layers.SWIGLU_COMPUTE_DTYPE))
-    return [where + (name,) for where, names in parts
-            for name in sorted(names)]
+    return {key: k.spec(cfg) for key, k in _kinds(spec, cfg)}
 
 
 def apply_block(params: dict, spec: LayerSpec, x: torch.Tensor, cfg, *,
@@ -191,77 +221,66 @@ def apply_block(params: dict, spec: LayerSpec, x: torch.Tensor, cfg, *,
     rank count.  ``cache`` (the block's, written in place) goes to the
     mixers, ``prefill`` to the attention (a Mamba2 block decodes exactly
     when it has a cache and one token)."""
-    with obs.span(f"layer.{spec.mixer}"):
-        h = _norm(x, params["norm_mixer"], cfg)
-        if spec.mixer == "mamba":
-            x = x + ssm.mamba2_apply(
-                params["mamba"], h, cfg,
-                cache=cache["mamba"] if cache is not None else None)
-        elif spec.mixer == "mla":
-            x = x + attention.mla_attention(
-                params["attn"], h, cfg, positions=positions,
-                cache=cache["attn"] if cache is not None else None,
-                prefill=prefill)
-        else:
-            x = x + attention.gqa_attention(
-                params["attn"], h, cfg, positions=positions, causal=causal,
-                cache=cache["attn"] if cache is not None else None,
-                block_kv=cfg.attn_block_kv, prefill=prefill)
-    if spec.cross:
-        h = _norm(x, params["norm_cross"], cfg)
-        x = x + attention.gqa_attention(
-            params["cross"], h, cfg, positions=positions, causal=False,
-            cache=cache["cross"] if cache is not None else None,
-            prefill=prefill, kv_input=enc_out if enc_out is not None else h,
-            cross_cached=cross_cached)
     aux = x.new_zeros((), dtype=torch.float32)
-    if spec.ffn != "none":
-        with obs.span(f"layer.{spec.ffn}"):
-            h = _norm(x, params["norm_ffn"], cfg)
-            if spec.ffn == "moe":
-                out, aux = moe_lib.moe_apply(params["moe"], h, cfg,
-                                             ep_ranks=ep_ranks)
+    parts = block_parts(spec, cfg)
+    for (norm, _), (key, kind) in zip(parts[::2], parts[1::2]):
+        span = {"norm_mixer": spec.mixer, "norm_ffn": spec.ffn}.get(norm)
+        with obs.span(f"layer.{span}") if span else contextlib.nullcontext():
+            h = _norm(x, params[norm], cfg)
+            p, c = params[key], cache.get(key) if cache is not None else None
+            if kind == "mamba":
+                out = ssm.mamba2_apply(p, h, cfg, cache=c)
+            elif kind == "mla":
+                out = attention.mla_attention(p, h, cfg, positions=positions,
+                                              cache=c, prefill=prefill)
+            elif kind == "gqa":
+                out = attention.gqa_attention(
+                    p, h, cfg, positions=positions, causal=causal, cache=c,
+                    block_kv=cfg.attn_block_kv, prefill=prefill)
+            elif kind == "cross":
+                out = attention.gqa_attention(
+                    p, h, cfg, positions=positions, causal=False, cache=c,
+                    prefill=prefill,
+                    kv_input=enc_out if enc_out is not None else h,
+                    cross_cached=cross_cached)
+            elif kind == "moe":
+                out, aux = moe_lib.moe_apply(p, h, cfg, ep_ranks=ep_ranks)
             else:
-                mlp = layers.gelu_mlp if cfg.act == "gelu" else layers.swiglu
-                out = mlp(h, params["mlp"])
+                out = (layers.gelu_mlp if kind == "gelu" else layers.swiglu)(
+                    h, p)
             x = x + out
     return logical_constraint(x, "batch", "seq", "embed"), aux
 
 
 def init_block_cache(spec: LayerSpec, cfg, batch: int, max_seq: int, dtype,
                      device, enc_len: int = 0) -> dict:
-    if spec.mixer == "mamba":
-        c = {"mamba": ssm.init_mamba2_cache(cfg, batch, dtype, device)}
-    elif spec.mixer == "mla":
-        c = {"attn": attention.init_mla_cache(cfg, batch, max_seq, dtype,
-                                              device)}
-    else:
-        c = {"attn": attention.init_gqa_cache(cfg, batch, max_seq, dtype,
-                                              device)}
-    if spec.cross:
-        shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
-        c["cross"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
-                      "v": torch.zeros(shape, dtype=dtype, device=device)}
-    return c
+    return {key: k.cache(cfg, batch, max_seq, dtype, device, enc_len)
+            for key, k in _kinds(spec, cfg) if k.cache}
 
 
 def block_cache_spec(spec: LayerSpec, cfg) -> dict:
-    if spec.mixer == "mamba":
-        c = {"mamba": ssm.mamba2_cache_spec(cfg)}
-    elif spec.mixer == "mla":
-        c = {"attn": attention.mla_cache_spec(cfg)}
-    else:
-        c = {"attn": attention.gqa_cache_spec(cfg)}
-    if spec.cross:
-        c["cross"] = {"k": ("batch", None, "kv_heads", None),
-                      "v": ("batch", None, "kv_heads", None)}
-    return c
+    return {key: k.cache_spec(cfg) for key, k in _kinds(spec, cfg)
+            if k.cache_spec}
+
+
+def _stages(cfg, plan) -> tuple[list[LayerSpec], int, int, int]:
+    """``plan`` (default ``layer_plan(cfg)``), prefix, period, count."""
+    plan = plan if plan is not None else layer_plan(cfg)
+    prefix, period = stage_plan(plan)
+    return plan, prefix, period, (len(plan) - prefix) // period
+
+
+def _per_stage(cfg, plan, fn: Callable) -> tuple[list, dict, int]:
+    """``fn`` of each prefix block's spec, of each of a period's keyed
+    ``l{j}`` (``{}`` when no period is scanned), and the period count."""
+    plan, prefix, period, count = _stages(cfg, plan)
+    return ([fn(plan[i]) for i in range(prefix)],
+            {f"l{j}": fn(plan[prefix + j]) for j in range(period)}
+            if count else {}, count)
 
 
 def init_stack(gen, cfg, device, plan: list[LayerSpec] | None = None) -> dict:
-    plan = plan if plan is not None else layer_plan(cfg)
-    prefix, period = stage_plan(plan)
-    count = (len(plan) - prefix) // period
+    plan, prefix, period, count = _stages(cfg, plan)
     params: dict = {"prefix": [init_block(gen, plan[i], cfg, device)
                                for i in range(prefix)]}
     if count:
@@ -281,70 +300,49 @@ def init_stack(gen, cfg, device, plan: list[LayerSpec] | None = None) -> dict:
     return params
 
 
+def _stacked_spec(cfg, plan, block_fn: Callable) -> dict:
+    prefix, scan, count = _per_stage(cfg, plan, block_fn)
+    spec: dict = {"prefix": prefix}
+    if count:
+        # scanned leaves get a leading (stacked, unsharded) layer axis
+        spec["scan"] = map_specs(lambda names: (None, *names), scan)
+    return spec
+
+
 def stack_spec(cfg, plan: list[LayerSpec] | None = None) -> dict:
     """The stack's parameter spec tree: the prefix blocks', then the
     scanned blocks' with a leading (stacked, unsharded) layer axis."""
-    plan = plan if plan is not None else layer_plan(cfg)
-    prefix, period = stage_plan(plan)
-    count = (len(plan) - prefix) // period
-    spec: dict = {"prefix": [block_spec(plan[i], cfg) for i in range(prefix)]}
-    if count:
-        spec["scan"] = map_specs(
-            lambda names: (None, *names),
-            {f"l{j}": block_spec(plan[prefix + j], cfg)
-             for j in range(period)})
-    return spec
+    return _stacked_spec(cfg, plan, lambda spec: block_spec(spec, cfg))
 
 
 def stack_compute_dtype_leaves(cfg, plan: list[LayerSpec] | None = None
                                ) -> list[tuple]:
-    """:func:`block_compute_dtype_leaves` of every block, as paths in the
-    stack's parameter tree (a scanned leaf holds every period's layer)."""
-    plan = plan if plan is not None else layer_plan(cfg)
-    prefix, period = stage_plan(plan)
-    count = (len(plan) - prefix) // period
-    paths = [("prefix", i) + p for i in range(prefix)
-             for p in block_compute_dtype_leaves(plan[i], cfg)]
-    if count:
-        paths += [("scan", f"l{j}") + p for j in range(period)
-                  for p in block_compute_dtype_leaves(plan[prefix + j], cfg)]
-    return paths
+    """Paths in the stack's parameter tree of the leaves that every read
+    casts whole to the compute dtype, each block's in the order of its
+    parts (a scanned leaf holds every period's layer)."""
+    prefix, scan, _ = _per_stage(cfg, plan, lambda spec: [
+        (key,) + path for key, k in _kinds(spec, cfg)
+        for path in k.compute_dtype])
+    return ([("prefix", i) + p for i, ps in enumerate(prefix) for p in ps]
+            + [("scan", name) + p for name, ps in scan.items() for p in ps])
 
 
 def init_stack_cache(cfg, batch: int, max_seq: int, dtype, device,
                      enc_len: int = 0, plan: list[LayerSpec] | None = None
                      ) -> dict:
-    plan = plan if plan is not None else layer_plan(cfg)
-    prefix, period = stage_plan(plan)
-    count = (len(plan) - prefix) // period
-    cache: dict = {
-        "step": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "prefix": [init_block_cache(plan[i], cfg, batch, max_seq, dtype,
-                                    device, enc_len) for i in range(prefix)]}
+    step = torch.zeros((batch,), dtype=torch.int32, device=device)
+    prefix, scan, count = _per_stage(cfg, plan, lambda spec: init_block_cache(
+        spec, cfg, batch, max_seq, dtype, device, enc_len))
+    cache: dict = {"step": step, "prefix": prefix}
     if count:
-        blk = {f"l{j}": init_block_cache(plan[prefix + j], cfg, batch,
-                                         max_seq, dtype, device, enc_len)
-               for j in range(period)}
         cache["scan"] = tree_map(
-            lambda t: t[None].repeat((count,) + (1,) * t.dim()), blk)
+            lambda t: t[None].repeat((count,) + (1,) * t.dim()), scan)
     return cache
 
 
 def stack_cache_spec(cfg, plan: list[LayerSpec] | None = None) -> dict:
-    plan = plan if plan is not None else layer_plan(cfg)
-    prefix, period = stage_plan(plan)
-    count = (len(plan) - prefix) // period
-    spec: dict = {"step": ("batch",),
-                  "prefix": [block_cache_spec(plan[i], cfg)
-                             for i in range(prefix)]}
-    if count:
-        # scanned leaves get a leading (stacked) layer axis
-        spec["scan"] = {
-            f"l{j}": {part: {leaf: (None, *names) for leaf, names in
-                             sub.items()} for part, sub in
-                      block_cache_spec(plan[prefix + j], cfg).items()}
-            for j in range(period)}
-    return spec
+    return {"step": ("batch",), **_stacked_spec(
+        cfg, plan, lambda spec: block_cache_spec(spec, cfg))}
 
 
 def _period_slices(tree: dict, count: int) -> list[dict]:
@@ -370,9 +368,7 @@ def apply_stack(params: dict, x: torch.Tensor, cfg, *,
     every block reads and writes its slice in place and ``cache['step']``
     advances by the sequence length; ``enc_out`` and ``cross_cached`` go to
     the cross-attention of an enc-dec decoder."""
-    plan = plan if plan is not None else layer_plan(cfg)
-    prefix, period = stage_plan(plan)
-    count = (len(plan) - prefix) // period
+    plan, prefix, period, count = _stages(cfg, plan)
     aux_total = x.new_zeros((), dtype=torch.float32)
 
     def run(p, spec, x, aux, sub):
@@ -427,8 +423,8 @@ def apply_stack(params: dict, x: torch.Tensor, cfg, *,
     return x, aux_total
 
 
-__all__ = ["LayerSpec", "layer_plan", "stage_plan", "init_block",
-           "block_spec", "block_compute_dtype_leaves", "apply_block",
+__all__ = ["LayerSpec", "layer_plan", "stage_plan", "block_parts",
+           "init_block", "block_spec", "apply_block",
            "init_block_cache", "block_cache_spec", "init_stack", "stack_spec",
            "stack_compute_dtype_leaves", "apply_stack", "init_stack_cache",
            "stack_cache_spec"]
