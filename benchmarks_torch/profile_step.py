@@ -33,7 +33,8 @@ its layers and published widths behind a dense engine of 4 slots —
 ``--arch mamba2-370m`` (``max_seq`` 4096, 2040-token prompts) or ``--arch
 jamba-v0.1-52b`` (one period of 8 layers, ``max_seq`` 2048, 1016-token
 prompts) — admits four requests as warm-up, then traces one prefill (a
-fifth prompt into slot 0) and one decode tick over the four slots, and
+fifth prompt into slot 0) and one decode tick over the four slots (a
+replay of the executor's CUDA graph: no layer spans), and
 prints for each the same wall, busy and idle, the kernels' launches and
 shares of the busy time (K7 where the stack has attention; K8 and the SSD
 pass, the two kernels of the SSD scan, where it has Mamba2 layers), the
@@ -165,7 +166,7 @@ def profile_serve(torch, arch: str) -> int:
     for rid, prompt in enumerate(prompts[:slots]):
         eng.submit(Request(rid, prompt, 64))
     eng.step()                        # warm-up: four prefills, one tick
-    eng.step()
+    eng.step()                        # the tick captured: later ones replay
     tok = torch.as_tensor(prompts[-1], dtype=torch.int64,
                           device="cuda")[None]
     parts = (("prefill", lambda: eng.executor.prefill(

@@ -92,8 +92,10 @@
    derived from the layer plan; and the
    serving path: ``qwen3-4b`` at all 36 layers and published widths behind
    a dense engine and a paged engine with copy-on-write prefix sharing,
-   one request set each, every prefill's attention on K7 — greedy tokens
-   equal bit for bit, the page pool conserved, K7 launched 36 times per
+   each decode tick a replayed CUDA graph, and a dense engine decoding
+   eagerly, one request set each, every prefill's attention on K7 —
+   greedy tokens equal bit for bit, the page pool conserved, K7 launched
+   36 times per
    prefill, and one prefill's logits held to the same prefill on K7's
    plain version; the tiered pool (``[serve-tier]``): the same model,
    parameters and requests behind ``kv_pages=(2 x 128, 4 x 128)`` with
@@ -144,7 +146,8 @@
    payload bit for bit the CPU's, the wire ratios; and
    the hybrid stack (``[serve-hybrid]``): ``jamba-v0.1-52b`` at published
    widths cut to one period (8 of 32 layers: 7 Mamba2, 1 attention, 4 MoE
-   of all 16 experts) behind a dense and a paged + COW engine with the
+   of all 16 experts) behind a dense and a paged + COW engine replaying
+   the decode graph and a dense engine decoding eagerly, with the
    ``[serve]`` request set — greedy tokens equal bit for bit, the pool
    conserved, a page payload the attention layer's KV alone, per prefill
    K7 once and K8 and the pass 7 times, one prefill's logits held to the
@@ -467,6 +470,19 @@ def empty_launch(torch, *, as_wait: bool) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def check_decode_ticks(what: str, stats: dict, ticks: int,
+                       eager: bool = False) -> None:
+    """An engine's decode ticks ran as the executor runs them on the card:
+    the first eagerly, the second captured in a CUDA graph and replayed,
+    every later one replayed; an engine made to run eagerly
+    (``executor._decode_eager``) captured nothing."""
+    got = (stats["decode_eager"], stats["decode_graph_captures"],
+           stats["decode_graph_replays"])
+    want = (ticks, 0, 0) if eager else (1, 1, ticks - 1)
+    check(got == want, f"{what}: decode ticks (eager, captures, replays) "
+          f"{got}, want {want}")
 
 
 def dryrun_card(torch, dev, smi, n, K, get_config, path_counts) -> None:
@@ -2784,11 +2800,13 @@ def main() -> int:
     prompts += [prng.randint(0, cfg_serve.vocab, size=SERVE_PROMPT)
                 for _ in range(SERVE_REQUESTS - len(prompts))]
     serve_out = {}
-    for mode, kw in (("dense", {}),
+    for mode, kw in (("dense", {}), ("dense eager", {}),
                      ("paged+cow", dict(paged_kv=True, page_tokens=SERVE_PAGE,
                                         prefix_share=True))):
         eng = ServeEngine(serve_model, serve_params, n_slots=SERVE_SLOTS,
                           max_seq=SERVE_MAX_SEQ, **kw)
+        if mode == "dense eager":
+            eng.executor.decode = eng.executor._decode_eager
         for rid, prompt in enumerate(prompts):
             eng.submit(Request(rid, prompt, SERVE_NEW))
         spent = {"prefill": [], "decode": []}
@@ -2820,6 +2838,8 @@ def main() -> int:
             len(t) == SERVE_NEW and all(0 <= x < cfg_serve.vocab for x in t)
             for t in tokens.values()), f"{mode}: tokens {tokens}")
         st = eng.stats()
+        check_decode_ticks(f"serve {mode}", st, len(spent["decode"]),
+                           eager=mode == "dense eager")
         if eng.paged_kv:
             eng.pool.check_conservation()
             check(st["cow_copies"] > 0 and st["pages_shared"] > 0,
@@ -2841,8 +2861,11 @@ def main() -> int:
         del eng
     check(serve_out["dense"] == serve_out["paged+cow"],
           "dense and paged+COW greedy tokens differ")
-    print("[serve] dense and paged+COW greedy tokens equal bit for bit",
-          flush=True)
+    check(serve_out["dense"] == serve_out["dense eager"],
+          "the replayed decode graph's greedy tokens differ from the eager "
+          "step's")
+    print("[serve] dense, dense eager and paged+COW greedy tokens equal bit "
+          "for bit", flush=True)
     # one prefill on K7 against the same prefill on K7's plain version
     tok = torch.as_tensor(prompts[0], dtype=torch.int64, device=dev)[None]
     logits = {}
@@ -2988,6 +3011,7 @@ def main() -> int:
     counts = path_counts("serve tier", ("ring_put", "put_wait",
                                         "flash_attention"))
     st = eng.stats()
+    check_decode_ticks("serve tier", st, len(spent["decode"]))
     moved = st["demotions"] + st["promotions"]
     tokens = {c.rid: c.tokens for c in done}
     check(tokens == serve_out["dense"],
@@ -3546,6 +3570,7 @@ def main() -> int:
         check(counts[name] == cfg_ssm.n_layers * n_prefill,
               f"serve-ssm: {name} launched {counts[name]} times, want "
               f"{cfg_ssm.n_layers} x {n_prefill} prefills")
+    check_decode_ticks("serve-ssm", eng.stats(), len(spent["decode"]))
     tokens = {c.rid: c.tokens for c in done}
     check(sorted(tokens) == list(range(SSM_REQUESTS)) and all(
         len(t) == SSM_NEW and all(0 <= x < cfg_ssm.vocab for x in t)
@@ -3909,11 +3934,13 @@ def main() -> int:
     hyb_prompts += [prng.randint(0, cfg_hyb.vocab, size=SERVE_PROMPT)
                     for _ in range(SERVE_REQUESTS - len(hyb_prompts))]
     hyb_out = {}
-    for mode, kw in (("dense", {}),
+    for mode, kw in (("dense", {}), ("dense eager", {}),
                      ("paged+cow", dict(paged_kv=True, page_tokens=SERVE_PAGE,
                                         prefix_share=True))):
         eng = ServeEngine(hyb_model, hyb_params, n_slots=SERVE_SLOTS,
                           max_seq=SERVE_MAX_SEQ, **kw)
+        if mode == "dense eager":
+            eng.executor.decode = eng.executor._decode_eager
         for rid, prompt in enumerate(hyb_prompts):
             eng.submit(Request(rid, prompt, SERVE_NEW))
         spent = {"prefill": [], "decode": []}
@@ -3952,6 +3979,8 @@ def main() -> int:
             len(t) == SERVE_NEW and all(0 <= x < cfg_hyb.vocab for x in t)
             for t in tokens.values()), f"serve-hybrid {mode}: {tokens}")
         st = eng.stats()
+        check_decode_ticks(f"serve-hybrid {mode}", st, len(spent["decode"]),
+                           eager=mode == "dense eager")
         if eng.paged_kv:
             eng.pool.check_conservation()
             check(st["cow_copies"] > 0 and st["pages_shared"] > 0,
@@ -3979,8 +4008,11 @@ def main() -> int:
         gc.collect()
     check(hyb_out["dense"] == hyb_out["paged+cow"],
           "serve-hybrid: dense and paged+COW greedy tokens differ")
-    print("[serve-hybrid] dense and paged+COW greedy tokens equal bit for "
-          "bit", flush=True)
+    check(hyb_out["dense"] == hyb_out["dense eager"],
+          "serve-hybrid: the replayed decode graph's greedy tokens differ "
+          "from the eager step's")
+    print("[serve-hybrid] dense, dense eager and paged+COW greedy tokens "
+          "equal bit for bit", flush=True)
     # one prefill on K7, K8 and the pass against the same prefill on their
     # plain versions, and one decode step after it
     tok = torch.as_tensor(hyb_prompts[0], dtype=torch.int64,

@@ -10,8 +10,9 @@ Three layers, as in the JAX package's ``serve/engine.py``:
   refcounts on physical KV pages, copy-on-write prefix sharing, FIFO free
   list, double-free guards.
 * :class:`Executor` (here) — the **execution** layer: owns the batched
-  device cache and runs prefill and decode eagerly, writing the cache in
-  place; one host read per call (the greedy tokens).
+  device cache and runs prefill and decode, writing the cache in place;
+  one host read per call (the greedy tokens).  On a CUDA card a decode
+  tick is one replay of a captured CUDA graph.
 
 :class:`ServeEngine` wires the three together (``submit`` / ``step`` /
 ``run`` / ``stats``, ``slot_free`` / ``slot_req`` / ``done``).
@@ -215,7 +216,7 @@ def _insert_row(full: torch.Tensor, one: torch.Tensor, slot: int,
 
 
 class Executor:
-    """The execution layer: the batched cache and eager prefill/decode.
+    """The execution layer: the batched cache, prefill and decode.
 
     Decisions live elsewhere — the scheduler picks *what* runs, the pool
     manager *which pages* back it; the executor is handed a slot, a
@@ -226,7 +227,20 @@ class Executor:
     caller's tree holds each leaf the model reads only in its compute
     dtype in that dtype (:func:`own_weights`; ``weight_stats`` keeps the
     counts), and the caller reads no float32 values from those leaves
-    again."""
+    again.
+
+    Everything is written in place: no leaf of ``self.cache`` or of
+    ``self.params`` is ever rebound or reallocated after construction.
+    Prefill's insertion, the page operations, the tier's payload writes
+    and ``park`` write into the leaves the decode tick reads.  On a CUDA
+    card the tick relies on it: the first :meth:`decode` runs eagerly on
+    the stream the capture uses, the second captures one step (the
+    model's ``decode_step`` and the greedy argmax, between a static token
+    buffer and a static output) in a CUDA graph and replays it, and every
+    later one replays it; the graph reads and writes the leaves at the
+    addresses they had when it was captured.  On the CPU every tick runs
+    the same step eagerly.  ``decode_counts`` counts captures, replays
+    and eager ticks."""
 
     def __init__(self, model, params, *, n_slots: int, max_seq: int,
                  paged_kv: bool = False, page_tokens: int = 16):
@@ -249,6 +263,17 @@ class Executor:
                     "stay dense) — the paged data plane would be a no-op")
             self.cache = paged_cache
         self.weight_stats = own_weights(model, params)
+        self.decode_counts = {"decode_graph_captures": 0,
+                              "decode_graph_replays": 0, "decode_eager": 0}
+        self._graph = None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._staged = torch.zeros((n_slots, 1), dtype=torch.int64,
+                                       pin_memory=True)
+            self._tokens = torch.zeros((n_slots, 1), dtype=torch.int64,
+                                       device=self.device)
+            self._next = torch.zeros((n_slots,), dtype=torch.int32,
+                                     device=self.device)
 
     # -- the two model calls ----------------------------------------------------
     def prefill(self, tokens: torch.Tensor, slot: int, phys_pages: list,
@@ -261,17 +286,67 @@ class Executor:
         return int(torch.argmax(logits[0, -1]))
 
     def decode(self, last_tokens: np.ndarray) -> np.ndarray:
-        """One decode step over every slot; returns per-slot argmax (one
-        host read)."""
+        """One decode step over every slot (``last_tokens`` (n_slots, 1));
+        returns per-slot argmax (one host read).  On a CUDA card a replay
+        of the captured step (see the class)."""
+        if self.device.type != "cuda":
+            return self._decode_eager(last_tokens)
+        with obs.span("decode.h2d"):
+            # the last tick's read waited for the copy out of the staging
+            # buffer, so it is free to refill
+            self._staged.numpy()[:] = np.reshape(last_tokens,
+                                                 (self.n_slots, 1))
+            self._tokens.copy_(self._staged, non_blocking=True)
+        if self._graph is None:
+            self._decode_warm_or_capture()
+        else:
+            with obs.span("decode.model"):
+                self._graph.replay()
+            self.decode_counts["decode_graph_replays"] += 1
+        with obs.span("decode.read"):
+            return self._next.cpu().numpy()
+
+    def _step(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The decode step: the model's step over the cache, in place, and
+        each row's greedy token (int32)."""
+        logits, _ = self.model.decode_step(self.params, self.cache, tokens)
+        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+
+    def _decode_eager(self, last_tokens: np.ndarray) -> np.ndarray:
+        """The step run eagerly: every tick on the CPU, and the reference
+        the card's replayed tick is held to."""
         with obs.span("decode.h2d"):
             tokens = torch.as_tensor(last_tokens, dtype=torch.int64,
                                      device=self.device)
         with obs.span("decode.model"):
-            logits, self.cache = self.model.decode_step(
-                self.params, self.cache, tokens)
+            nxt = self._step(tokens)
+        self.decode_counts["decode_eager"] += 1
         with obs.span("decode.read"):
-            return torch.argmax(logits[:, -1, :], dim=-1).to(
-                torch.int32).cpu().numpy()
+            return nxt.cpu().numpy()
+
+    def _decode_warm_or_capture(self) -> None:
+        """The card's first tick runs the step eagerly on the capture's
+        stream (cuBLAS and the allocator warm there); the second captures
+        it and replays the graph once, which runs this tick: a capture
+        records without running, and a tick that is not real would
+        advance the cache."""
+        side, main = self._stream, torch.cuda.current_stream(self.device)
+        if not self.decode_counts["decode_eager"]:
+            side.wait_stream(main)
+            with obs.span("decode.model"), torch.cuda.stream(side):
+                self._next.copy_(self._step(self._tokens))
+            main.wait_stream(side)
+            self.decode_counts["decode_eager"] += 1
+            return
+        graph = torch.cuda.CUDAGraph()
+        with obs.span("decode.capture"), torch.cuda.graph(graph,
+                                                          stream=side):
+            self._next.copy_(self._step(self._tokens))
+        self._graph = graph
+        self.decode_counts["decode_graph_captures"] += 1
+        with obs.span("decode.model"):
+            graph.replay()
+        self.decode_counts["decode_graph_replays"] += 1
 
     # -- paged-pool device ops ---------------------------------------------------
     def fork_page(self, slot: int, j: int, src: int, dst: int) -> None:
@@ -454,7 +529,9 @@ class ServeEngine:
     tree holds each leaf the model reads only in its compute dtype in that
     dtype, converted once in its own bytes (:class:`Executor`);
     ``stats()`` counts them (``weights_converted``,
-    ``weights_converted_bytes``, ``weights_kept``)."""
+    ``weights_converted_bytes``, ``weights_kept``), and the decode ticks
+    by how they ran (``decode_graph_captures``, ``decode_graph_replays``,
+    ``decode_eager``)."""
 
     def __init__(self, model, params, *, n_slots: int, max_seq: int,
                  paged_kv: bool = False, page_tokens: int = 16,
@@ -644,7 +721,7 @@ class ServeEngine:
                "ticks": self._tick, "incomplete": self._incomplete,
                "max_live": self.max_live, "evictions": self.evictions,
                "offline_slots": len(self._offline),
-               **self.executor.weight_stats}
+               **self.executor.weight_stats, **self.executor.decode_counts}
         if self.paged_kv:
             out.update(pages_allocated=self.pool.allocs,
                        pages_freed=self.pool.frees,
